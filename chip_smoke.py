@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Chip smoke test: cuvite_tpu_torch's main path on one CUDA card.
+"""Chip smoke test: cuvite_tpu_torch's main paths on one CUDA card.
 
     python3 chip_smoke.py [--scale 20] [--check-scale 14]
+                          [--rgg-nv 4194304] [--rgg-check-nv 65536]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -22,9 +23,27 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    phase nv, ne, iterations, Q and seconds; fails if a kernel never
    launched or the reported Q is more than 1e-6 from the host f64
    modularity of the returned labels;
-6. each kernel timed with CUDA events at the phase-0 shapes of that graph
-   (the row kernel also width by width), beside its twin and its bound
-   from the real rows and edges, printed as one JSON line.
+6. the row and heavy kernels timed with CUDA events at the phase-0 shapes
+   of that graph (the row kernel also width by width), beside their twins
+   and bounds from the real rows and edges;
+7. the seg_coalesce kernel against its twin at nv_pad 64, 1024 and 4096,
+   dyadic and RGG-like float weights, duplicates, heavy self-loop runs,
+   zero-weight rows, gapped ids and padding rows: acc and cnt bit-equal,
+   and the emitted slab bit-equal to the sort engine's;
+8. louvain_phases(engine="sort") on RGG --rgg-check-nv on the card and on
+   the CPU: identical labels, phases and iterations, Q to 1e-9, and at
+   least one dense coarsening;
+9. the sort path: louvain_phases(engine="sort") on RGG --rgg-nv, with the
+   kernels' launch counts set to 0 just before and read just after; per
+   phase nv, ne, iterations, Q, seconds, coalesce engine and coarsen
+   seconds; fails if seg_coalesce never launched, if the reported Q is
+   more than 1e-6 from the host f64 modularity of the labels, or if a
+   dense coarsening's rows differ from the sort engine's on the same
+   relabeled slab (src, dst, count exact; weights at most one f32 ulp);
+   then one phase-0 sort sweep timed on the device stream;
+10. seg_coalesce timed at the first dense coarsening of that run beside
+   its twin, the compaction, the whole sort engine, two torch.bincount
+   calls and its bound; all three kernels printed as one JSON line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -42,6 +61,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
 SLEEP_CYCLES = 20_000_000  # ~10 ms of sleep kernel ahead of each timing
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
@@ -66,6 +86,8 @@ def bits_equal(a, b) -> bool:
     a, b = a.cpu(), b.cpu()
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
     return a.shape == b.shape and torch.equal(a, b)
 
 
@@ -301,9 +323,9 @@ def run_main_path(g, scale: int) -> dict:
 # misses L2.  Operations are counted as 8 f32 operations per real slot or
 # heavy edge, an upper bound: one compare and one add per slot, and at most
 # one 7-operation gain (plus its compare) per distinct community.
-def bound(n_bytes: int, ops: int) -> tuple:
+def bound(n_bytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -419,12 +441,239 @@ def time_kernels(g, launches: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-10: the seg_coalesce kernel and the sort path.
+
+
+def coalesce_case(nv_pad: int, ne_pad: int, seed: int, gapped: bool,
+                  weights: str, dev):
+    """A relabeled slab: real rows in a prefix, padding (src == nv_pad,
+    dst == 0, w == 0) after; the first eighth of the real rows are
+    self-loops (heavy self-loop runs), 37 real rows weigh 0.  ``gapped``:
+    ids from a sparse subset.  ``weights``: 'dyadic' (multiples of 1/8) or
+    'float' (RGG-like distances in (0, 0.01))."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_real = ne_pad - ne_pad // 5
+    pool = (rng.choice(nv_pad, size=max(nv_pad // 11, 2), replace=False)
+            if gapped else np.arange(nv_pad))
+    src = np.full(ne_pad, nv_pad, np.int32)
+    dst = np.zeros(ne_pad, np.int32)
+    w = np.zeros(ne_pad, np.float32)
+    src[:n_real] = rng.choice(pool, size=n_real)
+    dst[:n_real] = rng.choice(pool, size=n_real)
+    src[: n_real // 8] = dst[: n_real // 8]
+    if weights == "dyadic":
+        w[:n_real] = rng.integers(1, 64, n_real) / 8.0
+    else:
+        w[:n_real] = rng.uniform(1e-4, 1e-2, n_real)
+    w[n_real // 2: n_real // 2 + 37] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (src, dst, w)]
+
+
+def rows_equal(a, b) -> bool:
+    """(src, dst, w, n) of two coalesced slabs, bit for bit."""
+    return a[3] == b[3] and all(bits_equal(x, y) for x, y in zip(a[:3], b[:3]))
+
+
+def check_coalesce(dev) -> None:
+    from cuvite_tpu_torch.kernels.seg_coalesce import (
+        coalesce_slab,
+        seg_coalesce,
+        seg_coalesce_plain,
+    )
+    from cuvite_tpu_torch.ops.segment import coalesced_runs
+
+    for nv_pad in (64, 1024, 4096):
+        for weights in ("dyadic", "float"):
+            args = coalesce_case(nv_pad, 1 << 16, nv_pad, nv_pad == 1024,
+                                 weights, dev)
+            acc, cnt = seg_coalesce(*args, nv_pad=nv_pad)
+            racc, rcnt = seg_coalesce_plain(*args, nv_pad=nv_pad)
+            if not (bits_equal(acc, racc) and bits_equal(cnt, rcnt)):
+                fail(f"seg_coalesce nv_pad {nv_pad} {weights}: acc/cnt "
+                     "differ from the twin")
+            got = coalesce_slab(*args, nv_pad=nv_pad)
+            ref = coalesced_runs(*args, nv_pad=nv_pad, engine="sort")
+            if not rows_equal(got, ref):
+                fail(f"seg_coalesce nv_pad {nv_pad} {weights}: emitted "
+                     "slab differs from the sort engine's")
+            print(f"  seg_coalesce nv_pad {nv_pad:5d} {weights:6s}: "
+                  f"{args[0].numel()} rows -> {got[3]} runs, acc/cnt "
+                  "bit-equal to the twin, rows to the sort engine")
+
+
+def check_sort_card_vs_cpu(nv: int) -> None:
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rgg
+
+    g = generate_rgg(nv)
+    rg = louvain_phases(g, device="cuda", engine="sort")
+    rc = louvain_phases(g, device="cpu", engine="sort")
+    if not np.array_equal(rg.communities, rc.communities):
+        fail(f"RGG {nv} sort engine: card and CPU labels differ")
+    its = ([p.iterations for p in rg.phases], [p.iterations for p in rc.phases])
+    if its[0] != its[1]:
+        fail(f"RGG {nv} sort engine: phases/iterations differ: {its}")
+    if abs(rg.modularity - rc.modularity) > 1e-9:
+        fail(f"RGG {nv} sort engine: Q {rg.modularity} vs {rc.modularity}")
+    engines = [p.coalesce for p in rg.phases]
+    if "dense" not in engines:
+        fail(f"RGG {nv} sort engine: no dense coarsening ({engines})")
+    print(f"  RGG {nv}: {g.num_edges} directed edges, {len(rg.phases)} "
+          f"phases, iterations {its[0]}, Q {rg.modularity:.9f} on card and "
+          f"CPU, labels identical; coarsenings {engines}")
+
+
+def run_sort_path(g, nv: int) -> tuple:
+    """The sort path on the card; returns (seg_coalesce launches, the
+    dense coarsenings' relabeled slabs and results)."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
+    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
+    from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
+    from cuvite_tpu_torch.ops import segment as seg
+
+    # Observe, without changing, every coalesce of the run: keep the
+    # relabeled slab and the result of each dense one.
+    captured = []
+    coalesced_runs = seg.coalesced_runs
+
+    def observed(src, ckey, w, *, nv_pad, engine="sort"):
+        out = coalesced_runs(src, ckey, w, nv_pad=nv_pad, engine=engine)
+        if engine == "dense":
+            captured.append(((src, ckey, w), nv_pad, out))
+        return out
+
+    seg.coalesced_runs = observed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row_argmax.launches = heavy_argmax.launches = 0
+        seg_coalesce.launches = 0
+        t0 = time.perf_counter()
+        res = louvain_phases(g, engine="sort")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = seg_coalesce.launches
+    finally:
+        seg.coalesced_runs = coalesced_runs
+    for p in res.phases:
+        st = " ".join(f"{k} {v:.3f}" for k, v in p.stages.items())
+        print(f"  phase {p.phase}: nv {p.num_vertices} ne {p.num_edges} "
+              f"iterations {p.iterations} Q {p.modularity:.9f} seconds "
+              f"{p.seconds:.3f} coalesce {p.coalesce} (host stages, s: "
+              f"{st})")
+    print(f"  RGG {nv}: total {total_s:.3f} s, {res.total_iterations} "
+          f"sweeps, max_memory_allocated {torch.cuda.max_memory_allocated()}"
+          f" B, seg_coalesce launches {launches} (row_argmax "
+          f"{row_argmax.launches}, heavy_bincount {heavy_argmax.launches})")
+    if launches == 0:
+        fail(f"seg_coalesce never launched on the RGG {nv} sort path "
+             f"(coarsenings {[p.coalesce for p in res.phases]})")
+    q_host = modularity(g, res.communities)
+    if abs(q_host - res.modularity) > 1e-6:
+        fail(f"RGG {nv}: reported Q {res.modularity} vs host f64 {q_host}")
+    print(f"  reported Q {res.modularity:.9f}, host f64 Q {q_host:.9f}")
+    for k, (args, nv_pad, got) in enumerate(captured):
+        ref = coalesced_runs(*args, nv_pad=nv_pad, engine="sort")
+        if got[3] != ref[3] or not (bits_equal(got[0], ref[0])
+                                    and bits_equal(got[1], ref[1])):
+            fail(f"dense coarsening {k} (nv_pad {nv_pad}): rows differ "
+                 "from the sort engine's")
+        n = got[3]
+        a = got[2][:n].cpu().view(torch.int32).long()
+        b = ref[2][:n].cpu().view(torch.int32).long()
+        ulps = (a - b).abs()
+        if n and int(ulps.max()) > 1:
+            fail(f"dense coarsening {k}: a weight differs by "
+                 f"{int(ulps.max())} f32 ulps from the sort engine's")
+        print(f"  dense coarsening {k}: nv_pad {nv_pad}, "
+              f"{args[0].numel()} slab rows -> {n} rows, equal to the sort "
+              f"engine's; {int((ulps > 0).sum())} weights one ulp apart")
+    return launches, captured
+
+
+def time_sort_sweep(g) -> float:
+    """Milliseconds of one phase-0 sort-engine sweep (identity assignment)
+    on the device stream: with the sweep count, an upper bound on the
+    phase's device-busy time."""
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.louvain.driver import PhaseRunner
+
+    run = PhaseRunner(DistGraph.build(g), "cuda", "sort")
+    return time_ms(lambda: run.step(run.comm0), 10)
+
+
+def time_coalesce(launches: int, captured: list) -> dict:
+    """seg_coalesce at the relabeled slab of the sort path's first dense
+    coarsening.  The bound counts the bytes the function must move: 12 B
+    per real slab row read (src, dst, w) and the nv_pad^2 x 12 B of
+    outputs (f64 acc, i32 cnt) written once; its operations are one f64
+    add per real row."""
+    import torch
+
+    from cuvite_tpu_torch.kernels.seg_coalesce import (
+        emit_coalesced,
+        seg_coalesce,
+        seg_coalesce_plain,
+    )
+    from cuvite_tpu_torch.ops.segment import coalesced_runs
+
+    (src, dst, w), nv_pad, _ = captured[0]
+    acc, cnt = seg_coalesce(src, dst, w, nv_pad=nv_pad)
+    racc, rcnt = seg_coalesce_plain(src, dst, w, nv_pad=nv_pad)
+    err = max(float((acc - racc).abs().max()),
+              float((cnt - rcnt).abs().max()))
+    real = src < nv_pad
+    rows = int(real.sum())
+    kbits = (nv_pad - 1).bit_length()
+    flat = (src[real].long() << kbits) | dst[real].long()
+    w64 = w[real].double()
+    slots = nv_pad * nv_pad
+
+    def library():
+        torch.bincount(flat, weights=w64, minlength=slots)
+        torch.bincount(flat, minlength=slots)
+
+    b_ms, b_by = bound(rows * 12 + slots * 12, rows, F64_OPS_PER_S)
+    k_ms = time_ms(lambda: seg_coalesce(src, dst, w, nv_pad=nv_pad), 20)
+    return {
+        "name": "seg_coalesce", "route": "cuda",
+        "source": "cuvite_tpu_torch/kernels/csrc/seg_coalesce.cu",
+        "replaces": "cuvite_tpu/kernels/seg_coalesce.py:202",
+        "tpu_function":
+            "cuvite_tpu/kernels/seg_coalesce.py:seg_coalesce_pallas",
+        "launches": launches, "max_abs_err": err,
+        "ms": k_ms, "kernel_ms": k_ms,
+        "emit_ms": time_ms(
+            lambda: emit_coalesced(acc, cnt, ne_pad=src.numel()), 20),
+        "sort_engine_ms": time_ms(
+            lambda: coalesced_runs(src, dst, w, nv_pad=nv_pad,
+                                   engine="sort"), 20),
+        "plain_ms": time_ms(
+            lambda: seg_coalesce_plain(src, dst, w, nv_pad=nv_pad), 20),
+        "library_ms": time_ms(library, 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": rows * 12 + slots * 12, "ops": rows, "nv_pad": nv_pad,
+        "slab_rows": src.numel(), "real_rows": rows,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
-                    help="R-MAT scale of the main-path run")
+                    help="R-MAT scale of the bucketed main-path run")
     ap.add_argument("--check-scale", type=int, default=14,
                     help="R-MAT scale of the card-vs-CPU run")
+    ap.add_argument("--rgg-nv", type=int, default=1 << 22,
+                    help="RGG vertices of the sort-path run")
+    ap.add_argument("--rgg-check-nv", type=int, default=1 << 16,
+                    help="RGG vertices of the sort-engine card-vs-CPU run")
     args = ap.parse_args()
 
     # The run uses one card: show torch only that one, so the device count
@@ -439,7 +688,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from cuvite_tpu_torch.kernels import _build
-        from cuvite_tpu_torch.io.generate import generate_rmat
+        from cuvite_tpu_torch.io.generate import generate_rgg, generate_rmat
     except ImportError as err:
         fail(f"cuvite_tpu_torch is not beside this script ({err})")
     dev = torch.device("cuda")
@@ -474,13 +723,43 @@ def main() -> int:
 
     print(f"[6] kernels at the R-MAT {args.scale} phase-0 shapes")
     kernels = time_kernels(g, launches)
+    del g
+
+    print("[7] seg_coalesce kernel against its twin and the sort engine")
+    check_coalesce(dev)
+    torch.cuda.synchronize()
+
+    print(f"[8] RGG {args.rgg_check_nv}: sort engine, card against CPU")
+    check_sort_card_vs_cpu(args.rgg_check_nv)
+
+    print(f"[9] sort path: louvain_phases(engine='sort') on RGG "
+          f"{args.rgg_nv}")
+    t0 = time.perf_counter()
+    g = generate_rgg(args.rgg_nv)
+    print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
+          f"edges in {time.perf_counter() - t0:.2f} s")
+    n_coalesce, captured = run_sort_path(g, args.rgg_nv)
+    print(f"  one phase-0 sort sweep: {time_sort_sweep(g):.4f} ms on the "
+          "device stream")
+    del g
+
+    print("[10] seg_coalesce at the first dense coarsening of the sort path")
+    kernels.append(time_coalesce(n_coalesce, captured))
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms (twin {k['plain_ms']:.4f} "
-              f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']})")
+              f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
+              f"library {k['library_ms']})")
         for p in k.get("per_width", []):
             print(f"    width {p['width']:5d}: {p['real_rows']} of "
                   f"{p['rows']} rows real, {p['real_slots']} slots, "
                   f"{p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms")
+    c = kernels[-1]
+    print(f"    seg_coalesce at nv_pad {c['nv_pad']}, {c['real_rows']} real "
+          f"rows: emit {c['emit_ms']:.4f} ms, whole sort engine "
+          f"{c['sort_engine_ms']:.4f} ms")
+    if c["max_abs_err"] != 0.0:
+        fail(f"seg_coalesce differs from its twin at the sort-path slab "
+             f"(max abs err {c['max_abs_err']})")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

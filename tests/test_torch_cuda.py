@@ -5,7 +5,8 @@ only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The row and hub builders below are shared with tests/test_torch_kernels.py.
+The row and hub cases below are shared with tests/test_torch_kernels.py,
+the slab case with tests/test_torch_seg_coalesce.py.
 """
 
 import numpy as np
@@ -18,6 +19,10 @@ from cuvite_tpu_torch.kernels.heavy_bincount import (
     heavy_argmax_plain,
 )
 from cuvite_tpu_torch.kernels.row_argmax import row_argmax, row_argmax_plain
+from cuvite_tpu_torch.kernels.seg_coalesce import (
+    seg_coalesce,
+    seg_coalesce_plain,
+)
 
 
 def bucket_case(n_rows, width, nv, seed):
@@ -61,6 +66,32 @@ def layout_from_dense(cmat, wmat, n_comm):
     return build_heavy_layout(np.where(real, hub, n_total),
                               cmat.reshape(-1), wmat.reshape(-1),
                               nv_local=n_total)
+
+
+def coalesce_case(nv_pad, ne_pad, seed, gapped=False, weights="dyadic"):
+    """A relabeled slab shaped like tests/test_seg_coalesce.py::_slab:
+    real rows in a prefix, padding (src == nv_pad, dst == 0, w == 0)
+    after; the first eighth of the real rows are self-loops (heavy
+    self-loop runs), 37 real rows weigh 0.  ``gapped``: ids from a sparse
+    subset of the space.  ``weights``: 'dyadic' (multiples of 1/8, every
+    run sum exact in f32) or 'float' (distances in (0, 0.01), as RGG
+    weights are).  Returns numpy (src, dst, w)."""
+    rng = np.random.default_rng(seed)
+    n_real = ne_pad - ne_pad // 5
+    pool = (rng.choice(nv_pad, size=max(nv_pad // 11, 2), replace=False)
+            if gapped else np.arange(nv_pad))
+    src = np.full(ne_pad, nv_pad, np.int32)
+    dst = np.zeros(ne_pad, np.int32)
+    w = np.zeros(ne_pad, np.float32)
+    src[:n_real] = rng.choice(pool, size=n_real)
+    dst[:n_real] = rng.choice(pool, size=n_real)
+    src[: n_real // 8] = dst[: n_real // 8]
+    if weights == "dyadic":
+        w[:n_real] = rng.integers(1, 64, n_real) / 8.0
+    else:
+        w[:n_real] = rng.uniform(1e-4, 1e-2, n_real)
+    w[n_real // 2: n_real // 2 + 37] = 0.0
+    return src, dst, w
 
 
 @pytest.fixture
@@ -112,3 +143,36 @@ def test_louvain_on_card_matches_cpu(cuda_device):
     assert np.array_equal(rg.communities, rc.communities)
     assert rg.total_iterations == rc.total_iterations
     assert abs(rg.modularity - rc.modularity) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv_pad", [64, 1024, 4096])
+@pytest.mark.parametrize("weights", ["dyadic", "float"])
+def test_seg_coalesce_kernel_matches_twin_on_card(cuda_device, nv_pad,
+                                                  weights):
+    """The kernel sums each slot in f64 with atomics: the run sums of
+    these slabs are exact in f64, so acc and cnt are bit-equal to the
+    twin's sequential sums, float weights included."""
+    arrs = [torch.from_numpy(a) for a in
+            coalesce_case(nv_pad, 16384, nv_pad, gapped=nv_pad == 1024,
+                          weights=weights)]
+    ref = seg_coalesce_plain(*arrs, nv_pad=nv_pad)
+    got = seg_coalesce(*[a.to(cuda_device) for a in arrs], nv_pad=nv_pad)
+    torch.cuda.synchronize()
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g.cpu())
+
+
+@pytest.mark.cuda
+def test_sort_engine_on_card_matches_cpu(cuda_device):
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rgg
+
+    g = generate_rgg(16384)
+    rg = louvain_phases(g, device=cuda_device, engine="sort")
+    rc = louvain_phases(g, device="cpu", engine="sort")
+    assert np.array_equal(rg.communities, rc.communities)
+    assert [p.iterations for p in rg.phases] == \
+        [p.iterations for p in rc.phases]
+    assert abs(rg.modularity - rc.modularity) <= 1e-9
+    assert "dense" in [p.coalesce for p in rg.phases]

@@ -1,6 +1,6 @@
-"""cuvite_tpu_torch host layer against the JAX package: R-MAT edges and CSR
-arrays, Vite I/O, the package's independence from JAX, and the
-card-by-default device rule."""
+"""cuvite_tpu_torch host layer against the JAX package: R-MAT and RGG edges
+and CSR arrays, the Park-Miller stream, Vite I/O, the package's
+independence from JAX, and the card-by-default device rule."""
 
 import os
 import subprocess
@@ -10,11 +10,18 @@ import numpy as np
 import pytest
 
 from cuvite_tpu.core.graph import Graph as JGraph
+from cuvite_tpu.io.generate import generate_rgg as jax_rgg
 from cuvite_tpu.io.generate import generate_rmat as jax_rmat
+from cuvite_tpu.io.generate import rgg_points as jax_rgg_points
 from cuvite_tpu.io.generate import rmat_edges_numpy as jax_rmat_edges
 from cuvite_tpu.io.vite import write_vite as jax_write_vite
 from cuvite_tpu_torch import Graph, louvain_phases
-from cuvite_tpu_torch.io.generate import generate_rmat, rmat_edges_numpy
+from cuvite_tpu_torch.io.generate import (
+    generate_rgg,
+    generate_rmat,
+    rgg_points,
+    rmat_edges_numpy,
+)
 from cuvite_tpu_torch.io.vite import read_vite, write_vite
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,6 +37,32 @@ def test_rmat_matches_jax(scale):
     for name in ("offsets", "tails", "weights"):
         mine, ref = getattr(g, name), getattr(jg, name)
         assert mine.dtype == ref.dtype and np.array_equal(mine, ref), name
+
+
+@pytest.mark.parametrize("nv", [4096, 16384])
+def test_rgg_matches_jax(nv):
+    """Points from the Park-Miller stream, edges within rn, distance
+    weights: the CSR arrays are the reference's, bit for bit."""
+    g, jg = generate_rgg(nv), jax_rgg(nv)
+    for name in ("offsets", "tails", "weights"):
+        mine, ref = getattr(g, name), getattr(jg, name)
+        assert mine.dtype == ref.dtype and np.array_equal(mine, ref), name
+
+
+def test_rgg_points_and_stream_slices_match_jax():
+    """Strips of several shards read their own slices of the one global
+    stream (lo > 0: the closed-form jump); seed 7 reseeds."""
+    from cuvite_tpu.utils.rng import lcg_stream as jax_lcg
+    from cuvite_tpu_torch.utils.rng import lcg_stream
+
+    for nshards, seed in ((1, 1), (4, 1), (3, 7)):
+        for a, b in zip(rgg_points(3000, nshards, seed),
+                        jax_rgg_points(3000, nshards, seed)):
+            assert np.array_equal(a, b)
+    assert np.array_equal(lcg_stream(5, 5000, 1234, 4321),
+                          jax_lcg(5, 5000, 1234, 4321))
+    with pytest.raises(ValueError, match="strip width"):
+        generate_rgg(1000, nshards=64)
 
 
 def test_from_edges_weighted_matches_jax():
@@ -97,7 +130,7 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 19
 
 
 def test_louvain_phases_without_cuda_raises(monkeypatch):
@@ -131,3 +164,13 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert "Final modularity" in out
     labels = np.loadtxt(str(path) + ".communities", dtype=np.int64)
     assert labels.shape == (jg.num_vertices,)
+
+
+def test_cli_generates_rgg_and_runs_the_sort_engine(capsys):
+    from cuvite_tpu_torch import cli
+
+    assert cli.main(["-n", "2048", "--engine", "sort", "--device",
+                     "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Loaded graph: 2048 vertices" in out
+    assert "Final modularity" in out

@@ -166,3 +166,68 @@ def test_one_phase_and_edgeless(karate):
     empty = Graph.from_edges(5, np.zeros(0, np.int64), np.zeros(0, np.int64))
     res = louvain_phases(empty, device="cpu")
     assert res.modularity == 0.0 and list(res.communities) == list(range(5))
+
+
+# ---------------------------------------------------------------------------
+# The sort engine with device coarsening.  The JAX reference runs its sort
+# engine under CUVITE_SEG_COALESCE=xla, the Pallas kernel's bit-identical
+# XLA twin, so both packages coarsen every class up to 4096 densely.
+
+
+@pytest.fixture(scope="module")
+def rgg4096_unit():
+    """RGG -n 4096 with unit weights: the distances replaced by 1, inside
+    the exactness domain of the reference's f32 sums."""
+    from cuvite_tpu.core.graph import Graph as JGraph
+    from cuvite_tpu.io.generate import generate_rgg as jax_rgg
+
+    g = jax_rgg(4096)
+    return JGraph(offsets=g.offsets, tails=g.tails,
+                  weights=np.ones_like(g.weights))
+
+
+def _jax_sort(jg, monkeypatch):
+    monkeypatch.setenv("CUVITE_SEG_COALESCE", "xla")
+    jr = jax_louvain(jg, engine="sort")
+    monkeypatch.delenv("CUVITE_SEG_COALESCE")
+    return jr
+
+
+@pytest.mark.parametrize("name", ["karate", "two_cliques", "rmat12",
+                                  "rgg4096_unit"])
+def test_sort_engine_matches_jax(name, request, monkeypatch):
+    jg = request.getfixturevalue(name)
+    jr = _jax_sort(jg, monkeypatch)
+    tr = louvain_phases(_port_graph(jg), engine="sort", device="cpu")
+    _assert_same_run(jr, tr)
+    coarsened = [p.coalesce for p in tr.phases]
+    assert "dense" in coarsened and None not in coarsened
+
+
+@pytest.mark.parametrize("name", ["rmat12", "rgg4096_unit"])
+def test_sort_engine_matches_bucketed_and_host_coarsening(name, request,
+                                                          monkeypatch):
+    """The port's two engines give the same labels, and the sort engine's
+    device transition the same run as its host coarsening."""
+    g = _port_graph(request.getfixturevalue(name))
+    tr = louvain_phases(g, engine="sort", device="cpu")
+    tb = louvain_phases(g, engine="bucketed", device="cpu")
+    assert np.array_equal(tr.communities, tb.communities)
+    monkeypatch.setenv("CUVITE_DEVICE_COARSEN", "0")
+    th = louvain_phases(g, engine="sort", device="cpu")
+    assert np.array_equal(tr.communities, th.communities)
+    assert [p.iterations for p in tr.phases] == \
+        [p.iterations for p in th.phases]
+    assert [p.coalesce for p in th.phases] == [None] * len(th.phases)
+    assert abs(tr.modularity - th.modularity) <= 1e-12
+
+
+def test_sort_engine_with_cycling_and_unknown_engine(karate, monkeypatch):
+    monkeypatch.setenv("CUVITE_SEG_COALESCE", "xla")
+    jr = jax_louvain(karate, engine="sort", threshold_cycling=True)
+    monkeypatch.delenv("CUVITE_SEG_COALESCE")
+    tr = louvain_phases(_port_graph(karate), engine="sort",
+                        threshold_cycling=True, device="cpu")
+    _assert_same_run(jr, tr)
+    with pytest.raises(ValueError, match="not ported"):
+        louvain_phases(_port_graph(karate), engine="fused", device="cpu")
