@@ -13,9 +13,14 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    nvcc per source, in parallel) and print the build seconds;
 2. the row-argmax kernel against its plain twin at every DEFAULT_BUCKETS
    width (8 ... 8192): integer and dyadic weights, zero-weight and padding
-   slots, ties, all-padding and no-candidate rows -- outputs bit-equal;
+   slots, ties, all-padding and no-candidate rows, each with and without
+   the per-row degrees (rows shorter than their class); rows whose real
+   slots all fall in one or two communities; a tie at gain zero between
+   two candidates, which the smaller id wins -- outputs bit-equal;
 3. the heavy kernel against its twin on seeded hubs of degree 9,000 ...
-   65,536 over 2^20 communities -- bit-equal;
+   65,536 over 2^20 communities, on hubs whose edges all reach one or two
+   communities, on a hub of 2^18 edges (64 chunks) and on a tie at gain
+   zero -- bit-equal, twice in a row, the scratch left clean;
 4. louvain_phases on R-MAT --check-scale on the card and on the CPU (the
    twins): identical labels, phases and iterations, Q to 1e-9;
 5. the main path: louvain_phases on R-MAT --scale on the card, with the
@@ -24,8 +29,10 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    launched or the reported Q is more than 1e-6 from the host f64
    modularity of the returned labels;
 6. the row and heavy kernels timed with CUDA events at the phase-0 shapes
-   of that graph (the row kernel also width by width), beside their twins
-   and bounds from the real rows and edges;
+   of that graph (the row kernel also width by width), at the identity
+   assignment and at the converged phase-0 assignment, beside their twins
+   and bounds from the real rows and edges; fails if a padding row reaches
+   the row kernel (real rows must equal launched rows in every class);
 7. the seg_coalesce kernel against its twin at nv_pad 64, 1024 and 4096,
    dyadic and RGG-like float weights, duplicates, heavy self-loop runs,
    zero-weight rows, gapped ids and padding rows: acc and cnt bit-equal,
@@ -137,7 +144,7 @@ def row_case(width: int, seed: int, dev):
     w = 0.  Communities come from a pool of ~width/2 ids, so rows hold
     duplicates and equal-gain candidates.  Rows 0-3 are no-candidate rows
     (every neighbour in the current community), the last 4 rows are
-    padding rows."""
+    padding rows.  Returns (tensors, constant, row degrees)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -159,11 +166,81 @@ def row_case(width: int, seed: int, dev):
     for r in range(4):   # no-candidate rows
         comm[verts[r]] = comm[verts[0]]
         dst[r] = rng.choice(same, width)
+        deg[r] = width
     self_loop = (rng.integers(0, 2, nv) * 0.5).astype(np.float32)
     verts[-4:] = nv
     t = [torch.from_numpy(a).to(dev) for a in
          (dst, w, verts, comm, comm_deg, vdeg, self_loop)]
-    return t, float(np.float32(1.0 / 123457.0))
+    return (t, float(np.float32(1.0 / 123457.0)),
+            torch.from_numpy(deg.astype(np.int32)).to(dev))
+
+
+def hot_row_case(width: int, seed: int, dev):
+    """Rows whose real slots all fall in one community (even rows) or two
+    (odd rows), the converged sweep's hot keys: neighbours are vertices
+    [0, 2^16) with comm = id mod 1024, row r is vertex 2^16 + r.  Degrees
+    are random in (width/2, width], a quarter of the rows sit in their hot
+    community.  Returns (tensors, constant, row degrees)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nb, pool = 1 << 16, 1024
+    n_rows = max(64, min(4096, (1 << 21) // width))
+    nv = nb + n_rows
+    comm = np.concatenate([np.arange(nb) % pool,
+                           rng.integers(0, pool, n_rows)]).astype(np.int32)
+    a = rng.integers(0, pool, n_rows)
+    b = rng.integers(0, pool, n_rows)
+    comm[nb::4] = a[::4]
+    two = (np.arange(n_rows) % 2 == 1)[:, None]
+    pick = np.where(two & (rng.random((n_rows, width)) < 0.5), b[:, None],
+                    a[:, None])
+    dst = pick + pool * rng.integers(0, nb // pool, (n_rows, width))
+    verts = (nb + np.arange(n_rows)).astype(np.int32)
+    deg = rng.integers(width // 2 + 1, width + 1, n_rows)
+    slot = np.arange(width)[None, :]
+    dst = np.where(slot < deg[:, None], dst, verts[:, None]).astype(np.int32)
+    w = (rng.integers(0, 5, (n_rows, width)) * 0.25).astype(np.float32)
+    w[slot >= deg[:, None]] = 0.0
+    comm_deg = rng.integers(1, 4 * width, nv).astype(np.float32)
+    vdeg = rng.integers(1, 32, nv).astype(np.float32)
+    self_loop = (rng.integers(0, 2, nv) * 0.5).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in
+         (dst, w, verts, comm, comm_deg, vdeg, self_loop)]
+    return (t, float(np.float32(1.0 / 7919.0)),
+            torch.from_numpy(deg.astype(np.int32)).to(dev))
+
+
+def tie_row_case(width: int, dev):
+    """One row whose best two candidates tie at gain exactly zero: no edge
+    into the current community (eix = 0), zero-weight edges into
+    communities 5 and 3 (listed first) whose degree equals ax, so
+    2*(0 - 0) - ((2*vdeg)*0)*c = 0 for both; community 9 is negative.  The
+    smaller id, 3, must win.  Zero is where a bit-pattern order of gains
+    (-0.0 below +0.0) would part from cv::better."""
+    import torch
+
+    nv = 16
+    comm = np.arange(nv, dtype=np.int32)
+    comm_deg = np.full(nv, 6.0, np.float32)
+    comm_deg[9] = 100.0
+    comm_deg[15] = 10.0                      # the row's vertex 15
+    vdeg = np.full(nv, 4.0, np.float32)      # ax = 10 - 4 = 6 = ay
+    dst = np.full((1, width), 15, np.int32)  # padding: the row's own vertex
+    n = min(width, 6)
+    dst[0, :n] = [5, 3, 9, 5, 3, 9][:n]
+    w = np.zeros((1, width), np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in
+         (dst, w, np.array([15], np.int32), comm, comm_deg, vdeg,
+          np.zeros(nv, np.float32))]
+    return t, float(np.float32(1.0 / 64.0))
+
+
+def check_same(what: str, got, ref) -> None:
+    for name, g, r in zip(("best_c", "best_gain", "counter0"), got, ref):
+        if not bits_equal(g, r):
+            fail(f"{what}: {name} differs from the twin (max abs err "
+                 f"{max_abs_err(got, ref)})")
 
 
 def check_rows(dev) -> None:
@@ -174,30 +251,55 @@ def check_rows(dev) -> None:
     from cuvite_tpu_torch.louvain.bucketed import DEFAULT_BUCKETS
 
     for width in DEFAULT_BUCKETS:
-        args, const = row_case(width, width, dev)
+        args, const, deg = row_case(width, width, dev)
         got = row_argmax(*args, const)
         ref = row_argmax_plain(*args, const)
-        for name, g, r in zip(("best_c", "best_gain", "counter0"), got, ref):
-            if not bits_equal(g, r):
-                fail(f"row_argmax width {width}: {name} differs from the "
-                     f"twin (max abs err {max_abs_err(got, ref)})")
+        check_same(f"row_argmax width {width}", got, ref)
         n_none = int((got[0].cpu() == 2**31 - 1).sum())
         if n_none < 4:
             fail(f"row_argmax width {width}: the no-candidate rows found "
                  "a candidate")
+        # Stopped at each row's degree: equal to the full-width twin too.
+        got_d = row_argmax(*args, const, deg)
+        check_same(f"row_argmax width {width} with degrees", got_d,
+                   row_argmax_plain(*args, const, deg))
+        check_same(f"row_argmax width {width} with degrees vs full rows",
+                   got_d, ref)
+        hargs, hconst, hdeg = hot_row_case(width, width + 1, dev)
+        for d in (None, hdeg):
+            check_same(f"row_argmax width {width} hot-key rows "
+                       f"(degrees {d is not None})",
+                       row_argmax(*hargs, hconst, d),
+                       row_argmax_plain(*hargs, hconst, d))
+        targs, tconst = tie_row_case(width, dev)
+        tie = row_argmax(*targs, tconst)
+        check_same(f"row_argmax width {width} zero-gain tie", tie,
+                   row_argmax_plain(*targs, tconst))
+        if int(tie[0][0]) != 3 or float(tie[1][0]) != 0.0:
+            fail(f"row_argmax width {width} zero-gain tie: got "
+                 f"{int(tie[0][0])} at {float(tie[1][0])}, want 3 at 0")
         print(f"  row_argmax width {width:5d}: {args[0].shape[0]} rows "
-              f"bit-equal to the twin ({n_none} without a candidate)")
+              f"bit-equal to the twin ({n_none} without a candidate), with "
+              f"and without degrees; {hargs[0].shape[0]} hot-key rows; "
+              "zero-gain tie to the smaller id")
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: the heavy kernel.
 
 
-def heavy_case(seed: int, dev):
+def hub_tensors(src, dst, w, comm, comm_deg, vdeg, self_loop, dev):
     import torch
 
     from cuvite_tpu_torch.kernels.heavy_bincount import build_heavy_layout
 
+    lay = build_heavy_layout(src, dst, w, nv_local=len(comm)).to(dev)
+    tabs = [torch.from_numpy(a).to(dev)
+            for a in (comm, comm_deg, vdeg, self_loop)]
+    return lay, tabs
+
+
+def heavy_case(seed: int, dev):
     rng = np.random.default_rng(seed)
     n_comm = 1 << 20
     n_hubs = 48
@@ -223,10 +325,80 @@ def heavy_case(seed: int, dev):
     vdeg[hubs] = deg
     self_loop = np.zeros(nv, dtype=np.float32)
     self_loop[hubs] = rng.integers(0, 3, n_hubs)
-    lay = build_heavy_layout(src, dst, w, nv_local=nv).to(dev)
-    tabs = [torch.from_numpy(a).to(dev)
-            for a in (comm, comm_deg, vdeg, self_loop)]
+    lay, tabs = hub_tensors(src, dst, w, comm, comm_deg, vdeg, self_loop,
+                            dev)
     return lay, tabs, float(np.float32(1.0 / 987653.0))
+
+
+def hot_heavy_case(seed: int, dev):
+    """Hubs whose edges all reach one community (even hubs) or two (odd
+    hubs); hub 2's one community is its own (no candidate), and hub 0 has
+    2^18 edges (64 chunks).  Neighbours are vertices [0, 2^20) with comm =
+    id mod 4096."""
+    rng = np.random.default_rng(seed)
+    nb, pool, n_hubs = 1 << 20, 4096, 16
+    nv = nb + n_hubs
+    comm = np.concatenate([np.arange(nb) % pool,
+                           rng.integers(0, pool, n_hubs)]).astype(np.int32)
+    deg = rng.integers(8193, 40000, n_hubs)
+    deg[0] = 1 << 18
+    hubs = nb + np.arange(n_hubs)
+    src = np.repeat(hubs, deg)
+    a = rng.integers(0, pool, n_hubs)
+    b = rng.integers(0, pool, n_hubs)
+    comm[hubs[2]] = a[2]
+    hub = np.repeat(np.arange(n_hubs), deg)
+    odd = (hub % 2 == 1) & (rng.random(len(src)) < 0.5)
+    dst = np.where(odd, b[hub], a[hub]) + pool * rng.integers(
+        0, nb // pool, len(src))
+    w = rng.integers(0, 4, len(src)).astype(np.float32)
+    comm_deg = rng.integers(1, 1 << 20, nv).astype(np.float32)
+    vdeg = np.zeros(nv, dtype=np.float32)
+    vdeg[hubs] = deg
+    self_loop = np.zeros(nv, dtype=np.float32)
+    lay, tabs = hub_tensors(src, dst, w, comm, comm_deg, vdeg, self_loop,
+                            dev)
+    return lay, tabs, float(np.float32(1.0 / 3000017.0))
+
+
+def big_hub_case(seed: int, dev):
+    """A hub of 2^18 edges (64 chunks) over skewed communities, beside two
+    hubs of 8193 and 3 * 4096 edges (chunk boundaries at the edges)."""
+    rng = np.random.default_rng(seed)
+    n_comm = 1 << 20
+    deg = np.array([1 << 18, 8193, 3 * 4096])
+    nv = n_comm + len(deg)
+    comm = (n_comm * rng.random(nv) ** 2).astype(np.int32)
+    hubs = n_comm + np.arange(len(deg))
+    src = np.repeat(hubs, deg)
+    dst = rng.integers(0, n_comm, len(src))
+    w = rng.integers(0, 8, len(src)).astype(np.float32)
+    comm_deg = np.zeros(n_comm, dtype=np.float32)
+    np.add.at(comm_deg, comm, rng.integers(1, 100, nv).astype(np.float32))
+    vdeg = np.zeros(nv, dtype=np.float32)
+    vdeg[hubs] = deg
+    self_loop = np.zeros(nv, dtype=np.float32)
+    self_loop[hubs] = 1.0
+    lay, tabs = hub_tensors(src, dst, w, comm, comm_deg, vdeg, self_loop,
+                            dev)
+    return lay, tabs, float(np.float32(1.0 / 1234567.0))
+
+
+def tie_hub_case(dev):
+    """tie_row_case for a hub of 12,000 edges (three chunks): zero-weight
+    edges into communities 5 (first), 3 and 9; 3 and 5 tie at gain 0."""
+    nv = 16
+    comm = np.arange(nv, dtype=np.int32)
+    comm_deg = np.full(nv, 6.0, np.float32)
+    comm_deg[9] = 100.0
+    comm_deg[15] = 10.0
+    vdeg = np.full(nv, 4.0, np.float32)
+    dst = np.tile(np.array([5, 3, 9]), 4000)
+    src = np.full(len(dst), 15)
+    w = np.zeros(len(dst), np.float32)
+    lay, tabs = hub_tensors(src, dst, w, comm, comm_deg, vdeg,
+                            np.zeros(nv, np.float32), dev)
+    return lay, tabs, float(np.float32(1.0 / 64.0))
 
 
 def check_heavy(dev) -> None:
@@ -235,18 +407,33 @@ def check_heavy(dev) -> None:
         heavy_argmax_plain,
     )
 
-    lay, tabs, const = heavy_case(11, dev)
-    got = heavy_argmax(lay, *tabs, const)
-    ref = heavy_argmax_plain(lay, *tabs, const)
-    for name, g, r in zip(("best_c", "best_gain", "counter0"), got, ref):
-        if not bits_equal(g, r):
-            fail(f"heavy_argmax: {name} differs from the twin (max abs err "
-                 f"{max_abs_err(got, ref)})")
-    bc = got[0].cpu()
-    if int(bc[0]) != 2**31 - 1 or int(bc[1]) == 2**31 - 1:
-        fail("heavy_argmax: the no-candidate / zero-weight hubs are wrong")
-    print(f"  heavy_argmax: {lay.num_hubs} hubs, {lay.dst.numel()} edges "
-          "bit-equal to the twin")
+    cases = [("seeded hubs", *heavy_case(11, dev)),
+             ("hot-key hubs", *hot_heavy_case(12, dev)),
+             ("2^18-edge hub", *big_hub_case(13, dev)),
+             ("zero-gain tie", *tie_hub_case(dev))]
+    for what, lay, tabs, const in cases:
+        got = heavy_argmax(lay, *tabs, const)
+        check_same(f"heavy_argmax {what}", got,
+                   heavy_argmax_plain(lay, *tabs, const))
+        if not lay.scratch.is_clean():
+            fail(f"heavy_argmax {what}: the scratch was left dirty")
+        again = heavy_argmax(lay, *tabs, const)
+        check_same(f"heavy_argmax {what}, second launch", again, got)
+        bc = got[0].cpu()
+        if what == "seeded hubs" and (int(bc[0]) != 2**31 - 1
+                                      or int(bc[1]) == 2**31 - 1):
+            fail("heavy_argmax: the no-candidate / zero-weight hubs are "
+                 "wrong")
+        if what == "hot-key hubs" and int(bc[2]) != 2**31 - 1:
+            fail("heavy_argmax: the hub inside its one community found a "
+                 "candidate")
+        if what == "zero-gain tie" and (int(bc[0]) != 3
+                                        or float(got[1][0]) != 0.0):
+            fail(f"heavy_argmax zero-gain tie: got {int(bc[0])} at "
+                 f"{float(got[1][0])}, want 3 at 0")
+        print(f"  heavy_argmax {what}: {lay.num_hubs} hubs, "
+              f"{lay.dst.numel()} edges, {lay.num_chunks} chunks, "
+              "bit-equal to the twin, twice; scratch left clean")
 
 
 # ---------------------------------------------------------------------------
@@ -309,20 +496,26 @@ def run_main_path(g, scale: int) -> dict:
     if abs(q_host - res.modularity) > 1e-6:
         fail(f"reported Q {res.modularity} vs host f64 {q_host}")
     print(f"  reported Q {res.modularity:.9f}, host f64 Q {q_host:.9f}")
-    return launches
+    return launches, sweeps
 
 
 # Bounds count the bytes the function must move on this run's data: each
-# input read once, each output written once.  Padding is not work: the
-# row kernel's bound counts the real slots of each bucket (the degrees of
-# its vertices, 8 B of dst and w each) and its real rows (4 B of vertex id,
-# 12 B of outputs), and the four per-vertex tables (comm, comm_deg, vdeg,
-# self_loop) once.  The comm[dst] and comm_deg[c] gathers read those
-# tables, which fit in L2, so they add no bytes here;
-# ``bytes_with_gathers`` adds 4 B per slot or edge for a comm gather that
-# misses L2.  Operations are counted as 8 f32 operations per real slot or
-# heavy edge, an upper bound: one compare and one add per slot, and at most
-# one 7-operation gain (plus its compare) per distinct community.
+# input read once, each output written once.  Padding is not work, and
+# neither is the kernels' own scratch (the heavy chunk table, hub tables,
+# the vertex records): per real slot or heavy edge 8 B of dst and w; per
+# real row ``ROW_BYTES`` (its id, int32 degree, vdeg and self_loop, three
+# 4-byte outputs), per hub ``HUB_BYTES`` (the same with an int64 edge
+# offset for the degree); and the comm and comm_deg tables once, which
+# every slot's gathers read.  Those tables fit in L2, so the gathers add
+# no bytes here; ``bytes_with_gathers`` adds 4 B per slot or edge for a
+# comm gather that misses L2.  Operations are counted as 8 f32 operations
+# per real slot or heavy edge, an upper bound: one compare and one add per
+# slot, and at most one 7-operation gain (plus its compare) per distinct
+# community.
+ROW_BYTES = 4 + 4 + 8 + 12
+HUB_BYTES = 4 + 8 + 8 + 12
+
+
 def bound(n_bytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -330,18 +523,20 @@ def bound(n_bytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple:
 
 
 def bucket_work(plan, deg: np.ndarray, nv: int) -> list:
-    """(width, padded rows, real rows, real slots) of each bucket."""
+    """(width, launched rows, real rows, real slots) of each bucket."""
     out = []
-    for verts, dst, _ in plan.buckets:
+    for verts, dst, _, _ in plan.buckets:
         v = verts.cpu().numpy()
         v = v[v < nv]
         out.append((dst.shape[1], dst.shape[0], len(v), int(deg[v].sum())))
     return out
 
 
-def time_kernels(g, launches: dict) -> list:
-    """Kernel vs twin at the phase-0 shapes of ``g`` (identity
-    assignment), with bounds from this graph's bytes and operations."""
+def time_kernels(g, launches: dict, sweeps: int) -> list:
+    """Kernel vs twin at the phase-0 shapes of ``g``, at the identity
+    assignment and at the converged phase-0 assignment, with bounds from
+    this graph's bytes and operations.  The row kernel's ``ms`` is one
+    sweep's worth (every bucket class once)."""
     import torch
 
     from cuvite_tpu_torch.core.distgraph import DistGraph
@@ -352,81 +547,127 @@ def time_kernels(g, launches: dict) -> list:
     from cuvite_tpu_torch.kernels.row_argmax import (
         row_argmax,
         row_argmax_plain,
+        vertex_table,
     )
     from cuvite_tpu_torch.louvain.driver import PhaseRunner
     from cuvite_tpu_torch.ops.segment import segment_sum
 
     run = PhaseRunner(DistGraph.build(g), "cuda")
-    plan, comm, vdeg = run.plan, run.comm0, run.vdeg
+    plan, vdeg = run.plan, run.vdeg
     nv = run.nv_total
     const = float(np.float32(run.constant))
-    comm_deg = segment_sum(vdeg.double(), comm, nv).float()
-    tables = (comm, comm_deg, vdeg, plan.self_loop)
-    table_bytes = 4 * 4 * nv
+    table_bytes = 2 * 4 * nv     # comm and comm_deg
     deg = np.zeros(nv, dtype=np.int64)
     deg[: g.num_vertices] = g.degrees()
-
-    def rows(fn, buckets=plan.buckets):
-        return [fn(d, w, v, comm, comm_deg, vdeg, plan.self_loop, const)
-                for v, d, w in buckets]
-
-    # One whole sweep (kernels and the torch ops around them) on the
-    # device stream: with the sweep count, an upper bound on the run's
-    # device-busy time.
-    sweep_ms = time_ms(lambda: run.step(comm), 10)
-    print(f"  one phase-0 sweep: {sweep_ms:.4f} ms on the device stream")
-    got, ref = rows(row_argmax), rows(row_argmax_plain)
-    row_err = max(max_abs_err(a, b) for a, b in zip(got, ref))
     work = bucket_work(plan, deg, nv)
+    for width, n_rows, real_rows, _ in work:
+        print(f"  class {width:5d}: {real_rows} real rows, {n_rows} "
+              "launched")
+        if n_rows != real_rows:
+            fail(f"class {width}: {n_rows - real_rows} padding rows reach "
+                 "the row kernel")
+    lay = plan.heavy
+    if lay is None:
+        fail("the phase-0 graph has no hub: the heavy kernel is untimed")
+
+    _, _, iters = run.run(1.0e-6)   # phase 0 as louvain_phases runs it
+    assignments = {"identity": run.comm0, "converged": run.labels_dev}
+    print(f"  converged phase-0 assignment after {iters} sweeps: "
+          f"{int(torch.unique(run.labels_dev).numel())} communities")
+    t = {}
+    row_err = hub_err = 0.0
+    for label, comm in assignments.items():
+        comm_deg = segment_sum(vdeg.double(), comm, nv).float()
+        tables = (comm, comm_deg, vdeg, plan.self_loop)
+        # The kernel's vertex records, built once per sweep by the sweep
+        # (bucketed_step): part of the row kernel's ``ms``, and timed on
+        # their own as well.
+        vinfo = vertex_table(*tables)
+        t[f"vinfo_{label}"] = time_ms(lambda: vertex_table(*tables), 20)
+
+        def rows(fn, buckets=plan.buckets, tables=tables, vinfo=vinfo):
+            extra = (vinfo,) if fn is row_argmax else ()
+            return [fn(d, w, v, *tables, const, dg, *extra)
+                    for v, d, w, dg in buckets]
+
+        def hub(fn, tables=tables):
+            return fn(lay, *tables, const)
+
+        # One whole sweep (kernels and the torch ops around them) on the
+        # device stream: with the sweep count, an upper bound on the
+        # run's device-busy time.
+        t[f"sweep_{label}"] = time_ms(lambda: run.step(comm), 10)
+        row_err = max(row_err, max(max_abs_err(a, b) for a, b in
+                                   zip(rows(row_argmax),
+                                       rows(row_argmax_plain))))
+        hub_err = max(hub_err, max_abs_err(hub(heavy_argmax),
+                                           hub(heavy_argmax_plain)))
+        t[f"row_{label}"] = time_ms(
+            lambda: rows(row_argmax, vinfo=vertex_table(*tables)), 20)
+        t[f"row_launches_{label}"] = time_ms(lambda: rows(row_argmax), 20)
+        t[f"row_plain_{label}"] = time_ms(lambda: rows(row_argmax_plain), 3)
+        t[f"hub_{label}"] = time_ms(lambda: hub(heavy_argmax), 20)
+        t[f"hub_plain_{label}"] = time_ms(lambda: hub(heavy_argmax_plain), 3)
+        t[f"width_{label}"] = [time_ms(lambda b=b: rows(row_argmax, [b]), 20)
+                               for b in plan.buckets]
+        print(f"  {label}: one phase-0 sweep {t[f'sweep_{label}']:.4f} ms "
+              f"on the device stream; row {t[f'row_{label}']:.4f} ms "
+              f"(class launches {t[f'row_launches_{label}']:.4f} ms, "
+              f"vertex_table {t[f'vinfo_{label}']:.4f} ms), heavy "
+              f"{t[f'hub_{label}']:.4f} ms")
+
     per_width = []
-    for b, (width, n_rows, real_rows, slots) in zip(plan.buckets, work):
-        b_ms, _ = bound(slots * 8 + real_rows * 16, 8 * slots)
+    for k, (width, n_rows, real_rows, slots) in enumerate(work):
+        b_ms, _ = bound(slots * 8 + real_rows * ROW_BYTES, 8 * slots)
         per_width.append({
             "width": width, "rows": n_rows, "real_rows": real_rows,
-            "real_slots": slots, "ms": time_ms(lambda: rows(row_argmax, [b]),
-                                               20),
-            "bound_ms": b_ms})
+            "real_slots": slots, "ms": t["width_identity"][k],
+            "ms_converged": t["width_converged"][k], "bound_ms": b_ms})
     slots = sum(w[3] for w in work)
     real_rows = sum(w[2] for w in work)
-    row_bytes = slots * 8 + real_rows * 16 + table_bytes
+    row_bytes = slots * 8 + real_rows * ROW_BYTES + table_bytes
+    per_sweep = launches["row_argmax"] / max(sweeps, 1)
     row = {
         "name": "row_argmax", "route": "cuda",
         "source": "cuvite_tpu_torch/kernels/csrc/row_argmax.cu",
         "replaces": "cuvite_tpu/kernels/row_argmax.py:166",
         "tpu_function": "cuvite_tpu/kernels/row_argmax.py:row_argmax_pallas",
-        "launches": launches["row_argmax"], "max_abs_err": row_err,
-        "ms": time_ms(lambda: rows(row_argmax), 20),
-        "plain_ms": time_ms(lambda: rows(row_argmax_plain), 3),
+        "launches": launches["row_argmax"], "sweeps": sweeps,
+        "launches_per_sweep": per_sweep, "max_abs_err": row_err,
+        "ms_unit": f"one phase-0 sweep: vertex_table and {len(work)} "
+                   "class launches (per_width: the launches alone)",
+        "ms": t["row_identity"], "ms_converged": t["row_converged"],
+        "launches_ms": t["row_launches_identity"],
+        "launches_ms_converged": t["row_launches_converged"],
+        "ms_per_launch": t["row_launches_identity"] / len(work),
+        "plain_ms": t["row_plain_identity"],
+        "plain_ms_converged": t["row_plain_converged"],
+        "vertex_table_ms": t["vinfo_identity"],
+        "vertex_table_ms_converged": t["vinfo_converged"],
         "bytes": row_bytes, "bytes_with_gathers": row_bytes + 4 * slots,
         "ops": 8 * slots, "real_rows": real_rows, "real_slots": slots,
-        "padded_slots": sum(d.numel() for _, d, _ in plan.buckets),
+        "launched_slots": sum(d.numel() for _, d, _, _ in plan.buckets),
         "per_width": per_width,
     }
-    lay = plan.heavy
+    e = lay.dst.numel()
+    hub_bytes = e * 8 + lay.num_hubs * HUB_BYTES + table_bytes
     hub = {
         "name": "heavy_bincount", "route": "cuda",
         "source": "cuvite_tpu_torch/kernels/csrc/heavy_bincount.cu",
         "replaces": "cuvite_tpu/kernels/heavy_bincount.py:200",
         "tpu_function":
             "cuvite_tpu/kernels/heavy_bincount.py:heavy_argmax_pallas",
-        "launches": launches["heavy_bincount"],
-    }
-    if lay is None:
-        fail("the phase-0 graph has no hub: the heavy kernel is untimed")
-    hg = heavy_argmax(lay, *tables, const)
-    hr = heavy_argmax_plain(lay, *tables, const)
-    e = lay.dst.numel()
-    # Per edge dst + w; per hub its id, two int64 offsets of each kind and
-    # three outputs.
-    hub_bytes = e * 8 + lay.num_hubs * (4 + 16 + 16 + 12) + table_bytes
-    hub.update({
-        "max_abs_err": max_abs_err(hg, hr),
-        "ms": time_ms(lambda: heavy_argmax(lay, *tables, const), 20),
-        "plain_ms": time_ms(
-            lambda: heavy_argmax_plain(lay, *tables, const), 3),
+        "launches": launches["heavy_bincount"], "sweeps": sweeps,
+        "launches_per_sweep": launches["heavy_bincount"] / max(sweeps, 1),
+        "max_abs_err": hub_err, "ms_unit": "one launch",
+        "ms": t["hub_identity"], "ms_converged": t["hub_converged"],
+        "ms_per_launch": t["hub_identity"],
+        "plain_ms": t["hub_plain_identity"],
+        "plain_ms_converged": t["hub_plain_converged"],
         "bytes": hub_bytes, "bytes_with_gathers": hub_bytes + 4 * e,
         "ops": 8 * e, "hubs": lay.num_hubs, "edges": e,
-    })
+        "chunks": lay.num_chunks, "table_bytes": 8 * lay.table_size,
+    }
     out = []
     for k in (row, hub):
         if k["max_abs_err"] != 0.0:
@@ -438,6 +679,8 @@ def time_kernels(g, launches: dict) -> list:
         k["library_ms"] = None   # no single PyTorch call computes it
         k["kernel_ms"] = k["ms"]
         out.append(k)
+    for label in assignments:
+        out[0][f"sweep_ms_{label}"] = t[f"sweep_{label}"]
     return out
 
 
@@ -719,10 +962,10 @@ def main() -> int:
     print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
           f"edges, max degree {int(g.degrees().max())} in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches = run_main_path(g, args.scale)
+    launches, sweeps = run_main_path(g, args.scale)
 
     print(f"[6] kernels at the R-MAT {args.scale} phase-0 shapes")
-    kernels = time_kernels(g, launches)
+    kernels = time_kernels(g, launches, sweeps)
     del g
 
     print("[7] seg_coalesce kernel against its twin and the sort engine")
@@ -746,13 +989,17 @@ def main() -> int:
     print("[10] seg_coalesce at the first dense coarsening of the sort path")
     kernels.append(time_coalesce(n_coalesce, captured))
     for k in kernels:
+        conv = (f", converged {k['ms_converged']:.4f} ms (twin "
+                f"{k['plain_ms_converged']:.4f} ms)"
+                if "ms_converged" in k else "")
         print(f"  {k['name']}: {k['ms']:.4f} ms (twin {k['plain_ms']:.4f} "
-              f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
-              f"library {k['library_ms']})")
+              f"ms){conv}, bound {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']}, library {k['library_ms']}")
         for p in k.get("per_width", []):
             print(f"    width {p['width']:5d}: {p['real_rows']} of "
                   f"{p['rows']} rows real, {p['real_slots']} slots, "
-                  f"{p['ms']:.4f} ms, bound {p['bound_ms']:.4f} ms")
+                  f"{p['ms']:.4f} ms, converged {p['ms_converged']:.4f} "
+                  f"ms, bound {p['bound_ms']:.4f} ms")
     c = kernels[-1]
     print(f"    seg_coalesce at nv_pad {c['nv_pad']}, {c['real_rows']} real "
           f"rows: emit {c['emit_ms']:.4f} ms, whole sort engine "

@@ -9,6 +9,15 @@ per-vertex best moves, applies the singleton guard and computes Q and the
 number of moves -- the reference's ``bucketed_step`` with its
 single-device replicated exchange.
 
+The host ``BucketPlan`` is the reference's array for array, padding rows
+included: every class pads its row count to a power of two so the TPU's
+compiled shapes stay few.  Eager torch has no compile cache, so the device
+plan keeps no padded row: ``DevicePlan.upload`` sends only the real rows
+of each bucket (a prefix, ``verts < nv_local``) with their degrees, and the
+row kernel stops each row at its degree.  A padding row cost the card a
+full row of work against one address (all its slots are the same key), and
+a padded slot a read; neither changes a target.
+
 What the port does not do yet: no multi-GPU (no sharded plans, no sparse
 or two-level exchange, so no ``szT`` size channel), no early termination
 (ET), no coloring or vertex-ordering schedules, and no device re-binning of
@@ -35,7 +44,11 @@ from cuvite_tpu_torch.kernels.heavy_bincount import (
     build_heavy_layout,
     heavy_argmax,
 )
-from cuvite_tpu_torch.kernels.row_argmax import SENTINEL, row_argmax
+from cuvite_tpu_torch.kernels.row_argmax import (
+    SENTINEL,
+    row_argmax,
+    vertex_table,
+)
 from cuvite_tpu_torch.ops import segment as seg
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 384, 512, 768, 1024, 1536,
@@ -61,6 +74,7 @@ class BucketPlan:
     heavy_w: np.ndarray      # [NEh_pad] weights (pad 0)
     self_loop: np.ndarray    # [nv_local] per-vertex self-loop weight
     has_heavy: bool
+    deg: np.ndarray          # [nv_local] int64 edges of each vertex
 
     @staticmethod
     def build(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
@@ -142,6 +156,7 @@ class BucketPlan:
             heavy_w=heavy_w,
             self_loop=self_loop.astype(w.dtype),
             has_heavy=has_heavy,
+            deg=deg,
         )
 
 
@@ -167,27 +182,37 @@ def build_assemble_perm(verts_list, nv_local: int) -> np.ndarray:
 class DevicePlan:
     """A BucketPlan placed on one device, in the kernels' dtypes."""
 
-    buckets: list                 # list of (verts [Nb], dst [Nb, D], w)
+    # list of (verts [Nb] int32, dst [Nb, D] int32, w [Nb, D] f32,
+    # deg [Nb] int32 row degrees or None for full rows)
+    buckets: list
     heavy: HeavyLayout | None     # hub layout, None without hubs
     self_loop: torch.Tensor       # [nv_local] f32
     perm: torch.Tensor            # [nv_local] int64 assembly gather
 
     @staticmethod
     def upload(plan: BucketPlan, device) -> "DevicePlan":
+        """The real rows of every bucket (padding rows dropped) with their
+        degrees, those the plan laid the rows out by."""
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 device).to(dtype)
 
-        buckets = [(put(b.verts, torch.int32), put(b.dst, torch.int32),
-                    put(b.w, torch.float32)) for b in plan.buckets]
+        buckets, real_verts = [], []
+        for b in plan.buckets:
+            nb = int(np.count_nonzero(b.verts < plan.nv_local))
+            v = b.verts[:nb]
+            real_verts.append(v)
+            buckets.append((put(v, torch.int32), put(b.dst[:nb], torch.int32),
+                            put(b.w[:nb], torch.float32),
+                            put(plan.deg[v], torch.int32)))
         heavy = build_heavy_layout(plan.heavy_src, plan.heavy_dst,
                                    plan.heavy_w, nv_local=plan.nv_local)
         return DevicePlan(
             buckets=buckets,
             heavy=None if heavy is None else heavy.to(device),
             self_loop=put(plan.self_loop, torch.float32),
-            perm=put(build_assemble_perm([b.verts for b in plan.buckets],
-                                         plan.nv_local), torch.int64),
+            perm=put(build_assemble_perm(real_verts, plan.nv_local),
+                     torch.int64),
         )
 
 
@@ -211,12 +236,17 @@ def bucketed_step(plan: DevicePlan, comm: torch.Tensor, vdeg: torch.Tensor,
     const32 = float(np.float32(constant))
     comm_deg64 = seg.segment_sum(vdeg.double(), comm, nv_total)
     comm_deg = comm_deg64.float()
-    comm_size = torch.bincount(comm.long(), minlength=nv_total)
+    # index_add_, not bincount: bincount reads its input's max on the host.
+    comm_size = seg.segment_sum(torch.ones_like(comm), comm, nv_total)
     dev = comm.device
+    # The kernels' per-vertex records, once per sweep (the CPU twins
+    # gather the tables themselves).
+    vinfo = (vertex_table(comm, comm_deg, vdeg, plan.self_loop)
+             if dev.type == "cuda" else None)
     bcs, bgs, c0s = [], [], []
-    for verts, dst, w in plan.buckets:
+    for verts, dst, w, deg in plan.buckets:
         bc, bg, c0 = row_argmax(dst, w, verts, comm, comm_deg, vdeg,
-                                plan.self_loop, const32)
+                                plan.self_loop, const32, deg, vinfo)
         bcs.append(bc)
         bgs.append(bg)
         c0s.append(c0)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from cuvite_tpu_torch.kernels.heavy_bincount import (
+    HEAVY_CHUNK,
     build_heavy_layout,
     heavy_argmax,
     heavy_argmax_plain,
@@ -68,6 +69,45 @@ def layout_from_dense(cmat, wmat, n_comm):
                               nv_local=n_total)
 
 
+def hot_rows(n_rows, width, seed, n_comm=64):
+    """Rows whose slots all fall in one community (even rows) or two (odd
+    rows) of [0, n_comm), row degrees in (width/2, width] and padding past
+    them (community = the row's own, weight 0); a quarter of the rows sit
+    in their hot community.  Shaped like bucket_case's outputs plus the
+    row degrees."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, n_comm, n_rows)
+    b = rng.integers(0, n_comm, n_rows)
+    two = (np.arange(n_rows) % 2 == 1)[:, None]
+    cmat = np.where(two & (rng.random((n_rows, width)) < 0.5), b[:, None],
+                    a[:, None]).astype(np.int32)
+    curr = rng.integers(0, n_comm, n_rows).astype(np.int32)
+    curr[::4] = a[::4]
+    deg = rng.integers(width // 2 + 1, width + 1, n_rows).astype(np.int32)
+    pad = np.arange(width)[None, :] >= deg[:, None]
+    wmat = (rng.integers(0, 8, (n_rows, width)) / 4.0).astype(np.float32)
+    wmat[pad] = 0.0
+    vdeg = (rng.integers(1, 64, n_rows) / 4.0).astype(np.float32)
+    sl = np.zeros(n_rows, np.float32)
+    comm_deg = (rng.integers(1, 4096, n_comm) / 8.0).astype(np.float32)
+    return cmat, wmat, curr, vdeg, sl, comm_deg, pad, deg
+
+
+def zero_tie(width):
+    """One row (or hub) whose two best candidates tie at gain exactly 0:
+    zero-weight edges into communities 5 (first) and 3, whose degree 6
+    equals ax = comm_deg[curr] - vdeg = 10 - 4, and into 9 (degree 100,
+    negative gain); nothing into the current community 15.  3 must win.
+    Returns bucket_case-shaped arrays over 16 communities."""
+    cmat = np.full((1, width), 15, np.int32)
+    cmat[0, :6] = [5, 3, 9, 5, 3, 9]
+    wmat = np.zeros((1, width), np.float32)
+    comm_deg = np.full(16, 6.0, np.float32)
+    comm_deg[9], comm_deg[15] = 100.0, 10.0
+    return (cmat, wmat, np.array([15], np.int32),
+            np.array([4.0], np.float32), np.zeros(1, np.float32), comm_deg)
+
+
 def coalesce_case(nv_pad, ne_pad, seed, gapped=False, weights="dyadic"):
     """A relabeled slab shaped like tests/test_seg_coalesce.py::_slab:
     real rows in a prefix, padding (src == nv_pad, dst == 0, w == 0)
@@ -115,6 +155,104 @@ def test_row_kernel_matches_twin_on_card(cuda_device, width):
     torch.cuda.synchronize()
     for r, g in zip(ref, got):
         assert torch.equal(r, g.cpu())
+
+
+def _rows_on_card(cmat, wmat, curr, vdeg, sl, comm_deg, constant, deg,
+                  dev):
+    """Kernel on the card and twin on the CPU, both given ``deg``."""
+    n_comm = len(comm_deg)
+    verts, comm, vd, slt = vertex_tables(curr, vdeg, sl, n_comm)
+    args = [torch.from_numpy(cmat), torch.from_numpy(wmat), verts, comm,
+            torch.from_numpy(comm_deg), vd, slt]
+    d = None if deg is None else torch.from_numpy(deg)
+    ref = row_argmax_plain(*args, constant, d)
+    got = row_argmax(*[a.to(dev) for a in args], constant,
+                     None if d is None else d.to(dev))
+    torch.cuda.synchronize()
+    return [g.cpu() for g in got], ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [16, 64, 512, 768, 8192])
+def test_row_kernel_hot_key_and_short_rows_on_card(cuda_device, width):
+    """Rows inside one or two communities, shorter than their class: with
+    the per-row degree, without it (the full width, padding included), and
+    the twin without it -- all bit-equal."""
+    n_rows = 32 if width >= 768 else 256
+    cmat, wmat, curr, vdeg, sl, comm_deg, pad, deg = hot_rows(
+        n_rows, width, width)
+    cmat = np.where(pad, 64 + np.arange(n_rows)[:, None], cmat).astype(
+        np.int32)   # padding slots: the row's own vertex
+    full, ref = _rows_on_card(cmat, wmat, curr, vdeg, sl, comm_deg, 0.3,
+                              None, cuda_device)
+    short, ref_d = _rows_on_card(cmat, wmat, curr, vdeg, sl, comm_deg, 0.3,
+                                 deg, cuda_device)
+    for a, b, c, d in zip(full, ref, short, ref_d):
+        assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 64, 1536])
+def test_row_kernel_zero_gain_tie_on_card(cuda_device, width):
+    cmat, wmat, curr, vdeg, sl, comm_deg = zero_tie(width)
+    got, ref = _rows_on_card(cmat, wmat, curr, vdeg, sl, comm_deg,
+                             1.0 / 64.0, None, cuda_device)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int(got[0][0]) == 3 and float(got[1][0]) == 0.0
+
+
+def _hubs_on_card(cmat, wmat, curr, vdeg, sl, comm_deg, constant, dev):
+    """Heavy kernel twice in a row on the card, twin on the CPU; the
+    scratch must be clean after each launch."""
+    n_comm = len(comm_deg)
+    lay = layout_from_dense(cmat, wmat, n_comm)
+    _, comm, vd, slt = vertex_tables(curr, vdeg, sl, n_comm)
+    cd = torch.from_numpy(comm_deg)
+    ref = heavy_argmax_plain(lay, comm, cd, vd, slt, constant)
+    dlay = lay.to(dev)
+    tabs = [t.to(dev) for t in (comm, cd, vd, slt)]
+    for _ in range(2):
+        got = heavy_argmax(dlay, *tabs, constant)
+        torch.cuda.synchronize()
+        for r, g in zip(ref, got):
+            assert torch.equal(r, g.cpu())
+        assert dlay.scratch.is_clean()
+    return [g.cpu() for g in got]
+
+
+@pytest.mark.cuda
+def test_heavy_kernel_hot_key_hubs_on_card(cuda_device):
+    """Hubs inside one or two communities, over several chunks each."""
+    cmat, wmat, curr, vdeg, sl, comm_deg, pad, _ = hot_rows(
+        8, 3 * HEAVY_CHUNK + 5, 7)
+    cmat = np.where(pad, len(comm_deg), cmat).astype(np.int32)
+    _hubs_on_card(cmat, wmat, curr, vdeg, sl, comm_deg, 0.3, cuda_device)
+
+
+@pytest.mark.cuda
+def test_heavy_kernel_multi_chunk_hub_on_card(cuda_device):
+    """A hub of 2^18 edges (64 chunks) beside hubs of 8193 and 4096*3."""
+    rng = np.random.default_rng(3)
+    width, n_comm = 1 << 18, 5000
+    cmat = rng.integers(0, n_comm, (3, width)).astype(np.int32)
+    cmat[1, 8193:] = n_comm
+    cmat[2, 3 * HEAVY_CHUNK:] = n_comm
+    wmat = (rng.integers(0, 16, (3, width)) / 16.0).astype(np.float32)
+    comm_deg = (rng.integers(1, 1 << 12, n_comm) / 8.0).astype(np.float32)
+    _hubs_on_card(cmat, wmat, np.array([0, 1, 2], np.int32),
+                  np.array([300.0, 20.0, 12.0], np.float32),
+                  np.array([1.0, 0.0, 0.5], np.float32), comm_deg, 0.3,
+                  cuda_device)
+
+
+@pytest.mark.cuda
+def test_heavy_kernel_zero_gain_tie_on_card(cuda_device):
+    cmat, wmat, curr, vdeg, sl, comm_deg = zero_tie(12000)
+    cmat[0, :] = np.tile(np.array([5, 3, 9], np.int32), 4000)
+    got = _hubs_on_card(cmat, wmat, curr, vdeg, sl, comm_deg, 1.0 / 64.0,
+                        cuda_device)
+    assert int(got[0][0]) == 3 and float(got[1][0]) == 0.0
 
 
 @pytest.mark.cuda

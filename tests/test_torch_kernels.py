@@ -19,6 +19,7 @@ from cuvite_tpu.kernels.heavy_bincount import heavy_argmax_pallas
 from cuvite_tpu.kernels.row_argmax import row_argmax_pallas
 from cuvite_tpu.louvain.bucketed import _row_argmax_sorted
 from cuvite_tpu_torch.kernels.heavy_bincount import (
+    HEAVY_CHUNK,
     build_heavy_layout,
     heavy_argmax,
 )
@@ -28,8 +29,10 @@ from cuvite_tpu_torch.kernels.row_argmax import (
     row_argmax_plain,
 )
 from test_torch_cuda import bucket_case as _bucket_case
+from test_torch_cuda import hot_rows as _hot_rows
 from test_torch_cuda import layout_from_dense as _layout_from_dense
 from test_torch_cuda import vertex_tables as _tables
+from test_torch_cuda import zero_tie as _zero_tie
 
 
 def _pallas_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant):
@@ -45,11 +48,12 @@ def _pallas_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant):
     return [np.asarray(x) for x in out]
 
 
-def _port_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant):
+def _port_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant, deg=None):
     verts, comm, vd, slt = _tables(curr, vdeg, sl, len(comm_deg))
     out = row_argmax(torch.from_numpy(cmat), torch.from_numpy(wmat), verts,
                      comm, torch.from_numpy(comm_deg), vd, slt,
-                     float(constant))
+                     float(constant),
+                     None if deg is None else torch.from_numpy(deg))
     return [x.numpy() for x in out]
 
 
@@ -116,6 +120,49 @@ def test_row_twin_no_candidates_and_padding_rows():
                          slt, 0.01)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("width", [8, 32, 64, 256])
+@pytest.mark.parametrize("kind", ["random", "hot"])
+def test_row_twin_with_degree_matches_pallas(width, kind):
+    """Given the per-row degree, the twin gives what it gives on the full
+    rows (padding slots past the degree: the row's own community, weight
+    0), and both equal the Pallas kernel -- on random rows and on rows
+    inside one or two communities.  Some rows have degree 0."""
+    n_rows, nv = 128, 300
+    if kind == "random":
+        cmat, wmat, curr, vdeg, sl, comm_deg, _ = _bucket_case(
+            n_rows, width, nv, width)
+        rng = np.random.default_rng(width)
+        deg = rng.integers(0, width + 1, n_rows).astype(np.int32)
+        pad = np.arange(width)[None, :] >= deg[:, None]
+    else:
+        cmat, wmat, curr, vdeg, sl, comm_deg, pad, deg = _hot_rows(
+            n_rows, width, width + 1, n_comm=nv)
+    cmat = np.where(pad, curr[:, None], cmat).astype(np.int32)
+    wmat = np.where(pad, 0.0, wmat).astype(np.float32)
+    constant = np.float32(0.3)
+    ref = _pallas_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant)
+    full = _port_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant)
+    short = _port_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant, deg)
+    for name, r, f, d in zip(("best_c", "best_gain", "counter0"), ref, full,
+                             short):
+        assert np.array_equal(r, f) and np.array_equal(r, d), name
+
+
+@pytest.mark.parametrize("width", [8, 64])
+def test_row_twin_zero_gain_tie_matches_pallas(width):
+    """Two candidates tie at gain exactly 0: the smaller id wins."""
+    tie = _zero_tie(width)
+    # 128 copies of the row: the Pallas kernel tiles rows by 128.
+    cmat, wmat, curr, vdeg, sl = (np.repeat(a, 128, axis=0) for a in tie[:5])
+    comm_deg = tie[5]
+    constant = np.float32(1.0 / 64.0)
+    ref = _pallas_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant)
+    got = _port_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant)
+    for r, g in zip(ref, got):
+        assert np.array_equal(r, g)
+    assert np.all(got[0] == 3) and np.all(got[1] == 0.0)
 
 
 def _pallas_heavy(cmat, wmat, curr, vdeg, sl, comm_deg_pad, constant,
@@ -228,8 +275,60 @@ def test_build_heavy_layout_contract():
     # next_pow2(2 * degree) table slots per hub.
     assert lay.table_offsets.tolist() == [0, 8, 12]
     assert lay.table_size == 12
+    # One chunk per hub at these degrees.
+    assert lay.chunk_offsets.tolist() == [0, 4, 6]
+    assert lay.chunk_hub.tolist() == [0, 1]
+    assert lay.hub_chunks.tolist() == [0, 1, 2]
+    assert lay.max_chunk == 4 and lay.scratch is None
     empty = np.full(8, nv_local, np.int64)
     assert build_heavy_layout(empty, hd, hw, nv_local=nv_local) is None
+
+
+def _chunk_table_ok(lay, degrees):
+    """The chunk table's contract against the hub degrees."""
+    off = lay.offsets.numpy()
+    coff = lay.chunk_offsets.numpy()
+    chub = lay.chunk_hub.numpy()
+    hch = lay.hub_chunks.numpy()
+    lens = np.diff(coff)
+    assert np.array_equal(np.diff(off), degrees)
+    assert coff[0] == 0 and coff[-1] == off[-1] and np.all(lens >= 1)
+    assert lens.max() <= HEAVY_CHUNK and lay.max_chunk == lens.max()
+    assert lay.num_chunks == len(chub) == len(coff) - 1 == hch[-1]
+    for h, d in enumerate(degrees):
+        ks = np.arange(hch[h], hch[h + 1])
+        assert len(ks) == -(-d // HEAVY_CHUNK)
+        assert np.all(chub[ks] == h) and np.all(np.diff(chub) >= 0)
+        # The hub's chunks tile its edge range exactly, none outside it.
+        assert coff[ks[0]] == off[h] and coff[ks[-1] + 1] == off[h + 1]
+        assert np.all(lens[ks[:-1]] == HEAVY_CHUNK)
+
+
+@pytest.mark.parametrize("degrees", [[8193], [4096, 8192, 3 * 4096],
+                                     [1 << 18], [1, 4095, 4097, 8193, 5]])
+def test_heavy_layout_chunk_table(degrees):
+    degrees = np.array(degrees)
+    n_hubs = len(degrees)
+    nv_local = 100
+    # Hubs listed out of order, with padding triples (src == nv_local).
+    hubs = np.array([7, 3, 50, 9, 60])[:n_hubs]
+    src = np.concatenate([np.repeat(hubs, degrees),
+                          np.full(8, nv_local)])
+    rng = np.random.default_rng(len(src))
+    dst = rng.integers(0, nv_local, len(src))
+    w = rng.integers(0, 4, len(src)).astype(np.float32)
+    lay = build_heavy_layout(src, dst, w, nv_local=nv_local)
+    order = np.argsort(hubs, kind="stable")
+    assert lay.verts.tolist() == sorted(hubs.tolist())
+    _chunk_table_ok(lay, degrees[order])
+    # Within-hub edge order is kept.
+    for k, h in enumerate(order):
+        first = int(np.sum(degrees[:h]))
+        a, b = int(lay.offsets[k]), int(lay.offsets[k + 1])
+        assert np.array_equal(lay.dst.numpy()[a:b],
+                              dst[first:first + degrees[h]])
+    on_cpu = lay.to("cpu")
+    assert on_cpu.scratch is None and on_cpu.num_chunks == lay.num_chunks
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device", "width"])

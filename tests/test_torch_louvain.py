@@ -121,6 +121,64 @@ def test_sweeps_match_jax_bucketed_step(name, request, monkeypatch):
         comm = np.asarray(jt).astype(np.int32)
 
 
+@pytest.mark.parametrize("name", ["rmat12", "hub_graph"])
+def test_depadded_plan_matches_padded_plan_and_jax(name, request,
+                                                   monkeypatch):
+    """The device plan holds only real rows, each with its degree; three
+    sweeps on it give the targets, move counts, counter0 and Q of the
+    padded host plan uploaded whole (padding rows, full widths) and the
+    targets of the JAX bucketed_step."""
+    from cuvite_tpu_torch.louvain.bucketed import (
+        BucketPlan,
+        DevicePlan,
+        bucketed_step,
+        build_assemble_perm,
+    )
+
+    monkeypatch.setenv("CUVITE_HEAVY_KERNEL", "0")
+    jg = request.getfixturevalue(name)
+    jdg = JDistGraph.build(jg, 1, min_nv_pad=4096, min_ne_pad=16384,
+                           pad_edges=False)
+    jrun = JPhaseRunner(jdg, engine="bucketed")
+    dg = DistGraph.build(_port_graph(jg))
+    run = PhaseRunner(dg, "cpu")
+    nv = run.nv_total
+    host = BucketPlan.build(dg.src, dg.dst, dg.w, nv_local=nv)
+    padded = DevicePlan(
+        buckets=[(torch.from_numpy(b.verts.astype(np.int32)),
+                  torch.from_numpy(b.dst.astype(np.int32)),
+                  torch.from_numpy(b.w.astype(np.float32)), None)
+                 for b in host.buckets],
+        heavy=run.plan.heavy, self_loop=run.plan.self_loop,
+        perm=torch.from_numpy(build_assemble_perm(
+            [b.verts for b in host.buckets], nv).astype(np.int64)))
+    degrees = np.bincount(dg.src, minlength=nv)
+    assert np.array_equal(host.deg, degrees[:nv])
+    n_pad = 0
+    for (v, d, w, deg), b in zip(run.plan.buckets, host.buckets):
+        real = b.verts < nv
+        n_pad += int((~real).sum())
+        assert torch.equal(v, torch.from_numpy(b.verts[real].astype(
+            np.int32)))
+        assert d.shape == (int(real.sum()), b.width) and w.shape == d.shape
+        assert torch.equal(deg, torch.from_numpy(
+            degrees[b.verts[real]].astype(np.int32)))
+    assert n_pad > 0   # the padded plan really has padding rows
+    comm = np.arange(nv, dtype=np.int32)
+    for _ in range(3):
+        jt, jmod, jmoved, _ovf = jrun._step(None, None, None, comm,
+                                            jrun.vdeg, jrun.constant)
+        tc = torch.from_numpy(comm)
+        a = bucketed_step(run.plan, tc, run.vdeg, run.constant, nv_total=nv)
+        b = bucketed_step(padded, tc, run.vdeg, run.constant, nv_total=nv)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert np.array_equal(a.target.numpy(), np.asarray(jt))
+        assert int(a.n_moved) == int(jmoved)
+        assert float(a.modularity) == pytest.approx(float(jmod), abs=1e-6)
+        comm = np.asarray(jt).astype(np.int32)
+
+
 def _assert_same_run(jr, tr):
     assert np.array_equal(tr.communities, jr.communities)
     assert len(tr.phases) == len(jr.phases)
