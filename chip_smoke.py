@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--scale 20] [--check-scale 14]
                           [--rgg-nv 4194304] [--rgg-check-nv 65536]
+                          [--fused-check-scale 12] [--fused-shrink 4096]
+                          [--schedule-scale 20]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -50,7 +52,32 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    then one phase-0 sort sweep timed on the device stream;
 10. seg_coalesce timed at the first dense coarsening of that run beside
    its twin, the compaction, the whole sort engine, two torch.bincount
-   calls and its bound; all three kernels printed as one JSON line.
+   calls and its bound;
+11. louvain_phases(engine="fused") on R-MAT --fused-check-scale and RGG
+   --rgg-check-nv, on the card and on the CPU, with FUSED_SHRINK_EDGES
+   lowered to --fused-shrink so one-phase calls and device coarsenings,
+   dense ones included, run: identical labels, phases and iterations, Q
+   to 1e-9; fails if seg_coalesce never launched on the card;
+12. the fused path: louvain_phases(engine="fused") on RGG --rgg-nv and
+   R-MAT --scale with the default FUSED_SHRINK_EDGES and the launch counts
+   set to 0 just before; per phase nv, ne, iterations, Q, seconds and the
+   engine of the device coarsening after it; its wall time beside the
+   sort and bucketed engines' on the same graph in this call; fails if
+   the reported Q is more than 1e-6 from the host f64 modularity;
+13. early termination (et_mode 1-4), coloring=8 and vertex_ordering=8 on
+   R-MAT --check-scale, on the card and on the CPU: identical labels,
+   phases and iterations, Q to 1e-9; the card's colors equal the CPU's
+   with no conflicting edge;
+14. et_mode=3 and coloring=8 on R-MAT --schedule-scale with the launch
+   counts set to 0 just before each; per run the color and class-plan
+   seconds, the sweeps and the convergence rows' summary; fails if the
+   row or heavy kernel never launched, or Q is more than 1e-6 from the
+   host f64 modularity; then the coloring run's class plans, rebuilt,
+   each swept by bucketed_step on the card and by the twins on the CPU
+   from the same assignment (the run's first iteration, then one with
+   vertex ordering's frozen tables): target and counter0 bit-equal on
+   every plan.  All three kernels printed as one JSON line, with their
+   launches on every path.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -440,6 +467,36 @@ def check_heavy(dev) -> None:
 # Phases 4-6.
 
 
+def kernel_counts() -> dict:
+    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
+    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
+    from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
+
+    return {"row_argmax": row_argmax.launches,
+            "heavy_bincount": heavy_argmax.launches,
+            "seg_coalesce": seg_coalesce.launches}
+
+
+def zero_kernel_counts() -> None:
+    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
+    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
+    from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
+
+    row_argmax.launches = heavy_argmax.launches = seg_coalesce.launches = 0
+
+
+def check_same_run(what: str, rg, rc) -> None:
+    if not np.array_equal(rg.communities, rc.communities):
+        fail(f"{what}: card and CPU labels differ")
+    its = ([p.iterations for p in rg.phases],
+           [p.iterations for p in rc.phases])
+    if its[0] != its[1]:
+        fail(f"{what}: phases/iterations differ: {its}")
+    if abs(rg.modularity - rc.modularity) > 1e-9:
+        fail(f"{what}: Q {rg.modularity} vs {rc.modularity}")
+
+
+
 def check_card_vs_cpu(scale: int) -> None:
     from cuvite_tpu_torch import louvain_phases
     from cuvite_tpu_torch.io.generate import generate_rmat
@@ -447,36 +504,25 @@ def check_card_vs_cpu(scale: int) -> None:
     g = generate_rmat(scale)
     rg = louvain_phases(g, device="cuda")
     rc = louvain_phases(g, device="cpu")
-    if not np.array_equal(rg.communities, rc.communities):
-        fail(f"R-MAT {scale}: card and CPU labels differ")
-    if [p.iterations for p in rg.phases] != [p.iterations for p in rc.phases]:
-        fail(f"R-MAT {scale}: phases/iterations differ: "
-             f"{[p.iterations for p in rg.phases]} vs "
-             f"{[p.iterations for p in rc.phases]}")
-    if abs(rg.modularity - rc.modularity) > 1e-9:
-        fail(f"R-MAT {scale}: Q {rg.modularity} vs {rc.modularity}")
+    check_same_run(f"R-MAT {scale}", rg, rc)
     print(f"  R-MAT {scale}: {len(rg.phases)} phases, "
           f"{rg.total_iterations} iterations, Q {rg.modularity:.9f} on card "
           "and CPU, labels identical")
 
 
-def run_main_path(g, scale: int) -> dict:
+def run_main_path(g, scale: int) -> tuple:
     import torch
 
     from cuvite_tpu_torch import louvain_phases
     from cuvite_tpu_torch.evaluate.modularity import modularity
-    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
-    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
 
     torch.cuda.reset_peak_memory_stats()
-    row_argmax.launches = 0
-    heavy_argmax.launches = 0
+    zero_kernel_counts()
     t0 = time.perf_counter()
     res = louvain_phases(g)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"row_argmax": row_argmax.launches,
-                "heavy_bincount": heavy_argmax.launches}
+    launches = kernel_counts()
     for p in res.phases:
         st = " ".join(f"{k} {v:.3f}" for k, v in p.stages.items())
         print(f"  phase {p.phase}: nv {p.num_vertices} ne {p.num_edges} "
@@ -489,14 +535,14 @@ def run_main_path(g, scale: int) -> dict:
           f"({launches['row_argmax'] / max(sweeps, 1):.2f} row and "
           f"{launches['heavy_bincount'] / max(sweeps, 1):.2f} heavy "
           "launches per sweep)")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("row_argmax", "heavy_bincount"):
+        if launches[name] == 0:
             fail(f"{name} never launched on the main path")
     q_host = modularity(g, res.communities)
     if abs(q_host - res.modularity) > 1e-6:
         fail(f"reported Q {res.modularity} vs host f64 {q_host}")
     print(f"  reported Q {res.modularity:.9f}, host f64 Q {q_host:.9f}")
-    return launches, sweeps
+    return launches, sweeps, total_s
 
 
 # Bounds count the bytes the function must move on this run's data: each
@@ -754,31 +800,23 @@ def check_sort_card_vs_cpu(nv: int) -> None:
     g = generate_rgg(nv)
     rg = louvain_phases(g, device="cuda", engine="sort")
     rc = louvain_phases(g, device="cpu", engine="sort")
-    if not np.array_equal(rg.communities, rc.communities):
-        fail(f"RGG {nv} sort engine: card and CPU labels differ")
-    its = ([p.iterations for p in rg.phases], [p.iterations for p in rc.phases])
-    if its[0] != its[1]:
-        fail(f"RGG {nv} sort engine: phases/iterations differ: {its}")
-    if abs(rg.modularity - rc.modularity) > 1e-9:
-        fail(f"RGG {nv} sort engine: Q {rg.modularity} vs {rc.modularity}")
+    check_same_run(f"RGG {nv} sort engine", rg, rc)
     engines = [p.coalesce for p in rg.phases]
     if "dense" not in engines:
         fail(f"RGG {nv} sort engine: no dense coarsening ({engines})")
     print(f"  RGG {nv}: {g.num_edges} directed edges, {len(rg.phases)} "
-          f"phases, iterations {its[0]}, Q {rg.modularity:.9f} on card and "
+          f"phases, iterations {[p.iterations for p in rg.phases]}, Q "
+          f"{rg.modularity:.9f} on card and "
           f"CPU, labels identical; coarsenings {engines}")
 
 
 def run_sort_path(g, nv: int) -> tuple:
-    """The sort path on the card; returns (seg_coalesce launches, the
-    dense coarsenings' relabeled slabs and results)."""
+    """The sort path on the card; returns (the launch counts, the dense
+    coarsenings' relabeled slabs and results, the seconds)."""
     import torch
 
     from cuvite_tpu_torch import louvain_phases
     from cuvite_tpu_torch.evaluate.modularity import modularity
-    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
-    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
-    from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
     from cuvite_tpu_torch.ops import segment as seg
 
     # Observe, without changing, every coalesce of the run: keep the
@@ -796,13 +834,12 @@ def run_sort_path(g, nv: int) -> tuple:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        row_argmax.launches = heavy_argmax.launches = 0
-        seg_coalesce.launches = 0
+        zero_kernel_counts()
         t0 = time.perf_counter()
         res = louvain_phases(g, engine="sort")
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = seg_coalesce.launches
+        launches = kernel_counts()
     finally:
         seg.coalesced_runs = coalesced_runs
     for p in res.phases:
@@ -813,9 +850,8 @@ def run_sort_path(g, nv: int) -> tuple:
               f"{st})")
     print(f"  RGG {nv}: total {total_s:.3f} s, {res.total_iterations} "
           f"sweeps, max_memory_allocated {torch.cuda.max_memory_allocated()}"
-          f" B, seg_coalesce launches {launches} (row_argmax "
-          f"{row_argmax.launches}, heavy_bincount {heavy_argmax.launches})")
-    if launches == 0:
+          f" B, launches {launches}")
+    if launches["seg_coalesce"] == 0:
         fail(f"seg_coalesce never launched on the RGG {nv} sort path "
              f"(coarsenings {[p.coalesce for p in res.phases]})")
     q_host = modularity(g, res.communities)
@@ -838,7 +874,7 @@ def run_sort_path(g, nv: int) -> tuple:
         print(f"  dense coarsening {k}: nv_pad {nv_pad}, "
               f"{args[0].numel()} slab rows -> {n} rows, equal to the sort "
               f"engine's; {int((ulps > 0).sum())} weights one ulp apart")
-    return launches, captured
+    return launches, captured, total_s
 
 
 def time_sort_sweep(g) -> float:
@@ -907,6 +943,214 @@ def time_coalesce(launches: int, captured: list) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-14: the fused engine and the ET and color schedules.
+
+
+def check_fused_card_vs_cpu(graphs: dict, shrink: int) -> dict:
+    """Phase 11; returns the card runs' launch counts."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.louvain import driver
+
+    default = driver.FUSED_SHRINK_EDGES
+    driver.FUSED_SHRINK_EDGES = shrink
+    total = dict.fromkeys(kernel_counts(), 0)
+    try:
+        for name, g in graphs.items():
+            zero_kernel_counts()
+            rg = louvain_phases(g, device="cuda", engine="fused")
+            for k, n in kernel_counts().items():
+                total[k] += n
+            rc = louvain_phases(g, device="cpu", engine="fused")
+            check_same_run(f"{name} fused", rg, rc)
+            print(f"  {name}: {g.num_edges} directed edges, "
+                  f"{len(rg.phases)} phases, iterations "
+                  f"{[p.iterations for p in rg.phases]}, Q "
+                  f"{rg.modularity:.9f} on card and CPU, labels identical; "
+                  f"coarsenings {[p.coalesce for p in rg.phases]}")
+    finally:
+        driver.FUSED_SHRINK_EDGES = default
+    print(f"  card launches {total}")
+    if total["seg_coalesce"] == 0:
+        fail("seg_coalesce never launched on the fused path")
+    return total
+
+
+def run_fused_path(g, name: str, other_s: dict) -> dict:
+    """Phase 12 on one graph: the fused run, then whichever of the sort
+    and bucketed engines did not run on ``g`` earlier in this call
+    (``other_s`` holds those that did, in seconds).  Returns the fused
+    run's launch counts."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = louvain_phases(g, engine="fused")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    for p in res.phases:
+        st = " ".join(f"{k} {v:.3f}" for k, v in p.stages.items())
+        print(f"  phase {p.phase}: nv {p.num_vertices} ne {p.num_edges} "
+              f"iterations {p.iterations} Q {p.modularity:.9f} seconds "
+              f"{p.seconds:.3f} device coarsening after it: {p.coalesce} "
+              f"(host stages, s: {st})")
+    q_host = modularity(g, res.communities)
+    if abs(q_host - res.modularity) > 1e-6:
+        fail(f"{name} fused: reported Q {res.modularity} vs host f64 "
+             f"{q_host}")
+    times = dict(other_s)
+    for engine in ("sort", "bucketed"):
+        if engine not in times:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            louvain_phases(g, engine=engine)
+            torch.cuda.synchronize()
+            times[engine] = time.perf_counter() - t1
+    print(f"  {name}: fused {total_s:.3f} s, {res.total_iterations} sweeps, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+          f"launches {launches}; "
+          + ", ".join(f"{k} engine {v:.3f} s" for k, v in times.items())
+          + " in this call")
+    print(f"  reported Q {res.modularity:.9f}, host f64 Q {q_host:.9f}")
+    return launches
+
+
+def check_schedules_card_vs_cpu(scale: int) -> None:
+    """Phase 13."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.louvain.coloring import (
+        count_conflicts,
+        multi_hash_coloring,
+    )
+
+    g = generate_rmat(scale)
+    for kw in ([dict(et_mode=m) for m in (1, 2, 3, 4)]
+               + [dict(coloring=8), dict(vertex_ordering=8)]):
+        rg = louvain_phases(g, device="cuda", **kw)
+        rc = louvain_phases(g, device="cpu", **kw)
+        check_same_run(f"R-MAT {scale} {kw}", rg, rc)
+        print(f"  {kw}: {len(rg.phases)} phases, iterations "
+              f"{[p.iterations for p in rg.phases]}, Q "
+              f"{rg.modularity:.9f} on card and CPU, labels identical")
+    src, dst = g.sources().astype(np.int32), g.tails.astype(np.int32)
+    cg, ng = multi_hash_coloring(src, dst, g.num_vertices, n_hash=4,
+                                 device="cuda")
+    cc, nc = multi_hash_coloring(src, dst, g.num_vertices, n_hash=4,
+                                 device="cpu")
+    if ng != nc or not np.array_equal(cg, cc):
+        fail(f"R-MAT {scale}: card and CPU colors differ")
+    bad = count_conflicts(src, dst, g.num_vertices, cg)
+    if bad:
+        fail(f"R-MAT {scale}: {bad} edges join two vertices of one color")
+    print(f"  colors (4 hashes): {ng} slots, {int((cg >= 0).sum())} of "
+          f"{g.num_vertices} vertices colored, equal on card and CPU, "
+          "0 conflicting edges")
+
+
+def run_schedule_paths(g, scale: int) -> dict:
+    """Phase 14; returns each run's launch counts."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+    from cuvite_tpu_torch.obs.convergence import convergence_summary
+
+    out = {}
+    for kw in (dict(et_mode=3), dict(coloring=8)):
+        name = " ".join(f"{k}={v}" for k, v in kw.items())
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = louvain_phases(g, **kw)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        st0 = res.phases[0].stages
+        plans = "class plans" if "color" in st0 else "one plan"
+        iterate = sum(p.stages.get("iterate", 0.0) for p in res.phases)
+        print(f"  {name}: total {total_s:.3f} s, {res.total_iterations} "
+              f"sweeps, phases {len(res.phases)}, Q {res.modularity:.9f}; "
+              f"phase 0: color {st0.get('color', 0.0):.3f} s, plan "
+              f"{st0['plan']:.3f} s ({plans}), iterate "
+              f"{st0['iterate']:.3f} s; every phase's sweeps "
+              f"{iterate:.3f} s; launches {launches}")
+        for c in convergence_summary(res.convergence):
+            print(f"    convergence {c}")
+        if launches["row_argmax"] == 0 or launches["heavy_bincount"] == 0:
+            fail(f"R-MAT {scale} {name}: the row or heavy kernel never "
+                 f"launched ({launches})")
+        q_host = modularity(g, res.communities)
+        if abs(q_host - res.modularity) > 1e-6:
+            fail(f"R-MAT {scale} {name}: reported Q {res.modularity} vs "
+                 f"host f64 {q_host}")
+        out[f"{name} R-MAT {scale}"] = launches
+    return out
+
+
+def check_class_sweeps(g, scale: int, n: int = 8) -> None:
+    """Phase 14's kernels at the shapes its coloring run sends them: the
+    run's class plans, rebuilt from the same coloring, each swept by
+    ``bucketed_step`` on the card and by the twins on the CPU from the
+    same assignment.  Two iterations: the run's first (from the identity,
+    community tables refreshed per class) and one with vertex ordering's
+    tables frozen at the iteration start.  Target and counter0 must be
+    bit-equal on every plan."""
+    import torch
+
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.louvain.bucketed import (
+        DevicePlan,
+        bucketed_step,
+        build_class_plans,
+    )
+    from cuvite_tpu_torch.louvain.driver import _color_classes
+
+    t0 = time.perf_counter()
+    dg = DistGraph.build(g)
+    nv = dg.nv_pad
+    cls, n_classes = _color_classes(g, dg, n, "cuda", False)
+    plans = build_class_plans(dg.src, dg.dst, dg.w, cls, n_classes,
+                              nv_local=nv)
+    vdeg = torch.from_numpy(dg.padded_weighted_degrees()).float()
+    vdeg_d = vdeg.cuda()
+    const = 1.0 / dg.graph.total_edge_weight_twice()
+    build_s = time.perf_counter() - t0
+    work = torch.arange(nv, dtype=torch.int32)
+    hub_plans = 0
+    for it, frozen in ((0, False), (1, True)):
+        info = work.clone() if frozen else None
+        moved = 0
+        for c, plan in enumerate(plans):
+            ref = bucketed_step(DevicePlan.upload(plan, "cpu"), work, vdeg,
+                                const, nv_total=nv, info_comm=info)
+            got = bucketed_step(
+                DevicePlan.upload(plan, "cuda"), work.cuda(), vdeg_d, const,
+                nv_total=nv, info_comm=None if info is None else info.cuda())
+            if not (torch.equal(got.target.cpu(), ref.target)
+                    and torch.equal(got.counter0.cpu(), ref.counter0)):
+                fail(f"R-MAT {scale} class {c} of {n_classes}, iteration "
+                     f"{it}: the kernels' sweep differs from the twins'")
+            moved += int(ref.n_moved)
+            hub_plans += int(it == 0 and plan.has_heavy)
+            work = ref.target
+        print(f"  class sweep {it} ({'frozen' if frozen else 'refreshed'} "
+              f"tables): {n_classes} class plans, {moved} moves, target and "
+              "counter0 bit-equal on card and CPU")
+    print(f"  {hub_plans} of {n_classes} class plans hold hubs; plans "
+          f"rebuilt in {build_s:.3f} s, checks "
+          f"{time.perf_counter() - t0 - build_s:.3f} s")
+    if hub_plans == 0:
+        fail(f"R-MAT {scale}: no class plan holds a hub, so the heavy "
+             "kernel went unchecked at class-plan shapes")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -916,7 +1160,14 @@ def main() -> int:
     ap.add_argument("--rgg-nv", type=int, default=1 << 22,
                     help="RGG vertices of the sort-path run")
     ap.add_argument("--rgg-check-nv", type=int, default=1 << 16,
-                    help="RGG vertices of the sort-engine card-vs-CPU run")
+                    help="RGG vertices of the sort- and fused-engine "
+                         "card-vs-CPU runs")
+    ap.add_argument("--fused-check-scale", type=int, default=12,
+                    help="R-MAT scale of the fused-engine card-vs-CPU run")
+    ap.add_argument("--fused-shrink", type=int, default=1 << 12,
+                    help="FUSED_SHRINK_EDGES of the fused card-vs-CPU runs")
+    ap.add_argument("--schedule-scale", type=int, default=20,
+                    help="R-MAT scale of the ET and coloring runs")
     args = ap.parse_args()
 
     # The run uses one card: show torch only that one, so the device count
@@ -962,11 +1213,11 @@ def main() -> int:
     print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
           f"edges, max degree {int(g.degrees().max())} in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches, sweeps = run_main_path(g, args.scale)
+    launches, sweeps, bucketed_s = run_main_path(g, args.scale)
 
     print(f"[6] kernels at the R-MAT {args.scale} phase-0 shapes")
     kernels = time_kernels(g, launches, sweeps)
-    del g
+    g_rmat = g
 
     print("[7] seg_coalesce kernel against its twin and the sort engine")
     check_coalesce(dev)
@@ -981,13 +1232,13 @@ def main() -> int:
     g = generate_rgg(args.rgg_nv)
     print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
           f"edges in {time.perf_counter() - t0:.2f} s")
-    n_coalesce, captured = run_sort_path(g, args.rgg_nv)
+    sort_launches, captured, sort_s = run_sort_path(g, args.rgg_nv)
     print(f"  one phase-0 sort sweep: {time_sort_sweep(g):.4f} ms on the "
           "device stream")
-    del g
+    g_rgg = g
 
     print("[10] seg_coalesce at the first dense coarsening of the sort path")
-    kernels.append(time_coalesce(n_coalesce, captured))
+    kernels.append(time_coalesce(sort_launches["seg_coalesce"], captured))
     for k in kernels:
         conv = (f", converged {k['ms_converged']:.4f} ms (twin "
                 f"{k['plain_ms_converged']:.4f} ms)"
@@ -1007,6 +1258,42 @@ def main() -> int:
     if c["max_abs_err"] != 0.0:
         fail(f"seg_coalesce differs from its twin at the sort-path slab "
              f"(max abs err {c['max_abs_err']})")
+    paths = {f"bucketed R-MAT {args.scale}": launches,
+             f"sort RGG {args.rgg_nv}": sort_launches}
+    del captured
+
+    print(f"[11] fused engine, card against CPU, FUSED_SHRINK_EDGES "
+          f"{args.fused_shrink}")
+    t11 = time.perf_counter()
+    paths[f"fused R-MAT {args.fused_check_scale} and RGG "
+          f"{args.rgg_check_nv}, shrink {args.fused_shrink}"] = \
+        check_fused_card_vs_cpu(
+            {f"R-MAT {args.fused_check_scale}":
+                generate_rmat(args.fused_check_scale),
+             f"RGG {args.rgg_check_nv}": generate_rgg(args.rgg_check_nv)},
+            args.fused_shrink)
+
+    print("[12] fused path at full size")
+    paths[f"fused RGG {args.rgg_nv}"] = run_fused_path(
+        g_rgg, f"RGG {args.rgg_nv}", {"sort": sort_s})
+    del g_rgg
+    paths[f"fused R-MAT {args.scale}"] = run_fused_path(
+        g_rmat, f"R-MAT {args.scale}", {"bucketed": bucketed_s})
+
+    print(f"[13] R-MAT {args.check_scale}: ET and color schedules, card "
+          "against CPU")
+    check_schedules_card_vs_cpu(args.check_scale)
+
+    print(f"[14] ET and coloring on R-MAT {args.schedule_scale}")
+    if args.schedule_scale != args.scale:
+        g_rmat = generate_rmat(args.schedule_scale)
+    paths.update(run_schedule_paths(g_rmat, args.schedule_scale))
+    check_class_sweeps(g_rmat, args.schedule_scale)
+    del g_rmat
+    print(f"  phases 11-14 took {time.perf_counter() - t11:.1f} s")
+    for k in kernels:
+        k["launches_by_path"] = {p: n.get(k["name"], 0)
+                                 for p, n in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,9 @@
     python -m cuvite_tpu_torch.cli --rmat 20
     python -m cuvite_tpu_torch.cli -n 4194304 --engine sort
     python -m cuvite_tpu_torch.cli --file graph.bin [--bits64] --output
+    python -m cuvite_tpu_torch.cli --rmat 20 --engine fused
+    python -m cuvite_tpu_torch.cli --rmat 20 -t 3 -c 8
+    python -m cuvite_tpu_torch.cli --rmat 20 --checkpoint-dir ck [--resume]
 
 ``-n NV`` generates the random geometric graph of the reference
 application's ``-n`` (no ``-e`` extra edges yet), ``--seed`` its stream.
@@ -31,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "vertices")
     p.add_argument("--seed", type=int, default=1,
                    help="seed of the generated graph")
-    p.add_argument("--engine", choices=("auto", "bucketed", "sort"),
+    p.add_argument("--engine", choices=("auto", "bucketed", "sort", "fused"),
                    default="auto",
                    help="sweep engine (auto = bucketed)")
     p.add_argument("--bits64", action="store_true",
@@ -39,6 +42,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--threshold", type=float, default=1e-6)
     p.add_argument("--threshold-cycling", "-i", action="store_true")
     p.add_argument("--one-phase", "-p", action="store_true")
+    p.add_argument("--early-term", "-t", type=int, choices=[1, 2, 3, 4],
+                   help="early termination mode")
+    p.add_argument("--et-delta", "-a", type=float, default=0.25)
+    p.add_argument("--coloring", "-c", type=int, metavar="NC",
+                   help="distance-1 coloring with NC max colors")
+    p.add_argument("--vertex-ordering", "-d", type=int, metavar="NC",
+                   help="color-based vertex ordering with NC max colors")
+    p.add_argument("--checkpoint-dir", metavar="DIR",
+                   help="save the state after each phase")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint-dir")
     p.add_argument("--output", "-o", action="store_true",
                    help="write <graph>.communities")
     p.add_argument("--device", default=None,
@@ -72,7 +87,13 @@ def main(argv=None) -> int:
     res = louvain_phases(graph, threshold=args.threshold,
                          threshold_cycling=args.threshold_cycling,
                          one_phase=args.one_phase, verbose=True,
-                         device=args.device, engine=args.engine)
+                         device=args.device, engine=args.engine,
+                         et_mode=args.early_term or 0,
+                         et_delta=args.et_delta,
+                         coloring=args.coloring or 0,
+                         vertex_ordering=args.vertex_ordering or 0,
+                         checkpoint_dir=args.checkpoint_dir,
+                         resume=args.resume)
     q = modularity(graph, res.communities)
     print(f"Final modularity: {q:.6f} ({res.num_communities} communities, "
           f"{res.total_iterations} iterations, {res.total_seconds:.2f}s)")

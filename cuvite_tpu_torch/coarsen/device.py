@@ -23,9 +23,10 @@ Differences from the reference, by design:
   cuts every coarse slab to exactly its ne2 rows, with
   nv_pad = next_pow2(nc).  The dense/sort choice is unchanged by it.
 
-Not ported yet: ``device_compose_labels`` (the port composes labels on
-the host, as the reference's sort driver does), ``grow_slab``, and the
-batched and sub-row lifts, which wait for the fused and batched slices.
+``device_compose_labels`` composes the fused engine's labels across
+phases on the card; the sort engine composes them on the host, as the
+reference's sort driver does.  Not ported yet: ``grow_slab`` (streaming)
+and the batched and sub-row lifts.
 """
 
 from __future__ import annotations
@@ -99,6 +100,14 @@ def device_weighted_degrees(src: torch.Tensor, w: torch.Tensor, *,
     """Weighted degree of a resident slab, summed in f64 and rounded once
     to f32 (padding src == nv_pad drops)."""
     return seg.segment_sum_drop(w.double(), src, nv_pad).float()
+
+
+def device_compose_labels(dense_map: torch.Tensor, labels: torch.Tensor,
+                          comm_all: torch.Tensor) -> torch.Tensor:
+    """Cross-phase label composition (main.cpp:374-403): original vertex ->
+    current dense id, through this phase's padded-space ``labels`` and
+    their ``dense_map`` (:func:`device_renumber`)."""
+    return dense_map[labels[comm_all.long()].long()]
 
 
 def shrink_slab(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,

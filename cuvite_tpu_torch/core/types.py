@@ -16,6 +16,16 @@ import numpy as np
 TERMINATION_PHASE_COUNT = 200
 MAX_TOTAL_ITERATIONS = 10_000
 
+# Most convergence rows kept per phase (obs/convergence.py); the exact
+# iteration count is kept beside them.
+CONV_ROWS_CAP = 128
+
+# Early termination (reference louvain.hpp:74-80): modes 3/4 stop a phase
+# once this fraction of its real vertices is frozen; modes 2/4 freeze a
+# vertex once its activity probability falls to P_CUTOFF or below.
+ET_CUTOFF = 0.90
+P_CUTOFF = 0.02
+
 
 @dataclasses.dataclass(frozen=True)
 class Policy:

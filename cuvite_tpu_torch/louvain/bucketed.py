@@ -18,11 +18,17 @@ row kernel stops each row at its degree.  A padding row cost the card a
 full row of work against one address (all its slots are the same key), and
 a padded slot a read; neither changes a target.
 
+The coloring and vertex-ordering schedules sweep one plan per color
+class (:func:`build_class_plans`): a class's sweep runs the same kernels
+over its own vertices' rows only, and ``bucketed_step(..., info_comm=)``
+takes the community degree and size tables from a frozen assignment for
+vertex ordering.  :func:`bucketed_modularity` gives such an iteration its
+Q at its start, over the class plans together.
+
 What the port does not do yet: no multi-GPU (no sharded plans, no sparse
-or two-level exchange, so no ``szT`` size channel), no early termination
-(ET), no coloring or vertex-ordering schedules, and no device re-binning of
-coarse phases: every phase builds its plan on the host, which is the
-reference's bit-parity oracle for its device re-binning.
+or two-level exchange, so no ``szT`` size channel), and no device
+re-binning of coarse phases: every phase builds its plan on the host,
+which is the reference's bit-parity oracle for its device re-binning.
 
 Numbers: the community degrees are summed in float64 and rounded once to
 float32 for the kernels, and the in-loop Q is float64 end to end; the
@@ -160,6 +166,33 @@ class BucketPlan:
         )
 
 
+def build_class_plans(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                      classes: np.ndarray, n_classes: int,
+                      nv_local: int) -> list:
+    """One :class:`BucketPlan` per class, each equal array for array to
+    ``BucketPlan.build`` over the slab with every row of another class's
+    vertex turned into padding (the reference's per-class build,
+    ``cuvite_tpu/louvain/driver.py:1011-1026``).  ``classes`` [nv_local]
+    gives each vertex's class in [0, n_classes).
+
+    One stable sort of the rows by their source's class makes each class's
+    rows a slice in slab order -- the rows the masked build keeps -- so
+    the slab is read once instead of once per class."""
+    real = src < nv_local
+    key = np.where(real, classes[np.minimum(src, nv_local - 1)], n_classes)
+    # The narrowest type: numpy sorts 8- and 16-bit keys by radix, O(E).
+    key = key.astype(np.min_scalar_type(n_classes))
+    order = np.argsort(key, kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(
+        np.bincount(key, minlength=n_classes + 1))])
+    plans = []
+    for c in range(n_classes):
+        rows = order[bounds[c]:bounds[c + 1]]
+        plans.append(BucketPlan.build(src[rows], dst[rows], w[rows],
+                                      nv_local=nv_local))
+    return plans
+
+
 def build_assemble_perm(verts_list, nv_local: int) -> np.ndarray:
     """Vertex -> position in the concatenated bucket-row space.
 
@@ -224,7 +257,8 @@ class StepResult(NamedTuple):
 
 
 def bucketed_step(plan: DevicePlan, comm: torch.Tensor, vdeg: torch.Tensor,
-                  constant: float, *, nv_total: int) -> StepResult:
+                  constant: float, *, nv_total: int,
+                  info_comm: torch.Tensor | None = None) -> StepResult:
     """One full Louvain sweep (reference ``bucketed_step``, single device).
 
     ``comm`` [nv] int32 current assignment; ``vdeg`` [nv] f32 weighted
@@ -232,12 +266,19 @@ def bucketed_step(plan: DevicePlan, comm: torch.Tensor, vdeg: torch.Tensor,
     f64 for Q).  Vertices move to their best candidate when its gain is
     positive, except that of two singleton communities only the move to the
     smaller id is kept (the singleton guard, reference louvain.cpp:2230-2241).
+
+    ``info_comm``: the frozen assignment of the vertex-ordering schedule
+    (louvain.cpp:1535-1562).  Only the community degree and size tables
+    come from it; every vertex's and neighbour's community is the current
+    ``comm``'s, and the degree table is indexed by it.  Q is then not the
+    Q of ``comm``: the schedule takes it from :func:`bucketed_modularity`.
     """
     const32 = float(np.float32(constant))
-    comm_deg64 = seg.segment_sum(vdeg.double(), comm, nv_total)
+    info = comm if info_comm is None else info_comm
+    comm_deg64 = seg.segment_sum(vdeg.double(), info, nv_total)
     comm_deg = comm_deg64.float()
     # index_add_, not bincount: bincount reads its input's max on the host.
-    comm_size = seg.segment_sum(torch.ones_like(comm), comm, nv_total)
+    comm_size = seg.segment_sum(torch.ones_like(info), info, nv_total)
     dev = comm.device
     # The kernels' per-vertex records, once per sweep (the CPU twins
     # gather the tables themselves).
@@ -273,3 +314,29 @@ def bucketed_step(plan: DevicePlan, comm: torch.Tensor, vdeg: torch.Tensor,
     modularity = seg.modularity_terms(counter0, comm_deg64, float(constant))
     return StepResult(target=target, modularity=modularity,
                       n_moved=move.sum(), counter0=counter0)
+
+
+def bucketed_modularity(plans, comm: torch.Tensor, vdeg: torch.Tensor,
+                        constant: float, *, nv_total: int) -> torch.Tensor:
+    """Q of ``comm`` alone, with no argmax (reference
+    ``bucketed_modularity``, single device): the weight of the edges inside
+    communities from the rows of ``plans``, whose rows together hold every
+    edge once -- one phase's plan, or the class plans of a color schedule.
+    Summed in f64 like :func:`ops.segment.modularity_terms`.  Returns a
+    0-dim f64 tensor."""
+    dev = comm.device
+    le = torch.zeros((), dtype=torch.float64, device=dev)
+    for plan in plans:
+        for verts, dst, w, _deg in plan.buckets:
+            # Padding slots (the row's own vertex, weight 0) add nothing.
+            same = comm[dst.long()] == comm[verts.long()][:, None]
+            le = le + torch.where(same, w, 0.0).sum(dtype=torch.float64)
+        lay = plan.heavy
+        if lay is not None:
+            hub = torch.repeat_interleave(
+                lay.verts, lay.offsets[1:] - lay.offsets[:-1],
+                output_size=lay.dst.numel())
+            same = comm[lay.dst.long()] == comm[hub.long()]
+            le = le + torch.where(same, lay.w, 0.0).sum(dtype=torch.float64)
+    comm_deg64 = seg.segment_sum(vdeg.double(), comm, nv_total)
+    return seg.modularity_terms(le.reshape(1), comm_deg64, float(constant))

@@ -1,0 +1,99 @@
+"""The sweep loop of one phase, shared by every engine on one device
+(port of the reference's ``_run_phase_loop`` and ``_run_phase_loop_et``,
+``cuvite_tpu/louvain/driver.py:292-397``).
+
+Torch has no device while-loop, so the loop reads the stop test's values
+on the host once per sweep: Q, the moved count (the convergence rows)
+and, under ET modes 3/4, the active count, in one fetch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cuvite_tpu_torch.core.types import (
+    CONV_ROWS_CAP,
+    ET_CUTOFF,
+    MAX_TOTAL_ITERATIONS,
+    P_CUTOFF,
+)
+from cuvite_tpu_torch.obs.convergence import decode_phase_conv
+
+
+def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
+               et_mode: int = 0, et_delta: float = 0.25,
+               real_mask: torch.Tensor | None = None,
+               host_et: bool = False) -> tuple:
+    """One phase (louvain.cpp:471-588): sweep from ``comm0`` until the gain
+    drops below ``threshold``.  The sweep that gains too little is rolled
+    back; the result is the assignment before it.
+
+    ``sweep(comm, active)`` returns (target [nv] int32, Q of ``comm`` as a
+    0-dim f64 tensor); ``active`` is the ET mask of movable vertices, None
+    without ET.  Early termination (reference ``_run_phase_loop_et``,
+    ``driver.py:332-397``): targets are masked by ``active``; from the
+    third sweep on, and only when the loop goes on, modes 1/3 freeze a
+    vertex whose target, assignment and previous assignment agree, modes
+    2/4 decay its probability by (1 - et_delta) whenever its assignment
+    did not change and freeze it at P_CUTOFF; modes 3/4 stop the phase
+    once ET_CUTOFF of the ``real_mask`` vertices are frozen, tested before
+    the threshold.  ``host_et``: make those float decisions as the
+    reference's host loop (the class schedules) does, in Python floats,
+    instead of as its device loop, in float32.
+
+    Returns (past, Q of past, sweeps, PhaseConvergence)."""
+    lower = -1.0
+    past = comm = comm0
+    prev_mod = lower
+    iters = 0
+    qs, moved_rows = [], []
+    active = p_act = None
+    et_stop = et_mode in (3, 4)
+    if et_mode:
+        active = real_mask
+        nv_real = int(real_mask.sum())
+        if host_et:
+            cutoff = ET_CUTOFF * nv_real
+            decay = float(np.float32(1.0 - et_delta))
+        else:
+            cutoff = float(np.float32(ET_CUTOFF * nv_real))
+            decay = float(np.float32(1.0) - np.float32(et_delta))
+        if et_mode in (2, 4):
+            p_act = torch.ones(comm0.shape, dtype=torch.float32,
+                               device=comm0.device)
+    p_cut = float(np.float32(P_CUTOFF))
+    while True:
+        target, mod = sweep(comm, active)
+        if active is not None:
+            target = torch.where(active, target, comm)
+        iters += 1
+        vals = [mod, (target != comm).sum().double()]
+        if et_stop:
+            vals.append(active.sum().double())
+        read = torch.stack(vals).tolist()   # the one host read per sweep
+        q = read[0]
+        frozen_stop = False
+        if et_stop:
+            frozen = nv_real - int(read[2])
+            frozen_stop = ((frozen if host_et else float(np.float32(frozen)))
+                           >= cutoff)
+        stop = frozen_stop or (q - prev_mod) < threshold
+        if len(qs) < CONV_ROWS_CAP:
+            qs.append(q)
+            moved_rows.append(0 if stop else int(read[1]))
+        if stop:
+            break
+        prev_mod = max(q, lower)
+        if et_mode and iters > 2:
+            if p_act is None:
+                active = active & ~((target == comm) & (comm == past))
+            else:
+                decayed = active & (comm == past)
+                p_act = torch.where(decayed, p_act * decay, p_act)
+                active = active & ~(decayed & (p_act <= p_cut))
+        past, comm = comm, target
+        if iters >= MAX_TOTAL_ITERATIONS:
+            break
+    return past, prev_mod, iters, decode_phase_conv(-1, iters, qs,
+                                                    moved_rows)

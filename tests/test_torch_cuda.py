@@ -314,3 +314,90 @@ def test_sort_engine_on_card_matches_cpu(cuda_device):
         [p.iterations for p in rc.phases]
     assert abs(rg.modularity - rc.modularity) <= 1e-9
     assert "dense" in [p.coalesce for p in rg.phases]
+
+
+# Zachary's karate club (34 vertices, 78 edges), the graph tests/conftest.py
+# builds with networkx, written out: the card machine has no networkx.
+KARATE = {0: (1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13, 17, 19, 21, 31),
+          1: (2, 3, 7, 13, 17, 19, 21, 30), 2: (3, 7, 8, 9, 13, 27, 28, 32),
+          3: (7, 12, 13), 4: (6, 10), 5: (6, 10, 16), 6: (16,),
+          8: (30, 32, 33), 9: (33,), 13: (33,), 14: (32, 33), 15: (32, 33),
+          18: (32, 33), 19: (33,), 20: (32, 33), 22: (32, 33),
+          23: (25, 27, 29, 32, 33), 24: (25, 27, 31), 25: (31,),
+          26: (29, 33), 27: (33,), 28: (31, 33), 29: (32, 33), 30: (32, 33),
+          31: (32, 33), 32: (33,)}
+
+
+def karate_graph():
+    from cuvite_tpu_torch import Graph
+
+    e = np.array([(u, v) for u, vs in KARATE.items() for v in vs])
+    return Graph.from_edges(34, e[:, 0], e[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["karate", "rmat10"])
+def test_fused_engine_on_card_matches_cpu(cuda_device, name, monkeypatch):
+    """With FUSED_SHRINK_EDGES lowered, R-MAT 10 runs one-phase calls with
+    device coarsenings between them, dense ones on seg_coalesce."""
+    import cuvite_tpu_torch.louvain.driver as driver
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    g = karate_graph() if name == "karate" else generate_rmat(10)
+    monkeypatch.setattr(driver, "FUSED_SHRINK_EDGES", 256)
+    rg = louvain_phases(g, device=cuda_device, engine="fused")
+    rc = louvain_phases(g, device="cpu", engine="fused")
+    assert np.array_equal(rg.communities, rc.communities)
+    assert [p.iterations for p in rg.phases] == \
+        [p.iterations for p in rc.phases]
+    assert abs(rg.modularity - rc.modularity) <= 1e-9
+    if name == "karate":
+        assert rg.num_communities == 4
+    else:
+        assert "dense" in [p.coalesce for p in rg.phases]
+
+
+@pytest.mark.cuda
+def test_class_sweep_with_frozen_info_on_card_matches_cpu(cuda_device):
+    """One vertex-ordering sweep per class plan -- community tables from
+    a frozen assignment, communities from a drifted one -- on the row and
+    heavy kernels and on their twins; one class holds a hub of degree
+    8400."""
+    from cuvite_tpu_torch import Graph
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
+    from cuvite_tpu_torch.louvain.bucketed import (
+        DevicePlan,
+        bucketed_step,
+        build_class_plans,
+    )
+
+    rng = np.random.default_rng(0)
+    nv = 9000
+    src = np.concatenate([np.zeros(8400, np.int64),
+                          rng.integers(1, nv, 12000)])
+    dst = np.concatenate([rng.choice(np.arange(1, nv), 8400, replace=False),
+                          rng.integers(1, nv, 12000)])
+    dg = DistGraph.build(Graph.from_edges(nv, src, dst))
+    nvp = dg.nv_pad
+    cls = rng.integers(0, 4, nvp).astype(np.int32)
+    info = torch.from_numpy(rng.integers(0, 600, nvp).astype(np.int32))
+    comm = torch.where(torch.from_numpy(rng.random(nvp) < 0.3),
+                       torch.from_numpy(rng.integers(0, 600, nvp).astype(
+                           np.int32)), info)
+    vdeg = torch.from_numpy(dg.padded_weighted_degrees())
+    const = 1.0 / dg.graph.total_edge_weight_twice()
+    launches = heavy_argmax.launches
+    for plan in build_class_plans(dg.src, dg.dst, dg.w, cls, 4,
+                                  nv_local=nvp):
+        ref = bucketed_step(DevicePlan.upload(plan, "cpu"), comm, vdeg,
+                            const, nv_total=nvp, info_comm=info)
+        got = bucketed_step(DevicePlan.upload(plan, cuda_device),
+                            comm.to(cuda_device), vdeg.to(cuda_device),
+                            const, nv_total=nvp,
+                            info_comm=info.to(cuda_device))
+        assert torch.equal(got.target.cpu(), ref.target)
+        assert torch.equal(got.counter0.cpu(), ref.counter0)
+        assert int(got.n_moved) == int(ref.n_moved) > 0
+    assert heavy_argmax.launches == launches + 1

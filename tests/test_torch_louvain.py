@@ -287,5 +287,5 @@ def test_sort_engine_with_cycling_and_unknown_engine(karate, monkeypatch):
     tr = louvain_phases(_port_graph(karate), engine="sort",
                         threshold_cycling=True, device="cpu")
     _assert_same_run(jr, tr)
-    with pytest.raises(ValueError, match="not ported"):
-        louvain_phases(_port_graph(karate), engine="fused", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        louvain_phases(_port_graph(karate), engine="pallas", device="cpu")
