@@ -76,8 +76,35 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    each swept by bucketed_step on the card and by the twins on the CPU
    from the same assignment (the run's first iteration, then one with
    vertex ordering's frozen tables): target and counter0 bit-equal on
-   every plan.  All three kernels printed as one JSON line, with their
-   launches on every path.
+   every plan;
+15. the batched forms against their twins, bit-equal: the row kernel at
+   widths 8 ... 8192 over three folded tenants (seeded, hot-key and
+   zero-gain-tie rows, three constants) in one launch per width, the
+   heavy kernel over two tenants' hubs (the 2^18-edge hub among them) in
+   one launch, twice, scratch clean, and the batched seg_coalesce over
+   four tenants (gapped ids, float weights, one pure padding) in one
+   launch, each tenant's rows equal to the sort engine's;
+16. louvain_many on the reference's job set (two R-MAT 8, two synth
+   2048), both engines, card against CPU and each tenant against its own
+   B=1 run on the card; louvain_phases (bucketed and fused) on the
+   synthesized powerlaw-test graph inside the powerlaw-test/default
+   golden envelope, F-score included;
+17. serving batches at full size, both engines: B=64 of synth 4096
+   (class (4096, 16384)), B=64 of synth 65536 (class (4096, 65536)),
+   B=16 of synth 2^20 (class (65536, 2^20)); wall, jobs/s, phases,
+   sweeps, engines, launches, peak memory, every tenant's Q within 1e-6
+   of the host f64 modularity; the batched row kernel and seg_coalesce
+   timed at the B=64 synth 65536 batch's shapes beside twins and bounds;
+18. device re-binning on the per-graph bucketed driver: R-MAT
+   --check-scale and RGG --rgg-check-nv card against CPU and against
+   CUVITE_DEVICE_REBIN=0; each one's phase-1 re-binned plan equal to the
+   host plan and swept twice on kernels and twins, targets equal, counter0
+   bit-equal on R-MAT's integer weights and within the f32 reordering
+   bound on RGG's distance weights (the reading printed); RGG --rgg-nv with
+   re-binning on and off, rebin seconds against the host plan seconds
+   they replace.
+   All three kernels printed as one JSON line, with their launches on
+   every path and their batched forms' times.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -468,6 +495,7 @@ def check_heavy(dev) -> None:
 
 
 def kernel_counts() -> dict:
+    """Launches of each kernel."""
     from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
     from cuvite_tpu_torch.kernels.row_argmax import row_argmax
     from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
@@ -551,10 +579,12 @@ def run_main_path(g, scale: int) -> tuple:
 # the vertex records): per real slot or heavy edge 8 B of dst and w; per
 # real row ``ROW_BYTES`` (its id, int32 degree, vdeg and self_loop, three
 # 4-byte outputs), per hub ``HUB_BYTES`` (the same with an int64 edge
-# offset for the degree); and the comm and comm_deg tables once, which
-# every slot's gathers read.  Those tables fit in L2, so the gathers add
-# no bytes here; ``bytes_with_gathers`` adds 4 B per slot or edge for a
-# comm gather that misses L2.  Operations are counted as 8 f32 operations
+# offset for the degree); and the comm and comm_deg entries of the real
+# vertices once, but no more entries than the slots or heavy edges that
+# gather them (a fold's or a hub launch's untouched table is not work).
+# Those tables fit in L2, so the gathers add no bytes here;
+# ``bytes_with_gathers`` adds 4 B per slot or edge for a comm gather that
+# misses L2.  Operations are counted as 8 f32 operations
 # per real slot or heavy edge, an upper bound: one compare and one add per
 # slot, and at most one 7-operation gain (plus its compare) per distinct
 # community.
@@ -601,8 +631,10 @@ def time_kernels(g, launches: dict, sweeps: int) -> list:
     run = PhaseRunner(DistGraph.build(g), "cuda")
     plan, vdeg = run.plan, run.vdeg
     nv = run.nv_total
-    const = float(np.float32(run.constant))
-    table_bytes = 2 * 4 * nv     # comm and comm_deg
+    const = run.constant.c32
+    # comm and comm_deg: at most one read per slot or heavy edge, of the
+    # real vertices only.
+    table_nv = g.num_vertices
     deg = np.zeros(nv, dtype=np.int64)
     deg[: g.num_vertices] = g.degrees()
     work = bucket_work(plan, deg, nv)
@@ -671,7 +703,8 @@ def time_kernels(g, launches: dict, sweeps: int) -> list:
             "ms_converged": t["width_converged"][k], "bound_ms": b_ms})
     slots = sum(w[3] for w in work)
     real_rows = sum(w[2] for w in work)
-    row_bytes = slots * 8 + real_rows * ROW_BYTES + table_bytes
+    row_bytes = slots * 8 + real_rows * ROW_BYTES + 2 * 4 * min(slots,
+                                                                 table_nv)
     per_sweep = launches["row_argmax"] / max(sweeps, 1)
     row = {
         "name": "row_argmax", "route": "cuda",
@@ -696,7 +729,7 @@ def time_kernels(g, launches: dict, sweeps: int) -> list:
         "per_width": per_width,
     }
     e = lay.dst.numel()
-    hub_bytes = e * 8 + lay.num_hubs * HUB_BYTES + table_bytes
+    hub_bytes = e * 8 + lay.num_hubs * HUB_BYTES + 2 * 4 * min(e, table_nv)
     hub = {
         "name": "heavy_bincount", "route": "cuda",
         "source": "cuvite_tpu_torch/kernels/csrc/heavy_bincount.cu",
@@ -768,7 +801,6 @@ def rows_equal(a, b) -> bool:
 
 def check_coalesce(dev) -> None:
     from cuvite_tpu_torch.kernels.seg_coalesce import (
-        coalesce_slab,
         seg_coalesce,
         seg_coalesce_plain,
     )
@@ -778,12 +810,13 @@ def check_coalesce(dev) -> None:
         for weights in ("dyadic", "float"):
             args = coalesce_case(nv_pad, 1 << 16, nv_pad, nv_pad == 1024,
                                  weights, dev)
-            acc, cnt = seg_coalesce(*args, nv_pad=nv_pad)
-            racc, rcnt = seg_coalesce_plain(*args, nv_pad=nv_pad)
+            one = [a[None] for a in args]
+            acc, cnt = seg_coalesce(*one, grid=nv_pad)
+            racc, rcnt = seg_coalesce_plain(*one, grid=nv_pad)
             if not (bits_equal(acc, racc) and bits_equal(cnt, rcnt)):
                 fail(f"seg_coalesce nv_pad {nv_pad} {weights}: acc/cnt "
                      "differ from the twin")
-            got = coalesce_slab(*args, nv_pad=nv_pad)
+            got = coalesced_runs(*args, nv_pad=nv_pad, engine="dense")
             ref = coalesced_runs(*args, nv_pad=nv_pad, engine="sort")
             if not rows_equal(got, ref):
                 fail(f"seg_coalesce nv_pad {nv_pad} {weights}: emitted "
@@ -904,8 +937,9 @@ def time_coalesce(launches: int, captured: list) -> dict:
     from cuvite_tpu_torch.ops.segment import coalesced_runs
 
     (src, dst, w), nv_pad, _ = captured[0]
-    acc, cnt = seg_coalesce(src, dst, w, nv_pad=nv_pad)
-    racc, rcnt = seg_coalesce_plain(src, dst, w, nv_pad=nv_pad)
+    one = (src[None], dst[None], w[None])
+    acc, cnt = seg_coalesce(*one, grid=nv_pad)
+    racc, rcnt = seg_coalesce_plain(*one, grid=nv_pad)
     err = max(float((acc - racc).abs().max()),
               float((cnt - rcnt).abs().max()))
     real = src < nv_pad
@@ -920,7 +954,7 @@ def time_coalesce(launches: int, captured: list) -> dict:
         torch.bincount(flat, minlength=slots)
 
     b_ms, b_by = bound(rows * 12 + slots * 12, rows, F64_OPS_PER_S)
-    k_ms = time_ms(lambda: seg_coalesce(src, dst, w, nv_pad=nv_pad), 20)
+    k_ms = time_ms(lambda: seg_coalesce(*one, grid=nv_pad), 20)
     return {
         "name": "seg_coalesce", "route": "cuda",
         "source": "cuvite_tpu_torch/kernels/csrc/seg_coalesce.cu",
@@ -930,12 +964,13 @@ def time_coalesce(launches: int, captured: list) -> dict:
         "launches": launches, "max_abs_err": err,
         "ms": k_ms, "kernel_ms": k_ms,
         "emit_ms": time_ms(
-            lambda: emit_coalesced(acc, cnt, ne_pad=src.numel()), 20),
+            lambda: emit_coalesced(acc, cnt, ne_pad=src.numel(),
+                                   nv_pad=nv_pad), 20),
         "sort_engine_ms": time_ms(
             lambda: coalesced_runs(src, dst, w, nv_pad=nv_pad,
                                    engine="sort"), 20),
         "plain_ms": time_ms(
-            lambda: seg_coalesce_plain(src, dst, w, nv_pad=nv_pad), 20),
+            lambda: seg_coalesce_plain(*one, grid=nv_pad), 20),
         "library_ms": time_ms(library, 20),
         "bound_ms": b_ms, "bound_by": b_by,
         "bytes": rows * 12 + slots * 12, "ops": rows, "nv_pad": nv_pad,
@@ -1151,6 +1186,536 @@ def check_class_sweeps(g, scale: int, n: int = 8) -> None:
              "kernel went unchecked at class-plan shapes")
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-18: the batched engine (louvain_many) and device re-binning.
+
+
+def fold_rows(cases, dev):
+    """Fold single-tenant row cases (built on the CPU) into one batch:
+    tenant t's vertex v becomes t * nv_pad + v, nv_pad the power of two
+    above every case's table.  Padding rows are dropped (a device plan
+    holds none).  Returns (tensors, [T] f32 constants, row degrees)."""
+    import torch
+
+    nvp = 1 << (max(len(c[0][3]) for c in cases) - 1).bit_length()
+    parts = [[] for _ in range(7)]
+    degs, consts = [], []
+    for t, (args, const, deg) in enumerate(cases):
+        dst, w, verts, comm, comm_deg, vdeg, sl = (a.numpy() for a in args)
+        keep = verts < len(comm)
+        off = t * nvp
+        own = np.arange(len(comm), nvp, dtype=np.int64)
+        parts[0].append(dst[keep] + off)
+        parts[1].append(w[keep])
+        parts[2].append(verts[keep] + off)
+        parts[3].append(np.concatenate([comm, own]) + off)
+        for k, tab in ((4, comm_deg), (5, vdeg), (6, sl)):
+            parts[k].append(np.concatenate(
+                [tab, np.zeros(nvp - len(tab), np.float32)]))
+        degs.append(np.full(int(keep.sum()), dst.shape[1]) if deg is None
+                    else deg.numpy()[keep])
+        consts.append(const)
+    dtypes = (np.int32, np.float32, np.int32, np.int32, np.float32,
+              np.float32, np.float32)
+    t = [torch.from_numpy(np.concatenate(p).astype(d)).to(dev)
+         for p, d in zip(parts, dtypes)]
+    return (t, torch.tensor(consts, dtype=torch.float32, device=dev),
+            torch.from_numpy(np.concatenate(degs).astype(np.int32)).to(dev))
+
+
+def fold_hubs(cases, dev):
+    """Fold single-tenant hub cases (built on the CPU) into one layout.
+    Returns (layout, tables, [T] f32 constants, nv_pad, real vertices: the
+    cases' own table lengths, the fold's padding not counted)."""
+    import torch
+
+    from cuvite_tpu_torch.kernels.heavy_bincount import build_heavy_layout
+
+    nvp = 1 << (max(len(c[1][0]) for c in cases) - 1).bit_length()
+    src, dst, w, tabs, consts = [], [], [], [[], [], [], []], []
+    for t, (lay, tb, const) in enumerate(cases):
+        off = t * nvp
+        counts = (lay.offsets[1:] - lay.offsets[:-1]).numpy()
+        src.append(np.repeat(lay.verts.numpy().astype(np.int64), counts)
+                   + off)
+        dst.append(lay.dst.numpy().astype(np.int64) + off)
+        w.append(lay.w.numpy())
+        comm, comm_deg, vdeg, sl = (a.numpy() for a in tb)
+        tabs[0].append(np.concatenate(
+            [comm, np.arange(len(comm), nvp)]) + off)
+        for k, tab in ((1, comm_deg), (2, vdeg), (3, sl)):
+            tabs[k].append(np.concatenate(
+                [tab, np.zeros(nvp - len(tab), np.float32)]))
+        consts.append(const)
+    lay = build_heavy_layout(np.concatenate(src), np.concatenate(dst),
+                             np.concatenate(w),
+                             nv_local=len(cases) * nvp).to(dev)
+    t = [torch.from_numpy(np.concatenate(p).astype(d)).to(dev)
+         for p, d in zip(tabs, (np.int32, np.float32, np.float32,
+                                np.float32))]
+    real = sum(len(tb[0]) for _, tb, _ in cases)
+    return (lay, t, torch.tensor(consts, dtype=torch.float32, device=dev),
+            nvp, real)
+
+
+def check_batched_kernels(dev) -> dict:
+    """Phase 15: each batched form against its twin on the card, bit for
+    bit.  Returns the batched heavy launch's timing."""
+    import torch
+
+    from cuvite_tpu_torch.kernels.heavy_bincount import (
+        heavy_argmax,
+        heavy_argmax_plain,
+    )
+    from cuvite_tpu_torch.kernels.row_argmax import (
+        row_argmax,
+        row_argmax_plain,
+    )
+    from cuvite_tpu_torch.kernels.seg_coalesce import (
+        emit_coalesced,
+        seg_coalesce,
+        seg_coalesce_plain,
+    )
+    from cuvite_tpu_torch.ops.segment import coalesced_runs
+
+    cpu = torch.device("cpu")
+    for width in (8, 16, 32, 64, 256, 384, 1024, 4096, 8192):
+        tie = tie_row_case(width, cpu)
+        cases = [row_case(width, width, cpu),
+                 hot_row_case(width, width + 1, cpu), (*tie, None)]
+        args, consts, deg = fold_rows(cases, dev)
+        got = row_argmax(*args, consts, deg)
+        check_same(f"batched row_argmax width {width}", got,
+                   row_argmax_plain(*args, consts, deg))
+        nvp = args[3].numel() // 3
+        if (int(got[0][-1]) != 2 * nvp + 3
+                or float(got[1][-1]) != 0.0):
+            fail(f"batched row_argmax width {width}: the tie tenant's row "
+                 f"moved to {int(got[0][-1])} at {float(got[1][-1])}")
+    print("  row_argmax: rows of 3 tenants (seeded, hot-key, zero-gain "
+          "tie; constants 1/123457, 1/7919, 1/64) in one launch per "
+          "width, 8 ... 8192, bit-equal to the twin")
+    lay, tabs, consts, nvp, real_nv = fold_hubs(
+        [hot_heavy_case(12, cpu), tie_hub_case(cpu)], dev)
+    got = heavy_argmax(lay, *tabs, consts)
+    ref = heavy_argmax_plain(lay, *tabs, consts)
+    check_same("batched heavy_argmax", got, ref)
+    if not lay.scratch.is_clean():
+        fail("batched heavy_argmax: the scratch was left dirty")
+    check_same("batched heavy_argmax, second launch",
+               heavy_argmax(lay, *tabs, consts), got)
+    if int(got[0][-1]) != nvp + 3 or float(got[1][-1]) != 0.0:
+        fail("batched heavy_argmax: the tie tenant's hub is wrong")
+    e = lay.dst.numel()
+    # comm and comm_deg: at most one read per edge, and only of the
+    # tenants' real vertices (no edge points into the fold's padding).
+    hub_bytes = e * 8 + lay.num_hubs * HUB_BYTES + 2 * 4 * min(e, real_nv)
+    b_ms, b_by = bound(hub_bytes, 8 * e)
+    heavy = {"ms": time_ms(lambda: heavy_argmax(lay, *tabs, consts), 20),
+             "plain_ms": time_ms(
+                 lambda: heavy_argmax_plain(lay, *tabs, consts), 3),
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": hub_bytes,
+             "hubs": lay.num_hubs, "edges": e, "tenants": 2,
+             "real_vertices": real_nv,
+             "shape": "phase 15: hot-key hubs (2^18-edge hub included) "
+                      "and a zero-gain tie hub, two tenants"}
+    print(f"  heavy_argmax: {lay.num_hubs} hubs of 2 tenants, {e} edges, "
+          f"one launch, bit-equal to the twin twice, scratch clean; "
+          f"{heavy['ms']:.4f} ms (twin {heavy['plain_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms)")
+    rows = [coalesce_case(1024, 1 << 14, 1024 + i, i == 1,
+                          "float" if i == 2 else "dyadic", cpu)
+            for i in range(3)]
+    rows.append([torch.full((1 << 14,), 1024, dtype=torch.int32),
+                 torch.zeros(1 << 14, dtype=torch.int32),
+                 torch.zeros(1 << 14)])
+    src, dst, w = (torch.stack(a).to(dev) for a in zip(*rows))
+    acc, cnt = seg_coalesce(src, dst, w, grid=1024)
+    racc, rcnt = seg_coalesce_plain(src, dst, w, grid=1024)
+    if not (bits_equal(acc, racc) and bits_equal(cnt, rcnt)):
+        fail("batched seg_coalesce: acc/cnt differ from the twin")
+    s2, d2, w2, n2 = emit_coalesced(acc, cnt, ne_pad=1 << 14,
+                                            nv_pad=1024)
+    for i in range(4):
+        ref = coalesced_runs(src[i], dst[i], w[i], nv_pad=1024)
+        if not rows_equal((s2[i], d2[i], w2[i], int(n2[i])), ref):
+            fail(f"batched seg_coalesce tenant {i}: rows differ from the "
+                 "sort engine's")
+    if int(n2[3]) != 0:
+        fail("batched seg_coalesce: the padding tenant emitted rows")
+    print(f"  seg_coalesce: 4 tenants (gapped ids, float weights, one pure "
+          f"padding) in one launch, acc/cnt bit-equal to the twin, rows "
+          f"{n2.tolist()} equal to the sort engine's per tenant")
+    return heavy
+
+
+def serving_jobs(kind: str) -> list:
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    edges, count = {"serving 4096": (4096, 64),
+                    "serving 65536": (65536, 64),
+                    "serving 2^20": (1 << 20, 16)}[kind]
+    return [synthesize_graph(edges, seed=many_seed(1, k))
+            for k in range(count)]
+
+
+def check_many_card_vs_cpu(g_golden, truth_path) -> dict:
+    """Phase 16; returns the card runs' launch counts."""
+    from cuvite_tpu_torch import louvain_many, louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.workloads.golden import measure_run, verify
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    gs = [generate_rmat(8, edge_factor=8, seed=s) for s in (1, 2)]
+    gs += [synthesize_graph(2048, seed=many_seed(7, k)) for k in (0, 1)]
+    out = {}
+    for engine in ("fused", "bucketed"):
+        zero_kernel_counts()
+        rg = louvain_many(gs, engine=engine)
+        out[f"louvain_many {engine}, job set of 4"] = kernel_counts()
+        rc = louvain_many(gs, engine=engine, device="cpu")
+        if rg.phase_engines != rc.phase_engines:
+            fail(f"louvain_many {engine}: phase engines differ "
+                 f"{rg.phase_engines} vs {rc.phase_engines}")
+        for k, (g, a, b) in enumerate(zip(gs, rg.results, rc.results)):
+            check_same_run(f"louvain_many {engine} tenant {k}", a, b)
+            solo = louvain_many([g], engine=engine).results[0]
+            if not (np.array_equal(solo.communities, a.communities)
+                    and solo.modularity == a.modularity):
+                fail(f"louvain_many {engine} tenant {k}: differs from its "
+                     "B=1 run on the card")
+        print(f"  {engine}: phases {rg.phase_engines}, coalesce "
+              f"{rg.coalesce}, per tenant phases "
+              f"{[len(r.phases) for r in rg.results]} and Q "
+              f"{[round(r.modularity, 9) for r in rg.results]}: labels equal"
+              f" to the CPU run and to each tenant's B=1 run; launches "
+              f"{out[f'louvain_many {engine}, job set of 4']}")
+    for engine in ("bucketed", "fused"):
+        res = louvain_phases(g_golden, engine=engine)
+        m = measure_run(res.communities, res, truth_path=truth_path,
+                        provenance="synthesized")
+        ok, problems = verify("powerlaw-test", "default", m)
+        if not ok:
+            fail(f"powerlaw-test/default envelope, {engine}: {problems}")
+        print(f"  powerlaw-test/default ({engine}, on the card): Q "
+              f"{m['modularity']:.6f}, {m['phases']} phases, "
+              f"{m['communities']} communities, F-score {m['f_score']:.6f}:"
+              " inside the envelope")
+    return out
+
+
+def run_serving(kind: str, gs: list) -> dict:
+    """Phase 17 on one job set, both engines.  Returns each run's launch
+    counts, and the bucketed run's first dense batched coarsening (its
+    relabeled slab) for timing."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+    from cuvite_tpu_torch.ops import segment as seg
+
+    captured = []
+    batched = seg.coalesced_runs_batched
+
+    def observed(src, ckey, w, *, nv_pad, engine="sort", grid=None):
+        if engine == "dense" and not captured:
+            captured.append((src, ckey, w, nv_pad, grid))
+        return batched(src, ckey, w, nv_pad=nv_pad, engine=engine, grid=grid)
+
+    out = {}
+    for engine in ("bucketed", "fused"):
+        seg.coalesced_runs_batched = observed
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            br = louvain_many(gs, engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+        finally:
+            seg.coalesced_runs_batched = batched
+        bad = [k for k, (g, r) in enumerate(zip(gs, br.results))
+               if abs(modularity(g, r.communities) - r.modularity) > 1e-6]
+        if bad:
+            fail(f"{kind} {engine}: tenants {bad[:8]} report a Q more than "
+                 "1e-6 from the host f64 modularity of their labels")
+        qs = [r.modularity for r in br.results]
+        out[f"{kind} {engine}"] = launches
+        print(f"  {kind} {engine}: B={br.n_jobs} class {br.slab_class}, "
+              f"wall {wall:.3f} s (pack {br.pack_s:.3f} s), "
+              f"{br.n_jobs / wall:.1f} jobs/s, {br.n_phases} phases, "
+              f"sweeps {br.sweeps} ({sum(br.sweeps)}), engines "
+              f"{br.phase_engines}, coarse class {br.coarse_class}, coalesce"
+              f" {br.coalesce}, launches {launches}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} B, Q min/median/max "
+              f"{min(qs):.6f}/{float(np.median(qs)):.6f}/{max(qs):.6f}, "
+              "every Q within 1e-6 of the host f64 modularity")
+    return out, captured
+
+
+def time_batched_rows(gs) -> dict:
+    """The row kernel's batched form at a serving batch's phase-0 plan,
+    identity assignment: one sweep's class launches (every tenant in one
+    launch per class) beside the twin and the bound."""
+    import torch
+
+    from cuvite_tpu_torch.core.batch import (
+        batch_bucket_plans,
+        batch_slabs,
+        fold_slab,
+    )
+    from cuvite_tpu_torch.kernels.row_argmax import (
+        row_argmax,
+        row_argmax_plain,
+        vertex_table,
+    )
+    from cuvite_tpu_torch.louvain.batched import _constants
+    from cuvite_tpu_torch.louvain.bucketed import DevicePlan
+    from cuvite_tpu_torch.ops.segment import segment_sum
+
+    batch = batch_slabs(gs)
+    plan = DevicePlan.upload(batch_bucket_plans(batch).fold(), "cuda")
+    nv = batch.b_pad * batch.nv_pad
+    consts = _constants(batch.tw2, "cuda").c32
+    src, _, w = fold_slab(*(torch.from_numpy(a).cuda() for a in
+                            (batch.src, batch.dst, batch.w)),
+                          nv_pad=batch.nv_pad)
+    vdeg = torch.zeros(nv + 1, dtype=torch.float64, device="cuda")
+    vdeg.index_add_(0, src.long(), w.double())
+    vdeg = vdeg[:nv].float()
+    comm = torch.arange(nv, dtype=torch.int32, device="cuda")
+    comm_deg = segment_sum(vdeg.double(), comm, nv).float()
+    tables = (comm, comm_deg, vdeg, plan.self_loop)
+
+    def rows(fn):
+        extra = (vertex_table(*tables),) if fn is row_argmax else ()
+        return [fn(d, w, v, *tables, consts, dg, *extra)
+                for v, d, w, dg in plan.buckets]
+
+    err = max(max_abs_err(a, b) for a, b in zip(rows(row_argmax),
+                                                rows(row_argmax_plain)))
+    if err != 0.0:
+        fail(f"batched row_argmax differs from its twin at the serving "
+             f"plan (max abs err {err})")
+    slots = int(sum(int(dg.sum()) for _, _, _, dg in plan.buckets))
+    n_rows = sum(v.numel() for v, _, _, _ in plan.buckets)
+    ms = time_ms(lambda: rows(row_argmax), 20)
+    # comm and comm_deg: at most one read per slot, and only of the
+    # tenants' real vertices (no slot points into a tenant's padding).
+    real_nv = int(batch.nv_real.sum())
+    row_bytes = slots * 8 + n_rows * ROW_BYTES + 2 * 4 * min(slots, real_nv)
+    b_ms, b_by = bound(row_bytes, 8 * slots)
+    return {"ms": ms, "ms_per_launch": ms / len(plan.buckets),
+            "launches_per_sweep": len(plan.buckets),
+            "plain_ms": time_ms(lambda: rows(row_argmax_plain), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": row_bytes,
+            "rows": n_rows, "real_slots": slots, "tenants": batch.n_jobs,
+            "real_vertices": real_nv,
+            "shape": f"phase 0 of B={batch.n_jobs} class "
+                     f"{batch.slab_class}, identity assignment, one sweep "
+                     "of every class (vertex_table included)"}
+
+
+def time_batched_coalesce(captured, what: str) -> dict:
+    """seg_coalesce's batched form at a serving batch's first dense
+    coarsening: kernel, twin, two torch.bincount calls over the same
+    (tenant, src, dst) keys, and the bound (12 B per real row read, 12 B
+    per key-grid slot written, one f64 add per row)."""
+    import torch
+
+    from cuvite_tpu_torch.kernels.seg_coalesce import (
+        seg_coalesce,
+        seg_coalesce_plain,
+    )
+
+    src, dst, w, nv_pad, grid = captured[0]
+    b = src.shape[0]
+    acc, cnt = seg_coalesce(src, dst, w, grid=grid)
+    racc, rcnt = seg_coalesce_plain(src, dst, w, grid=grid)
+    if not (bits_equal(acc, racc) and bits_equal(cnt, rcnt)):
+        fail(f"batched seg_coalesce differs from its twin at {what}")
+    real = src < grid
+    rows = int(real.sum())
+    kbits = (grid - 1).bit_length()
+    tenant = torch.arange(b, device=src.device)[:, None].expand_as(src)
+    flat = (((tenant[real].long() << kbits) | src[real].long()) << kbits) \
+        | dst[real].long()
+    w64 = w[real].double()
+    slots = b * grid * grid
+
+    def library():
+        torch.bincount(flat, weights=w64, minlength=slots)
+        torch.bincount(flat, minlength=slots)
+
+    b_ms, b_by = bound(rows * 12 + slots * 12, rows, F64_OPS_PER_S)
+    return {"ms": time_ms(lambda: seg_coalesce(src, dst, w, grid=grid),
+                          20),
+            "plain_ms": time_ms(lambda: seg_coalesce_plain(
+                src, dst, w, grid=grid), 20),
+            "library_ms": time_ms(library, 20),
+            "bound_ms": b_ms, "bound_by": b_by, "tenants": b,
+            "grid": grid, "nv_pad": nv_pad, "slab_rows": src.numel(),
+            "real_rows": rows, "max_abs_err": 0.0,
+            "shape": f"{what}: the first dense batched coarsening"}
+
+
+def check_rebin_card_vs_cpu(graphs: dict) -> dict:
+    """Phase 18, first half: per-graph bucketed runs with device
+    re-binning, card against CPU and against CUVITE_DEVICE_REBIN=0, and on
+    each graph's phase-1 plan built on the card the kernels' sweeps
+    against the twins' (:func:`check_rebinned_sweeps`).  ``graphs``:
+    name -> (graph, whether its weights are integers).  Returns the card
+    runs' launch counts."""
+    from cuvite_tpu_torch import louvain_phases
+
+    out = {}
+    for name, (g, integer) in graphs.items():
+        zero_kernel_counts()
+        rg = louvain_phases(g, device="cuda")
+        out[f"bucketed with device re-binning, {name}"] = kernel_counts()
+        rc = louvain_phases(g, device="cpu")
+        check_same_run(f"{name} re-binned", rg, rc)
+        os.environ["CUVITE_DEVICE_REBIN"] = "0"
+        try:
+            roff = louvain_phases(g, device="cuda")
+        finally:
+            del os.environ["CUVITE_DEVICE_REBIN"]
+        check_same_run(f"{name} re-binned vs CUVITE_DEVICE_REBIN=0", rg,
+                       roff)
+        if not rg.rebinned_phases or roff.rebinned_phases:
+            fail(f"{name}: re-binned phases {rg.rebinned_phases}, with "
+                 f"CUVITE_DEVICE_REBIN=0 {roff.rebinned_phases}")
+        print(f"  {name}: {len(rg.phases)} phases, iterations "
+              f"{[p.iterations for p in rg.phases]}, phases "
+              f"{rg.rebinned_phases} re-binned on the card; labels equal on "
+              "card, CPU and CUVITE_DEVICE_REBIN=0")
+        check_rebinned_sweeps(g, name, integer)
+    return out
+
+
+def check_rebinned_sweeps(g, name: str, integer: bool) -> None:
+    """The phase-1 graph of ``g``: its plan built on the card equals the
+    host plan, and two bucketed sweeps on it run on the kernels (card)
+    and on the twins (CPU) from the same assignments.
+
+    Targets must be equal.  counter0: on integer weights (the exactness
+    domain) bit-equal; otherwise the kernels sum a row's weights in
+    another order than the twins (table atomics, shuffle trees, hub
+    chunks), and two f32 sums of the same n addends in any two orders
+    differ by at most 2 (n - 1) 2^-24 sum|w| (the recursive-summation
+    bound, twice), which is the tolerance, per vertex, with n its degree.
+    The reading (targets differing, counter0 values differing, the
+    largest difference and its share of the tolerance) is printed."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.coarsen.rebin import device_plan
+    from cuvite_tpu_torch.coarsen.rebuild import (
+        coarsen_graph,
+        renumber_communities,
+    )
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.louvain.bucketed import (
+        BucketPlan,
+        DevicePlan,
+        bucketed_step,
+    )
+    from cuvite_tpu_torch.ops.segment import TenantConstants
+
+    res1 = louvain_phases(g, device="cuda", max_phases=1)
+    dense, nc = renumber_communities(res1.communities)
+    cg = coarsen_graph(g, dense, nc)
+    dg = DistGraph.build(cg)
+    nv = dg.nv_pad
+    got_plan = device_plan(*dg.device_slab("cuda"), nv_local=nv)
+    want = DevicePlan.upload(BucketPlan.build(dg.src, dg.dst, dg.w,
+                                              nv_local=nv), "cpu")
+    for gb, wb in zip(got_plan.buckets, want.buckets):
+        if not all(bits_equal(x, y) for x, y in zip(gb, wb)):
+            fail(f"{name}: the re-binned plan differs from the host's")
+    real = dg.src < nv
+    src = dg.src[real].astype(np.int64)
+    deg = np.bincount(src, minlength=nv)
+    absw = np.bincount(src, weights=np.abs(dg.w[real].astype(np.float64)),
+                       minlength=nv)
+    tol = torch.from_numpy(2.0 * np.maximum(deg - 1, 0) * 2.0 ** -24 * absw)
+    vdeg = torch.from_numpy(dg.padded_weighted_degrees()).float()
+    const = 1.0 / cg.total_edge_weight_twice()
+    cpu_c = TenantConstants.of(const, "cpu")
+    card_c = TenantConstants.of(const, "cuda")
+    work = torch.arange(nv, dtype=torch.int32)
+    for it in range(2):
+        ref = bucketed_step(want, work, vdeg, cpu_c, nv_total=nv)
+        got = bucketed_step(got_plan, work.cuda(), vdeg.cuda(), card_c,
+                            nv_total=nv)
+        n_target = int((got.target.cpu() != ref.target).sum())
+        diff = (got.counter0.cpu().double() - ref.counter0.double()).abs()
+        n_c0 = int((diff > 0).sum())
+        share = float((diff / tol.clamp(min=1e-300)).max()) if n_c0 else 0.0
+        print(f"    {name} re-binned plan, sweep {it}: {n_target} targets "
+              f"differ of {nv}; counter0 differs at {n_c0} vertices, max "
+              f"|diff| {float(diff.max()):.9g}, largest share of the "
+              f"tolerance {share:.6g}; moves {int(ref.n_moved[0])} / "
+              f"{int(got.n_moved[0])}")
+        if n_target:
+            fail(f"{name}: {n_target} targets of the kernels' sweep of the "
+                 "re-binned plan differ from the twins'")
+        if (n_c0 if integer else share > 1.0):
+            fail(f"{name}: counter0 of the kernels' sweep of the re-binned "
+                 "plan differs from the twins' beyond "
+                 + ("0 (integer weights)" if integer else
+                    "the reordering bound"))
+        work = ref.target
+    print(f"  {name} phase-1 graph ({cg.num_vertices} vertices, "
+          f"{cg.num_edges} edges): the card's re-binned plan equals the "
+          f"host plan ({len(want.buckets)} classes); two sweeps on the "
+          "kernels give the twins' targets, counter0 "
+          + ("bit-equal" if integer else "within the reordering bound"))
+
+
+def run_rebin_full(g, name: str) -> dict:
+    """Phase 18, second half: the bucketed engine at full size with device
+    re-binning on, then off; the re-binned phases' rebin seconds against
+    the same phases' host plan seconds."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+
+    runs = {}
+    for label, env in (("on", None), ("off", "0")):
+        if env is not None:
+            os.environ["CUVITE_DEVICE_REBIN"] = env
+        try:
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            res = louvain_phases(g)
+            torch.cuda.synchronize()
+            runs[label] = (res, time.perf_counter() - t0, kernel_counts())
+        finally:
+            os.environ.pop("CUVITE_DEVICE_REBIN", None)
+    on, off = runs["on"][0], runs["off"][0]
+    check_same_run(f"{name} re-binning on vs off", on, off)
+    rb = [p for p in on.phases if "rebin" in p.stages]
+    rebin_s = sum(p.stages["rebin"] for p in rb)
+    host_s = sum(off.phases[p.phase].stages["plan"] for p in rb)
+    for p in on.phases:
+        print(f"  phase {p.phase}: nv {p.num_vertices} ne {p.num_edges} "
+              f"iterations {p.iterations} plan {p.stages['plan']:.4f} s"
+              + (f" (rebin {p.stages['rebin']:.4f} s; host plan with "
+                 "CUVITE_DEVICE_REBIN=0 "
+                 f"{off.phases[p.phase].stages['plan']:.4f} s)"
+                 if "rebin" in p.stages else " (host plan)"))
+    print(f"  {name}: {len(on.phases)} phases, re-binned phases "
+          f"{on.rebinned_phases}: rebin {rebin_s:.4f} s against "
+          f"{host_s:.4f} s of host plans in the same phases; wall "
+          f"{runs['on'][1]:.3f} s on, {runs['off'][1]:.3f} s off; labels "
+          "equal")
+    return {f"bucketed {name}, re-binning on": runs["on"][2]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -1291,6 +1856,71 @@ def main() -> int:
     check_class_sweeps(g_rmat, args.schedule_scale)
     del g_rmat
     print(f"  phases 11-14 took {time.perf_counter() - t11:.1f} s")
+
+    t15 = time.perf_counter()
+    print("[15] batched kernels against their twins on the card")
+    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
+
+    n_heavy = heavy_argmax.launches
+    batched_heavy = check_batched_kernels(dev)
+    batched_heavy["launches_phase15"] = heavy_argmax.launches - n_heavy
+    torch.cuda.synchronize()
+
+    print("[16] louvain_many: card against CPU; the golden envelope")
+    from cuvite_tpu_torch.io.vite import read_vite
+    from cuvite_tpu_torch.workloads.synth import synthesize
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    pl = os.path.join(work, "powerlaw-test.vite")
+    truth = synthesize(pl, 40_000, seed=7)["truth_path"]
+    paths.update(check_many_card_vs_cpu(read_vite(pl, bits64=False),
+                                        truth))
+
+    print("[17] serving batches at full size, both engines")
+    batched_rows = batched_coal = None
+    for kind in ("serving 4096", "serving 65536", "serving 2^20"):
+        t0 = time.perf_counter()
+        gs = serving_jobs(kind)
+        print(f"  {kind}: {len(gs)} graphs generated in "
+              f"{time.perf_counter() - t0:.2f} s, {gs[0].num_vertices} "
+              f"vertices and {gs[0].num_edges} directed edges in the first")
+        launches, captured = run_serving(kind, gs)
+        paths.update(launches)
+        bucketed = launches[f"{kind} bucketed"]
+        if bucketed["row_argmax"] == 0:
+            fail(f"{kind}: the row kernel never launched")
+        if kind != "serving 2^20" and bucketed["seg_coalesce"] == 0:
+            fail(f"{kind}: seg_coalesce never launched")
+        if kind == "serving 65536":
+            batched_rows = time_batched_rows(gs)
+            batched_coal = time_batched_coalesce(captured, kind)
+            for name, d in (("row_argmax", batched_rows),
+                            ("seg_coalesce", batched_coal)):
+                print(f"  {name} batched at {d['shape']}: {d['ms']:.4f} ms"
+                      f" (twin {d['plain_ms']:.4f} ms, bound "
+                      f"{d['bound_ms']:.4f} ms by {d['bound_by']}"
+                      + (f", library {d['library_ms']:.4f} ms"
+                         if "library_ms" in d else "") + ")")
+        del gs, captured
+    batched_rows["launches"] = paths["serving 65536 bucketed"]["row_argmax"]
+    batched_coal["launches"] = \
+        paths["serving 65536 bucketed"]["seg_coalesce"]
+
+    print("[18] device re-binning on the per-graph bucketed driver")
+    paths.update(check_rebin_card_vs_cpu(
+        {f"RGG {args.rgg_check_nv}": (generate_rgg(args.rgg_check_nv),
+                                      False),
+         f"R-MAT {args.check_scale}": (generate_rmat(args.check_scale),
+                                       True)}))
+    paths.update(run_rebin_full(generate_rgg(args.rgg_nv),
+                                f"RGG {args.rgg_nv}"))
+    print(f"  phases 15-18 took {time.perf_counter() - t15:.1f} s")
+
+    kernels[0]["batched"] = batched_rows
+    kernels[1]["batched"] = batched_heavy
+    kernels[2]["batched"] = batched_coal
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

@@ -14,15 +14,22 @@ schedules (class-restricted sweeps on the bucketed kernels) and phase
 checkpoints (``checkpoint_dir``/``resume``, files the reference package
 reads too) are options of ``louvain_phases``.  Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs the kernels'
-plain PyTorch versions.  Not ported yet: multi-GPU, the ``szT`` size
-channel, device re-binning, the RGG ``-e`` extra edges, serving and
-streaming.
+plain PyTorch versions.  Coarse phases of the bucketed engine build their
+plans on the card (device re-binning).  ``louvain_many`` clusters a batch
+of same-class graphs at once (``louvain/batched.py``), every tenant
+folded into one id space so that each kernel launch covers the batch.
+Not ported yet: multi-GPU, the ``szT`` size channel, the RGG ``-e`` extra
+edges, sub-row packing, the serving daemon and streaming.
 
 The package imports torch and numpy only; it never imports JAX or
 ``cuvite_tpu``.
 """
 
 from cuvite_tpu_torch.core.graph import Graph
-from cuvite_tpu_torch.louvain.driver import LouvainResult, louvain_phases
+from cuvite_tpu_torch.louvain.driver import (
+    LouvainResult,
+    louvain_many,
+    louvain_phases,
+)
 
-__all__ = ["Graph", "LouvainResult", "louvain_phases"]
+__all__ = ["Graph", "LouvainResult", "louvain_many", "louvain_phases"]

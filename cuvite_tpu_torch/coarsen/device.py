@@ -25,8 +25,17 @@ Differences from the reference, by design:
 
 ``device_compose_labels`` composes the fused engine's labels across
 phases on the card; the sort engine composes them on the host, as the
-reference's sort driver does.  Not ported yet: ``grow_slab`` (streaming)
-and the batched and sub-row lifts.
+reference's sort driver does.
+
+The batched lifts (``batched_renumber``, ``batched_compose_labels``,
+``batched_coarsen_slab``, reference ``:163-190``) take the whole
+``[B, ...]`` batch in one pass: each tenant's rows keep their own dense
+ids and land in their own slab prefix, with one coalesce for the batch
+(``ops/segment.coalesced_runs_batched``: the ``seg_coalesce`` kernel's
+batched form or one folded sort).
+
+Not ported yet: ``grow_slab`` (streaming) and the sub-row lifts (with
+sub-row packing).
 """
 
 from __future__ import annotations
@@ -136,3 +145,53 @@ def maybe_shrink_to_class(src: torch.Tensor, dst: torch.Tensor,
                                   new_ne_pad=ne2)
         return src, dst, w, new_nv_pad
     return src, dst, w, nv_pad
+
+
+def batched_renumber(comm: torch.Tensor, real_mask: torch.Tensor, *,
+                     nv_pad: int) -> tuple:
+    """:func:`device_renumber` of every tenant at once: ``comm`` and
+    ``real_mask`` [B, nv_pad].  Returns (dense_map [B, nv_pad], nc [B]
+    int64 tensor)."""
+    lab = torch.where(real_mask, comm.long(), nv_pad)
+    present = torch.zeros((comm.shape[0], nv_pad + 1), dtype=torch.int64,
+                          device=comm.device)
+    present.scatter_(1, lab, 1)
+    present = present[:, :nv_pad]
+    dense_map = (torch.cumsum(present, 1) - present).to(comm.dtype)
+    return dense_map, present.sum(1)
+
+
+def batched_compose_labels(dense_map: torch.Tensor, labels: torch.Tensor,
+                           comm_all: torch.Tensor) -> torch.Tensor:
+    """:func:`device_compose_labels` of every tenant: ``comm_all``
+    [B, nv0] ids into ``labels`` [B, nv_pad].  Ids past nv_pad (a tenant
+    retired before the slab class shrank) are clamped, as the reference's
+    gathers clamp; the caller keeps such a tenant's old labels."""
+    ids = comm_all.long().clamp(max=labels.shape[1] - 1)
+    return torch.gather(dense_map, 1,
+                        torch.gather(labels, 1, ids).long())
+
+
+def batched_coarsen_slab(src: torch.Tensor, dst: torch.Tensor,
+                         w: torch.Tensor, comm: torch.Tensor,
+                         dense_map: torch.Tensor, *, nv_pad: int,
+                         coalesce: str, grid: int | None = None) -> tuple:
+    """:func:`device_coarsen_slab` of every tenant at once, with the
+    dense maps of :func:`batched_renumber`: ``src``/``dst``/``w``
+    [B, ne_pad] slabs (padding src == nv_pad), ``comm`` [B, nv_pad]
+    phase-end labels.  ``coalesce``: ``'dense'`` (with ``grid``, a power
+    of two above every tenant's community count) or ``'sort'``.  Returns
+    (src2, dst2, w2 [B, ne_pad], ne2 [B] int64 tensor), each tenant's
+    coarse rows in its own prefix."""
+    pad = src >= nv_pad
+    safe_src = src.clamp(max=nv_pad - 1).long()
+    csrc = torch.gather(dense_map, 1,
+                        torch.gather(comm, 1, safe_src).long())
+    cdst = torch.gather(dense_map, 1,
+                        torch.gather(comm, 1, dst.long()).long())
+    new_src = torch.where(pad, nv_pad, csrc).to(src.dtype)
+    new_dst = torch.where(pad, 0, cdst).to(dst.dtype)
+    w_in = torch.where(pad, 0.0, w)
+    return seg.coalesced_runs_batched(new_src, new_dst, w_in,
+                                      nv_pad=nv_pad, engine=coalesce,
+                                      grid=grid)

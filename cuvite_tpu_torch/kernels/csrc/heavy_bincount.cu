@@ -63,6 +63,13 @@
 // +0.0 in round-to-nearest, and wagg is summed from +0.0.)  The key 0 lies
 // below every packed candidate and means "no candidate".
 //
+// Batched form (louvain/batched.py): the hubs of B tenants folded into one
+// id space (tenant b's vertex v is b * nv_pad + v, nv_pad a power of two)
+// share one chunk table and one launch; pass 2 takes each hub's constant
+// float32(1/(2 m_b)) from csts[v >> tshift] (tshift = log2 nv_pad); one
+// graph is a batch of one (csts[0], tshift = ceil(log2 nv)).  The scratch
+// is the layout's, left clean by the launch.
+//
 // Weights are summed in another order than the reference's: see the
 // exactness domain in common.cuh.
 #include "common.cuh"
@@ -258,7 +265,8 @@ __global__ void __launch_bounds__(kThreads) heavy_pass2(
     const int* __restrict__ nlist, const float* __restrict__ partial,
     const int* __restrict__ comm, const float* __restrict__ comm_deg,
     const float* __restrict__ vdeg, const float* __restrict__ self_loop,
-    int nv, float cst, int sentinel, unsigned long long* __restrict__ best) {
+    int nv, const float* __restrict__ csts, int tshift,
+    int sentinel, unsigned long long* __restrict__ best) {
   const int b = blockIdx.x, h = chunk_hub[b];
   const int n = nlist[b];
   if (n == 0) return;   // the whole block
@@ -268,6 +276,7 @@ __global__ void __launch_bounds__(kThreads) heavy_pass2(
     if (threadIdx.x == 0) s_c0 = c0;
   }
   const int v = min(hverts[h], nv - 1);
+  const float hc = __ldg(csts + (v >> tshift));
   const float vd = vdeg[v];
   const float ax = __fsub_rn(comm_deg[comm[v]], vd);
   const float sl = self_loop[v];
@@ -298,7 +307,7 @@ __global__ void __launch_bounds__(kThreads) heavy_pass2(
 #pragma unroll
     for (int k = 0; k < kU; ++k) {
       if (slot[k] < 0) continue;
-      const float gk = cv::gain(val[k], eix, vd, ay[k], ax, cst);
+      const float gk = cv::gain(val[k], eix, vd, ay[k], ax, hc);
       if (cv::better(gk, key[k], g, bc)) {
         g = gk;
         bc = key[k];
@@ -349,18 +358,20 @@ cudaError_t allow_shared_memory() {
 // all kEmptyEntry between launches; tlist [E] (each chunk's claimed slots,
 // at its edge offset); nlist [C] and partial [C] (claims and counter0 per
 // chunk); best [H], 0 between launches.  max_chunk: the layout's longest
-// chunk, at most kChunk.
+// chunk, at most kChunk.  csts: the per-tenant constants, csts[v >> tshift]
+// the hub vertex v's (one entry for one graph).
 extern "C" int cv_heavy_argmax(
     const int* hverts, const int* dst, const float* w, int n_hubs,
     const int* chunk_hub, const long long* coff, const int* hub_chunks,
     int n_chunks, int max_chunk, const long long* toff,
     unsigned long long* table, int* tlist, int* nlist, float* partial,
     unsigned long long* best, const int* comm, const float* comm_deg,
-    const float* vdeg, const float* self_loop, int nv, float cst,
-    int sentinel, int* best_c, float* best_gain, float* counter0,
-    void* stream) {
+    const float* vdeg, const float* self_loop, int nv, const float* csts,
+    int tshift, int sentinel, int* best_c,
+    float* best_gain, float* counter0, void* stream) {
   if (n_hubs <= 0) return 0;
-  if (nv < 1 || n_chunks < n_hubs || max_chunk < 1 || max_chunk > kChunk)
+  if (nv < 1 || n_chunks < n_hubs || max_chunk < 1 || max_chunk > kChunk
+      || csts == nullptr || tshift < 0 || tshift > 31)
     return cudaErrorInvalidValue;
   const cudaError_t err = allow_shared_memory();
   if (err != cudaSuccess) return (int)err;
@@ -372,7 +383,8 @@ extern "C" int cv_heavy_argmax(
   if (launch != cudaSuccess) return (int)launch;
   heavy_pass2<<<n_chunks, kThreads, 0, st>>>(
       chunk_hub, coff, hub_chunks, hverts, toff, table, tlist, nlist,
-      partial, comm, comm_deg, vdeg, self_loop, nv, cst, sentinel, best);
+      partial, comm, comm_deg, vdeg, self_loop, nv, csts, tshift,
+      sentinel, best);
   launch = cudaGetLastError();
   if (launch != cudaSuccess) return (int)launch;
   heavy_finalize<<<(n_hubs + 7) / 8, 256, 0, st>>>(

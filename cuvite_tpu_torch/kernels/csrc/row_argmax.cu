@@ -53,9 +53,16 @@
 // dst and w stream once, contiguous: each load of a warp reads 128
 // contiguous bytes, with the evict-first hint.  No 16-byte loads (4 slots
 // a lane): a 64-slot row would then keep only 16 of 32 lanes busy.  No TMA:
-// the bound is the gathers, not the stream.  Weights are summed in another order than the reference's
-// (with float atomics in the table forms): see the
-// exactness domain in common.cuh.
+// the bound is the gathers, not the stream.  Weights are summed in
+// another order than the reference's (with float atomics in the table
+// forms): see the exactness domain in common.cuh.
+//
+// Batches (louvain/batched.py): B tenants folded into one id space, vertex
+// or community v of tenant b stored as b * nv_pad + v with nv_pad a power
+// of two, so one launch per width class covers the rows of every tenant.
+// Each row takes its tenant's constant float32(1/(2 m_b)) from
+// csts[v >> tshift] (tshift = log2 nv_pad).  One graph is a batch of one:
+// csts[0], with tshift = ceil(log2 nv) so that every id maps to it.
 #include "common.cuh"
 
 namespace {
@@ -68,20 +75,25 @@ constexpr int kSlotBytes = 12;       // key, weight sum, community degree
 
 struct Row {
   int curr;
-  float vd, sl, ax;
+  float vd, sl, ax, cst;
 };
 
 // vinfo[v] = {comm[v], comm_deg[comm[v]], vdeg[v], self_loop[v]} (float
 // bits): the row's vertex is one 16-byte gather, a slot's community and
 // community degree one 8-byte gather.
+// The row's constant is its tenant's.
 __device__ __forceinline__ Row row_scalars(const int* verts, long long row,
-                                           const int4* vinfo, int nv) {
-  const int4 e = __ldg(vinfo + min(verts[row], nv - 1));
+                                           const int4* vinfo, int nv,
+                                           const float* csts,
+                                           int tshift) {
+  const int v = min(verts[row], nv - 1);
+  const int4 e = __ldg(vinfo + v);
   Row r;
   r.curr = e.x;
   r.vd = __int_as_float(e.z);
   r.sl = __int_as_float(e.w);
   r.ax = __fsub_rn(__int_as_float(e.y), r.vd);
+  r.cst = __ldg(csts + (v >> tshift));
   return r;
 }
 
@@ -128,12 +140,12 @@ __device__ __forceinline__ void gather_slots(
 __device__ __forceinline__ void scan_table(const int* keys, const float* vals,
                                            const float* ays, unsigned mask,
                                            unsigned first, unsigned stride,
-                                           const Row& r, float eix, float cst,
+                                           const Row& r, float eix,
                                            float& g, int& b) {
   for (unsigned s = first; s <= mask; s += stride) {
     const int k = keys[s];
     if (k != cv::kEmpty) {
-      const float gk = cv::gain(vals[s], eix, r.vd, ays[s], r.ax, cst);
+      const float gk = cv::gain(vals[s], eix, r.vd, ays[s], r.ax, r.cst);
       if (cv::better(gk, k, g, b)) {
         g = gk;
         b = k;
@@ -149,7 +161,8 @@ __global__ void row_argmax_narrow(const int* __restrict__ dst,
                                   const int* __restrict__ row_len,
                                   long long n_rows,
                                   const int4* __restrict__ vinfo, int nv,
-                                  float cst, int sentinel,
+                                  const float* __restrict__ csts,
+                                  int tshift, int sentinel,
                                   int* __restrict__ best_c,
                                   float* __restrict__ best_gain,
                                   float* __restrict__ counter0) {
@@ -158,13 +171,14 @@ __global__ void row_argmax_narrow(const int* __restrict__ dst,
   const int lane = (int)(t % D);
   const bool live = row < n_rows;  // dead lanes still join the shuffles
   int curr = 0, c = cv::kEmpty;
-  float vd = 0.0f, sl = 0.0f, ax = 0.0f, wj = 0.0f, ay = 0.0f;
+  float vd = 0.0f, sl = 0.0f, ax = 0.0f, wj = 0.0f, ay = 0.0f, rc = 0.0f;
   if (live) {
-    const Row r = row_scalars(verts, row, vinfo, nv);
+    const Row r = row_scalars(verts, row, vinfo, nv, csts, tshift);
     curr = r.curr;
     vd = r.vd;
     sl = r.sl;
     ax = r.ax;
+    rc = r.cst;
     // A slot past the row's degree is a padding slot: curr, weight 0.
     c = curr;
     if (lane < row_length(row_len, row, D)) {
@@ -189,7 +203,7 @@ __global__ void row_argmax_narrow(const int* __restrict__ dst,
     }
   }
   const bool valid = live && !dup && c != curr;
-  float g = valid ? cv::gain(wagg, eix, vd, ay, ax, cst) : -CUDART_INF_F;
+  float g = valid ? cv::gain(wagg, eix, vd, ay, ax, rc) : -CUDART_INF_F;
   int b = valid ? c : sentinel;
   cv::group_argmax<D>(g, b);
   if (live && lane == 0) {
@@ -205,8 +219,9 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 row_argmax_warp(const int* __restrict__ dst, const float* __restrict__ w,
                 const int* __restrict__ verts,
                 const int* __restrict__ row_len, long long n_rows, int width,
-                const int4* __restrict__ vinfo, int nv, float cst,
-                int sentinel, unsigned slots, int* __restrict__ best_c,
+                const int4* __restrict__ vinfo, int nv,
+                const float* __restrict__ csts, int tshift, int sentinel,
+                unsigned slots, int* __restrict__ best_c,
                 float* __restrict__ best_gain,
                 float* __restrict__ counter0) {
   extern __shared__ int smem[];
@@ -220,7 +235,7 @@ row_argmax_warp(const int* __restrict__ dst, const float* __restrict__ w,
   const unsigned mask = cv::table_slots(len) - 1u;
   // The first slots' loads and the row's own chain go out before the
   // table is cleared, so their latency overlaps the clearing.
-  const Row r = row_scalars(verts, row, vinfo, nv);
+  const Row r = row_scalars(verts, row, vinfo, nv, csts, tshift);
   const int* drow = dst + row * width;
   const float* wrow = w + row * width;
   float c0 = 0.0f;
@@ -247,7 +262,7 @@ row_argmax_warp(const int* __restrict__ dst, const float* __restrict__ w,
   const float eix = __fsub_rn(c0, r.sl);
   float g = -CUDART_INF_F;
   int b = sentinel;
-  scan_table(keys, vals, ays, mask, lane, 32, r, eix, cst, g, b);
+  scan_table(keys, vals, ays, mask, lane, 32, r, eix, g, b);
   cv::group_argmax<32>(g, b);
   if (lane == 0) {
     best_c[row] = b;
@@ -260,8 +275,9 @@ __global__ void __launch_bounds__(1024)
 row_argmax_block(const int* __restrict__ dst, const float* __restrict__ w,
                  const int* __restrict__ verts,
                  const int* __restrict__ row_len, int width,
-                 const int4* __restrict__ vinfo, int nv, float cst,
-                 int sentinel, int* __restrict__ best_c,
+                 const int4* __restrict__ vinfo, int nv,
+                 const float* __restrict__ csts, int tshift, int sentinel,
+                 int* __restrict__ best_c,
                  float* __restrict__ best_gain,
                  float* __restrict__ counter0) {
   extern __shared__ int smem[];
@@ -271,7 +287,7 @@ row_argmax_block(const int* __restrict__ dst, const float* __restrict__ w,
   int* keys = smem;
   float* vals = reinterpret_cast<float*>(keys + mask + 1);
   float* ays = vals + mask + 1;
-  const Row r = row_scalars(verts, row, vinfo, nv);
+  const Row r = row_scalars(verts, row, vinfo, nv, csts, tshift);
   const int* drow = dst + row * width;
   const float* wrow = w + row * width;
   float c0 = 0.0f;
@@ -297,8 +313,7 @@ row_argmax_block(const int* __restrict__ dst, const float* __restrict__ w,
   const float eix = __fsub_rn(c0, r.sl);
   float g = -CUDART_INF_F;
   int b = sentinel;
-  scan_table(keys, vals, ays, mask, threadIdx.x, blockDim.x, r, eix, cst, g,
-             b);
+  scan_table(keys, vals, ays, mask, threadIdx.x, blockDim.x, r, eix, g, b);
   cv::block_argmax(g, b, sentinel);
   if (threadIdx.x == 0) {
     best_c[row] = b;
@@ -340,29 +355,34 @@ cudaError_t allow_shared_memory() {
 // row_len: optional [n_rows] per-row degrees (nullptr: every row is
 // `width` slots long).
 // vinfo: [nv] records {comm, comm_deg[comm], vdeg, self_loop} (float bits).
+// csts: the per-tenant constants, csts[v >> tshift] the row vertex v's
+// (one entry for one graph).
 extern "C" int cv_row_argmax(const int* dst, const float* w, const int* verts,
                              const int* row_len, long long n_rows, int width,
-                             const int4* vinfo, int nv, float cst,
-                             int sentinel, int* best_c, float* best_gain,
-                             float* counter0, void* stream) {
+                             const int4* vinfo, int nv, const float* csts,
+                             int tshift, int sentinel, int* best_c,
+                             float* best_gain, float* counter0,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_rows <= 0) return 0;
-  if (width < 1 || width > kMaxWidth || nv < 1) return cudaErrorInvalidValue;
+  if (width < 1 || width > kMaxWidth || nv < 1 || csts == nullptr
+      || tshift < 0 || tshift > 31)
+    return cudaErrorInvalidValue;
   if (width == 8 || width == 16 || width == 32) {
     const int threads = 256;
     const long long blocks = (n_rows * width + threads - 1) / threads;
     if (width == 8)
       row_argmax_narrow<8><<<(unsigned)blocks, threads, 0, st>>>(
-          dst, w, verts, row_len, n_rows, vinfo, nv, cst, sentinel, best_c,
-          best_gain, counter0);
+          dst, w, verts, row_len, n_rows, vinfo, nv, csts, tshift,
+          sentinel, best_c, best_gain, counter0);
     else if (width == 16)
       row_argmax_narrow<16><<<(unsigned)blocks, threads, 0, st>>>(
-          dst, w, verts, row_len, n_rows, vinfo, nv, cst, sentinel, best_c,
-          best_gain, counter0);
+          dst, w, verts, row_len, n_rows, vinfo, nv, csts, tshift,
+          sentinel, best_c, best_gain, counter0);
     else
       row_argmax_narrow<32><<<(unsigned)blocks, threads, 0, st>>>(
-          dst, w, verts, row_len, n_rows, vinfo, nv, cst, sentinel, best_c,
-          best_gain, counter0);
+          dst, w, verts, row_len, n_rows, vinfo, nv, csts, tshift,
+          sentinel, best_c, best_gain, counter0);
     return (int)cudaGetLastError();
   }
   const cudaError_t err = allow_shared_memory();
@@ -372,13 +392,13 @@ extern "C" int cv_row_argmax(const int* dst, const float* w, const int* verts,
     const long long blocks = (n_rows + kRowWarps - 1) / kRowWarps;
     row_argmax_warp<<<(unsigned)blocks, kRowWarps * 32,
                       (size_t)kRowWarps * slots * kSlotBytes, st>>>(
-        dst, w, verts, row_len, n_rows, width, vinfo, nv, cst, sentinel,
-        slots, best_c, best_gain, counter0);
+        dst, w, verts, row_len, n_rows, width, vinfo, nv, csts, tshift,
+        sentinel, slots, best_c, best_gain, counter0);
   } else {
     row_argmax_block<<<(unsigned)n_rows, block_threads(width),
                        (size_t)slots * kSlotBytes, st>>>(
-        dst, w, verts, row_len, width, vinfo, nv, cst, sentinel, best_c,
-        best_gain, counter0);
+        dst, w, verts, row_len, width, vinfo, nv, csts, tshift,
+        sentinel, best_c, best_gain, counter0);
   }
   return (int)cudaGetLastError();
 }

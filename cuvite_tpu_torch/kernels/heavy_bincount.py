@@ -23,6 +23,11 @@ twin is the reference's sorted heavy path
 (``cuvite_tpu/louvain/bucketed.py:1093-1121``): one stable sort by
 (hub, community), run sums, a segment max and the smallest id among the
 maxima.
+
+Batches: the hubs of every tenant of a folded batch (ids b * nv_pad + v,
+as in ``row_argmax``) go in one layout, one chunk table and one launch,
+with ``constant`` the [B] float32 tensor of the tenants' 1/(2m); each hub
+takes its tenant's.  One graph is a batch of one, as in ``row_argmax``.
 """
 
 from __future__ import annotations
@@ -34,18 +39,22 @@ import numpy as np
 import torch
 
 from cuvite_tpu_torch.kernels import _build
-from cuvite_tpu_torch.kernels.row_argmax import SENTINEL
+from cuvite_tpu_torch.kernels.row_argmax import (
+    SENTINEL,
+    tenant_constants,
+    tenant_shift,
+)
 from cuvite_tpu_torch.ops import segment as seg
 
 # Most edges of one chunk: one block of the kernel aggregates a chunk in a
 # shared table of next_pow2(2 * HEAVY_CHUNK) slots (csrc: kChunk).
 HEAVY_CHUNK = 4096
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = {
     "cv_heavy_argmax": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
-                         _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
-                         _P, _P], _I),
+                         _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+                         _P, _P, _P], _I),
 }
 _TENSORS = ("verts", "offsets", "dst", "w", "table_offsets",
             "chunk_offsets", "chunk_hub", "hub_chunks")
@@ -171,7 +180,7 @@ def build_heavy_layout(heavy_src, heavy_dst, heavy_w, *,
     )
 
 
-def _validate(lay, comm, comm_deg, vdeg, self_loop):
+def _validate(lay, comm, comm_deg, vdeg, self_loop, consts):
     dev = lay.dst.device
     for name, t, dt in (("verts", lay.verts, torch.int32),
                         ("offsets", lay.offsets, torch.int64),
@@ -201,18 +210,24 @@ def _validate(lay, comm, comm_deg, vdeg, self_loop):
     if not (comm.numel() == vdeg.numel() == self_loop.numel() >= 1):
         raise ValueError("heavy_argmax: comm, vdeg and self_loop must be "
                          "non-empty per-vertex tables of one length")
+    if consts.device != dev:
+        raise ValueError("heavy_argmax: the per-tenant constants are on "
+                         f"{consts.device}, dst on {dev}")
+    return tenant_shift(consts, comm.numel(), "heavy_argmax")
 
 
 def heavy_argmax(lay: HeavyLayout, comm, comm_deg, vdeg, self_loop,
                  constant):
     """Best move of every hub of ``lay`` (tables as in
-    ``row_argmax.row_argmax``).  Returns (best_c [H] int32,
-    best_gain [H] f32, counter0 [H] f32)."""
-    _validate(lay, comm, comm_deg, vdeg, self_loop)
+    ``row_argmax.row_argmax``; ``constant`` one graph's float or a folded
+    batch's [B] f32 tensor).  Returns (best_c [H] int32, best_gain [H]
+    f32, counter0 [H] f32)."""
     dev = lay.dst.device
+    consts = tenant_constants(constant, dev)
+    shift = _validate(lay, comm, comm_deg, vdeg, self_loop, consts)
     if dev.type == "cpu":
         return heavy_argmax_plain(lay, comm, comm_deg, vdeg, self_loop,
-                                  constant)
+                                  consts)
     if dev.type != "cuda":
         raise ValueError(f"heavy_argmax: no kernel for device {dev}")
     sc = lay.scratch
@@ -232,7 +247,7 @@ def heavy_argmax(lay: HeavyLayout, comm, comm_deg, vdeg, self_loop,
         sc.slots.data_ptr(), sc.claims.data_ptr(), sc.partial.data_ptr(),
         sc.best.data_ptr(), comm.data_ptr(), comm_deg.data_ptr(),
         vdeg.data_ptr(), self_loop.data_ptr(), comm.numel(),
-        float(constant), SENTINEL,
+        consts.data_ptr(), shift, SENTINEL,
         best_c.data_ptr(), best_gain.data_ptr(), counter0.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "heavy_argmax")
@@ -249,8 +264,9 @@ def heavy_argmax_plain(lay: HeavyLayout, comm, comm_deg, vdeg, self_loop,
     results)."""
     dev = lay.dst.device
     h = lay.num_hubs
-    cst = torch.tensor(float(constant), dtype=torch.float32, device=dev)
     v = lay.verts.clamp(max=comm.numel() - 1).long()
+    consts = tenant_constants(constant, dev)
+    shift = tenant_shift(consts, comm.numel(), "heavy_argmax_plain")
     curr = comm[v]
     vd = vdeg[v]
     ax = comm_deg[curr.long()] - vd
@@ -262,6 +278,7 @@ def heavy_argmax_plain(lay: HeavyLayout, comm, comm_deg, vdeg, self_loop,
     eix = counter0 - self_loop[v]
     key_s, order = torch.sort(hub * (comm.numel() + 1) + c, stable=True)
     hub_s, c_s, w_s = hub[order], c[order], lay.w[order]
+    cst = consts[v >> shift][hub_s]
     leader = torch.ones_like(key_s, dtype=torch.bool)
     leader[1:] = key_s[1:] != key_s[:-1]
     run = leader.long().cumsum(0) - 1

@@ -25,6 +25,14 @@ The kernel reads each vertex through one record of :func:`vertex_table`
 per row instead of two and four.  A caller that launches many buckets in
 one sweep builds the table once and passes it as ``vinfo``.
 
+Batches: the batched engine (``louvain/batched.py``) folds B tenants into
+one id space, vertex or community v of tenant b stored as b * nv_pad + v
+with nv_pad a power of two, and passes ``constant`` as the [B] float32
+tensor of the tenants' 1/(2m): each row takes its tenant's
+(``constant[v >> log2(nv_pad)]``), so one launch per width class covers
+every tenant.  One graph is a batch of one: a float ``constant`` becomes
+a one-element tensor (:func:`tenant_constants`) and the same code runs.
+
 ``row_argmax`` launches the kernel (``csrc/row_argmax.cu``) for CUDA
 tensors and runs ``row_argmax_plain`` only for CPU tensors.
 """
@@ -43,12 +51,38 @@ MAX_WIDTH = 8192
 # Rows x width per step of the plain twin, bounding its [rows, D] transients.
 ROW_ELEMS_CHUNK = 1 << 22
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {
-    "cv_row_argmax": ([_P, _P, _P, _P, _L, _I, _P, _I, _F, _I, _P, _P,
+    "cv_row_argmax": ([_P, _P, _P, _P, _L, _I, _P, _I, _P, _I, _I, _P, _P,
                        _P, _P], _I),
 }
+
+
+def tenant_constants(constant, device) -> torch.Tensor:
+    """The [B] float32 per-tenant constants as the kernels take them: a
+    tensor as given, one graph's float as a batch of one (a fill on
+    ``device``, rounded to f32 as the reference rounds it)."""
+    if isinstance(constant, torch.Tensor):
+        return constant
+    return torch.full((1,), float(constant), dtype=torch.float32,
+                      device=device)
+
+
+def tenant_shift(consts: torch.Tensor, nv: int, where: str) -> int:
+    """The shift by which a vertex id below ``nv`` maps to its tenant's
+    entry of ``consts``: log2 of the tenants' vertex count ``nv // B`` (a
+    power of two when B > 1); for one graph ceil(log2 nv), so every id
+    maps to entry 0."""
+    b = consts.numel()
+    if (consts.dtype != torch.float32 or consts.dim() != 1
+            or not consts.is_contiguous() or b < 1):
+        raise ValueError(f"{where}: per-tenant constants must be a "
+                         "contiguous non-empty 1-d float32 tensor")
+    per = nv // b
+    if per * b != nv or (b > 1 and per & (per - 1)):
+        raise ValueError(f"{where}: {nv} folded vertices are not {b} "
+                         "tenants of a power-of-two vertex count")
+    return (per - 1).bit_length()
 
 
 def vertex_table(comm, comm_deg, vdeg, self_loop):
@@ -64,7 +98,8 @@ def vertex_table(comm, comm_deg, vdeg, self_loop):
     return out
 
 
-def _validate(dst, w, verts, comm, comm_deg, vdeg, self_loop, deg):
+def _validate(dst, w, verts, comm, comm_deg, vdeg, self_loop, consts,
+              deg):
     dev = dst.device
     checks = [("dst", dst, torch.int32, 2), ("w", w, torch.float32, 2),
               ("verts", verts, torch.int32, 1),
@@ -94,6 +129,10 @@ def _validate(dst, w, verts, comm, comm_deg, vdeg, self_loop, deg):
     if not (comm.numel() == vdeg.numel() == self_loop.numel() >= 1):
         raise ValueError("row_argmax: comm, vdeg and self_loop must be "
                          "non-empty per-vertex tables of one length")
+    if consts.device != dev:
+        raise ValueError("row_argmax: the per-tenant constants are on "
+                         f"{consts.device}, dst on {dev}")
+    return tenant_shift(consts, comm.numel(), "row_argmax")
 
 
 def row_argmax(dst, w, verts, comm, comm_deg, vdeg, self_loop, constant,
@@ -104,16 +143,19 @@ def row_argmax(dst, w, verts, comm, comm_deg, vdeg, self_loop, constant,
     w [N, D] f32 weights (padding 0); verts [N] int32 row vertices (padding
     rows: any id >= len(comm), computed against the last vertex);
     comm [nv] int32 community per vertex; comm_deg f32 community degrees;
-    vdeg / self_loop [nv] f32; constant = 1/(2m) as an f32 value; deg
+    vdeg / self_loop [nv] f32; constant = 1/(2m) as an f32 value, or a
+    folded batch's [B] f32 tensor of them (see the module note); deg
     [N] int32 per-row degrees (slots past them are padding), or None for
     the full width; vinfo: the tables' :func:`vertex_table` when the
     caller has it (built here when None; the CPU twin does not use it).
     Returns (best_c [N] int32, best_gain [N] f32, counter0 [N] f32).
     """
-    _validate(dst, w, verts, comm, comm_deg, vdeg, self_loop, deg)
+    consts = tenant_constants(constant, dst.device)
+    shift = _validate(dst, w, verts, comm, comm_deg, vdeg, self_loop,
+                      consts, deg)
     if dst.device.type == "cpu":
         return row_argmax_plain(dst, w, verts, comm, comm_deg, vdeg,
-                                self_loop, constant, deg)
+                                self_loop, consts, deg)
     if dst.device.type != "cuda":
         raise ValueError(f"row_argmax: no kernel for device {dst.device}")
     if vinfo is None:
@@ -130,7 +172,7 @@ def row_argmax(dst, w, verts, comm, comm_deg, vdeg, self_loop, constant,
     err = lib.cv_row_argmax(
         dst.data_ptr(), w.data_ptr(), verts.data_ptr(),
         None if deg is None else deg.data_ptr(), n, width,
-        vinfo.data_ptr(), comm.numel(), float(constant), SENTINEL,
+        vinfo.data_ptr(), comm.numel(), consts.data_ptr(), shift, SENTINEL,
         best_c.data_ptr(), best_gain.data_ptr(), counter0.data_ptr(),
         torch.cuda.current_stream(dst.device).cuda_stream)
     _build.check(err, "row_argmax")
@@ -148,12 +190,13 @@ def row_argmax_plain(dst, w, verts, comm, comm_deg, vdeg, self_loop,
     ``_row_argmax_sorted`` (``cuvite_tpu/louvain/bucketed.py:627``), in
     chunks of at most ``ROW_ELEMS_CHUNK`` slots."""
     n, width = dst.shape
-    cst = torch.tensor(float(constant), dtype=torch.float32,
-                       device=dst.device)
+    consts = tenant_constants(constant, dst.device)
+    shift = tenant_shift(consts, comm.numel(), "row_argmax_plain")
     chunk = max(ROW_ELEMS_CHUNK // width, 1)
     outs = [_rows_plain(dst[i:i + chunk], w[i:i + chunk],
                         verts[i:i + chunk], comm, comm_deg, vdeg, self_loop,
-                        cst, None if deg is None else deg[i:i + chunk])
+                        consts, shift,
+                        None if deg is None else deg[i:i + chunk])
             for i in range(0, n, chunk)]
     if not outs:
         e = dst.new_empty(0)
@@ -161,8 +204,10 @@ def row_argmax_plain(dst, w, verts, comm, comm_deg, vdeg, self_loop,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _rows_plain(dst, w, verts, comm, comm_deg, vdeg, self_loop, cst, deg):
+def _rows_plain(dst, w, verts, comm, comm_deg, vdeg, self_loop, consts,
+                shift, deg):
     v = verts.clamp(max=comm.numel() - 1).long()
+    cst = consts[v >> shift][:, None]
     curr = comm[v]
     vd = vdeg[v]
     ax = comm_deg[curr.long()] - vd

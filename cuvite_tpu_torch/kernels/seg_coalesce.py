@@ -8,9 +8,18 @@ and follows that module's ``seg_coalesce_xla`` (``:246``),
 relabeled slab (dense ids < nv_pad, padding src == nv_pad) into one row per
 distinct (src, dst), in ascending order, compacted into the slab prefix,
 duplicate weights summed.  The dense engine accumulates a weight sum and a
-presence count per slot of the [nv_pad, nv_pad] key grid (the kernel,
+presence count per slot of the key grid (the kernel,
 ``csrc/seg_coalesce.cu``), then compacts the present slots in flat order,
 which is the sorted (src, dst) order (``emit_coalesced``).
+
+Every function here takes a batch: B tenants' relabeled slabs
+``[B, ne_pad]``, keyed by (tenant, src, dst) into a ``[B, grid, grid]``
+accumulator pair, each tenant compacted into its own slab prefix.  One
+slab is a batch of one with ``grid = nv_pad`` (``ops/segment.
+coalesced_runs``).  The batched engine (``louvain/batched.py``) runs the
+kernel on a whole batch in one launch; the reference never runs its
+kernel on a batch (a Pallas grid does not lift over ``vmap``), and its
+batched coarsening takes the XLA twin, which gives the same rows.
 
 Differences from the reference, by design:
 
@@ -28,12 +37,17 @@ Differences from the reference, by design:
   kernel is.  ``PERF.md`` holds the card's times of both engines on the
   same slab; ``CUVITE_SEG_COALESCE=sort`` pins the sort for comparisons.
 - The compaction takes the present slots with ``nonzero`` (a device scan)
-  instead of the reference's cumsum and drop-scatter, and returns the row
-  count as a Python int.
+  instead of the reference's cumsum and drop-scatter.
 
 ``seg_coalesce`` launches the kernel for CUDA tensors and runs
 ``seg_coalesce_plain`` only for CPU tensors.  Not ported: the reference's
 ``hash`` engine (``:335-427``).
+
+Memory bound of a batch: ``grid`` is the phase's largest community
+count rounded up to a power of two, which the host holds after the
+renumber, not the class's nv_pad -- a [64, 4096, 4096] pair would be
+12.9 GB -- and :func:`batched_coalesce_engine` sends a coarsening whose
+``B * grid^2`` exceeds ``DENSE_BATCH_MAX_SLOTS`` to the sort engine.
 """
 
 from __future__ import annotations
@@ -53,8 +67,14 @@ DEFAULT_MAX_NV = 4096
 # exceed it.
 FLAT_NV_MAX = 1 << 15
 
+# Most slots of the batched form's key grid, B * grid^2: 2^27 slots are
+# 1.5 GiB of f64 + i32 accumulators.  Past it the coarsening sorts.
+DENSE_BATCH_MAX_SLOTS = 1 << 27
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURE = {"cv_seg_coalesce": ([_P, _P, _P, _L, _I, _P, _P, _P], _I)}
+_SIGNATURE = {
+    "cv_seg_coalesce": ([_P, _P, _P, _I, _L, _I, _P, _P, _P], _I),
+}
 
 
 def _max_nv() -> int:
@@ -90,52 +110,64 @@ def coalesce_engine(nv_pad: int) -> str:
     return "dense" if nv_pad <= _max_nv() else "sort"
 
 
-def _kbits(nv_pad: int) -> int:
-    if nv_pad < 1 or nv_pad & (nv_pad - 1):
-        raise ValueError(f"seg_coalesce: nv_pad = {nv_pad} is not a power "
-                         "of two")
-    if nv_pad > FLAT_NV_MAX:
-        raise ValueError(f"seg_coalesce: nv_pad = {nv_pad} over FLAT_NV_MAX "
-                         f"= {FLAT_NV_MAX}: the dense key grid would exceed "
-                         "2^30 slots; coalesce_engine sends this class to "
-                         "'sort'")
-    return (nv_pad - 1).bit_length()
+def batched_coalesce_engine(nv_pad: int, n_tenants: int, grid: int) -> str:
+    """The engine of one batched coarsening: ``coalesce_engine(nv_pad)``
+    of the slab class, and ``'sort'`` when the dense form's
+    ``n_tenants * grid^2`` key grid exceeds ``DENSE_BATCH_MAX_SLOTS``."""
+    if coalesce_engine(nv_pad) != "dense":
+        return "sort"
+    return "dense" if n_tenants * grid * grid <= DENSE_BATCH_MAX_SLOTS \
+        else "sort"
 
 
-def _validate(src, dst, w, nv_pad: int) -> int:
-    kbits = _kbits(nv_pad)
+def _kbits(grid: int) -> int:
+    if grid < 1 or grid & (grid - 1):
+        raise ValueError(f"seg_coalesce: grid = {grid} is not a power of "
+                         "two")
+    if grid > FLAT_NV_MAX:
+        raise ValueError(f"seg_coalesce: grid = {grid} over FLAT_NV_MAX = "
+                         f"{FLAT_NV_MAX}: the dense key grid would exceed "
+                         "2^30 slots a tenant; coalesce_engine sends this "
+                         "class to 'sort'")
+    return (grid - 1).bit_length()
+
+
+def _validate(src, dst, w, grid: int) -> int:
+    kbits = _kbits(grid)
     for name, t, dt in (("src", src, torch.int32), ("dst", dst, torch.int32),
                         ("w", w, torch.float32)):
         if t.device != src.device:
             raise ValueError(f"seg_coalesce: {name} is on {t.device}, src "
                              f"on {src.device}")
-        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+        if t.dtype != dt or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"seg_coalesce: {name} must be a contiguous "
-                             f"1-d {dt} tensor, got {t.dim()}-d {t.dtype}")
-    if not src.shape == dst.shape == w.shape:
+                             f"[B, ne] {dt} tensor, got {t.dim()}-d "
+                             f"{t.dtype}")
+    if not src.shape == dst.shape == w.shape or src.shape[0] < 1:
         raise ValueError(f"seg_coalesce: shapes src {tuple(src.shape)}, dst "
                          f"{tuple(dst.shape)}, w {tuple(w.shape)}")
     return kbits
 
 
-def seg_coalesce(src, dst, w, *, nv_pad: int):
-    """Dense accumulators of a relabeled slab.
+def seg_coalesce(src, dst, w, *, grid: int):
+    """Dense accumulators of B relabeled slabs in one launch.
 
-    src, dst [ne] int32 ids (rows with src or dst outside [0, nv_pad)
-    drop: padding rows carry src == nv_pad); w [ne] f32.  Returns
-    (acc [nv_pad, nv_pad] f64 weight sums, cnt [nv_pad, nv_pad] int32 row
-    counts); feed :func:`emit_coalesced`."""
-    _validate(src, dst, w, nv_pad)
+    src, dst [B, ne] int32 (rows with src or dst outside [0, grid) drop;
+    padding rows carry src == the class's nv_pad >= grid); w [B, ne] f32.
+    Returns (acc [B, grid, grid] f64 weight sums, cnt [B, grid, grid]
+    int32 row counts); feed :func:`emit_coalesced`."""
+    _validate(src, dst, w, grid)
     if src.device.type == "cpu":
-        return seg_coalesce_plain(src, dst, w, nv_pad=nv_pad)
+        return seg_coalesce_plain(src, dst, w, grid=grid)
     if src.device.type != "cuda":
         raise ValueError(f"seg_coalesce: no kernel for device {src.device}")
-    acc = torch.empty((nv_pad, nv_pad), dtype=torch.float64,
+    b, ne = src.shape
+    acc = torch.empty((b, grid, grid), dtype=torch.float64,
                       device=src.device)
-    cnt = torch.empty((nv_pad, nv_pad), dtype=torch.int32, device=src.device)
+    cnt = torch.empty((b, grid, grid), dtype=torch.int32, device=src.device)
     lib = _build.library("seg_coalesce", _SIGNATURE)
     err = lib.cv_seg_coalesce(
-        src.data_ptr(), dst.data_ptr(), w.data_ptr(), src.numel(), nv_pad,
+        src.data_ptr(), dst.data_ptr(), w.data_ptr(), b, ne, grid,
         acc.data_ptr(), cnt.data_ptr(),
         torch.cuda.current_stream(src.device).cuda_stream)
     _build.check(err, "seg_coalesce")
@@ -146,48 +178,50 @@ def seg_coalesce(src, dst, w, *, nv_pad: int):
 seg_coalesce.launches = 0
 
 
-def seg_coalesce_plain(src, dst, w, *, nv_pad: int):
+def seg_coalesce_plain(src, dst, w, *, grid: int):
     """Plain PyTorch twin of :func:`seg_coalesce` (same signature and
-    results): the reference's ``seg_coalesce_xla``, two ``index_add_`` over
-    the flat [nv_pad^2] key domain plus one drop slot."""
-    kbits = _validate(src, dst, w, nv_pad)
-    n = nv_pad * nv_pad
+    results): the reference's ``seg_coalesce_xla``, two ``index_add_``
+    over the flat [B * grid^2] key domain plus one drop slot."""
+    kbits = _validate(src, dst, w, grid)
+    b = src.shape[0]
+    n = b * grid * grid
     s, d = src.long(), dst.long()
-    real = (s >= 0) & (s < nv_pad) & (d >= 0) & (d < nv_pad)
-    flat = torch.where(real, (s << kbits) | d, n)
+    tenant = torch.arange(b, device=src.device)[:, None]
+    real = (s >= 0) & (s < grid) & (d >= 0) & (d < grid)
+    flat = torch.where(real, (((tenant << kbits) | s) << kbits) | d, n)
     acc = torch.zeros(n + 1, dtype=torch.float64, device=src.device)
-    acc.index_add_(0, flat, torch.where(real, w, 0.0).double())
+    acc.index_add_(0, flat.reshape(-1),
+                   torch.where(real, w, 0.0).double().reshape(-1))
     cnt = torch.zeros(n + 1, dtype=torch.int32, device=src.device)
-    cnt.index_add_(0, flat, real.int())
-    return acc[:n].view(nv_pad, nv_pad), cnt[:n].view(nv_pad, nv_pad)
+    cnt.index_add_(0, flat.reshape(-1), real.int().reshape(-1))
+    return (acc[:n].view(b, grid, grid), cnt[:n].view(b, grid, grid))
 
 
-def emit_coalesced(acc, cnt, *, ne_pad: int, w_dtype=torch.float32):
-    """Compact the dense accumulators into the coalesced slab prefix.
+def emit_coalesced(acc, cnt, *, ne_pad: int, nv_pad: int,
+                   w_dtype=torch.float32):
+    """Compact B tenants' dense accumulators, each into its own slab
+    prefix, in one pass.
 
     A slot is a row when its count is > 0 -- by presence, never by weight,
-    so a zero-weight real edge is a row.  Ascending flat order is the
-    sorted (src, dst) order.  Returns (src2, dst2, w2, ne2): [ne_pad]
-    int32/int32/``w_dtype`` arrays with the rows in [0, ne2), padding
-    (src == nv_pad, dst == 0, w == 0) after, and ``ne2`` a Python int."""
-    nv_pad = acc.shape[0]
-    kbits = _kbits(nv_pad)
+    so a zero-weight real edge is a row.  Ascending flat order is each
+    tenant's sorted (src, dst) order.  Returns (src2, dst2, w2
+    [B, ne_pad], ne2 [B] int64 tensor): tenant b's rows in [0, ne2[b]),
+    padding (src == ``nv_pad``, dst == 0, w == 0) after."""
+    from cuvite_tpu_torch.ops.segment import compact_batched
+
+    b, grid, _ = acc.shape
+    kbits = _kbits(grid)
     flat = torch.nonzero(cnt.reshape(-1) > 0).squeeze(1)
-    ne2 = int(flat.numel())
-    if ne2 > ne_pad:
-        raise ValueError(f"emit_coalesced: {ne2} rows do not fit {ne_pad}")
-    dev = acc.device
-    src2 = torch.full((ne_pad,), nv_pad, dtype=torch.int32, device=dev)
-    dst2 = torch.zeros(ne_pad, dtype=torch.int32, device=dev)
-    w2 = torch.zeros(ne_pad, dtype=w_dtype, device=dev)
-    src2[:ne2] = flat >> kbits
-    dst2[:ne2] = flat & (nv_pad - 1)
-    w2[:ne2] = acc.reshape(-1)[flat].to(w_dtype)
-    return src2, dst2, w2, ne2
+    return compact_batched(
+        flat >> (2 * kbits), (flat >> kbits) & (grid - 1), flat & (grid - 1),
+        acc.reshape(-1)[flat].to(w_dtype), n_tenants=b, ne_pad=ne_pad,
+        nv_pad=nv_pad)
 
 
-def coalesce_slab(src, dst, w, *, nv_pad: int):
-    """One dense segmented coalesce: accumulate (kernel on the card, twin
-    on the CPU) and emit.  Same contract as ``coalesced_runs``."""
-    acc, cnt = seg_coalesce(src, dst, w, nv_pad=nv_pad)
-    return emit_coalesced(acc, cnt, ne_pad=src.shape[0], w_dtype=w.dtype)
+def coalesce_slabs(src, dst, w, *, nv_pad: int, grid: int):
+    """One dense coalesce of B slabs: accumulate (kernel on the card, twin
+    on the CPU) and emit.  Same contract as
+    ``ops/segment.coalesced_runs_batched``."""
+    acc, cnt = seg_coalesce(src, dst, w, grid=grid)
+    return emit_coalesced(acc, cnt, ne_pad=src.shape[1], nv_pad=nv_pad,
+                          w_dtype=w.dtype)

@@ -55,8 +55,20 @@ Differences from the reference, by design rather than fault:
 - The class schedules' convergence rows carry real moved counts (the
   reference leaves them untracked: it would cost it a sync).
 
-Not ported yet: multi-GPU (meshes, exchanges), device re-binning, and the
-per-host-ingest fingerprints of checkpoints.
+Device re-binning (reference ``driver.py:810-858``): in the bucketed
+engine every phase after the first whose class the reference would
+re-bin (``coarsen/rebin.rebin_eligible`` on the reference's floored class,
+nv_pad >= 4096 and ne_pad >= 16384) and that runs no class schedule
+builds its plan on the card (``coarsen/rebin.device_plan``), timed under
+``stages["rebin"]``; ``LouvainResult.rebinned_phases`` lists those
+phases.  Other phases, and every phase under ``CUVITE_DEVICE_REBIN=0``,
+keep the host ``BucketPlan.build``.
+
+``louvain_many`` clusters a batch of same-class graphs at once
+(``louvain/batched.py``).
+
+Not ported yet: multi-GPU (meshes, exchanges) and the per-host-ingest
+fingerprints of checkpoints.
 """
 
 from __future__ import annotations
@@ -75,6 +87,11 @@ from cuvite_tpu_torch.coarsen.device import (
     device_renumber,
     maybe_shrink_to_class,
 )
+from cuvite_tpu_torch.coarsen.rebin import (
+    device_plan,
+    device_rebin_enabled,
+    rebin_eligible,
+)
 from cuvite_tpu_torch.coarsen.rebuild import coarsen_graph, \
     renumber_communities
 from cuvite_tpu_torch.core.device import resolve_device
@@ -83,6 +100,7 @@ from cuvite_tpu_torch.core.graph import Graph
 from cuvite_tpu_torch.core.types import (
     MAX_TOTAL_ITERATIONS,
     TERMINATION_PHASE_COUNT,
+    next_pow2,
 )
 from cuvite_tpu_torch.louvain.bucketed import (
     BucketPlan,
@@ -96,6 +114,7 @@ from cuvite_tpu_torch.louvain.coloring import multi_hash_coloring
 from cuvite_tpu_torch.louvain.loop import phase_loop
 from cuvite_tpu_torch.louvain.precise import phase_modularity
 from cuvite_tpu_torch.louvain.step import louvain_step_local
+from cuvite_tpu_torch.ops.segment import TenantConstants
 
 ENGINES = ("bucketed", "sort", "fused")
 
@@ -147,6 +166,8 @@ class LouvainResult:
     # bucketed and sort engines record non-gaining attempts too
     # (gained=False), the fused engine its gaining phases only.
     convergence: list = dataclasses.field(default_factory=list)
+    # Phases (attempts included) whose bucket plan was built on the device.
+    rebinned_phases: list = dataclasses.field(default_factory=list)
 
     @property
     def num_communities(self) -> int:
@@ -162,16 +183,20 @@ class PhaseRunner:
     ``classes`` = (class of each padded vertex, number of classes) puts
     the bucketed engine on the color schedule: one de-padded plan per
     class, each with its own hub layout and scratch, and no whole-phase
-    plan.  ``ordering``: vertex ordering's frozen community tables."""
+    plan.  ``ordering``: vertex ordering's frozen community tables.
+    ``rebin``: build the bucketed plan on the device from the slab
+    (``coarsen/rebin.device_plan``) instead of on the host; its seconds,
+    synchronized, are left in ``rebin_s``."""
 
     def __init__(self, dg: DistGraph, device, engine: str = "bucketed",
-                 classes=None, ordering: bool = False):
+                 classes=None, ordering: bool = False, rebin: bool = False):
         self.dg = dg
         self.device = torch.device(device)
         nv = dg.nv_pad
         self.nv_total = nv
         self.src = self.dst = self.w = self.plan = self.class_plans = None
         self.ordering = ordering
+        self.rebin_s = None
         if engine == "sort":
             self.src, self.dst, self.w = dg.device_slab(self.device)
         elif classes is not None:
@@ -179,6 +204,13 @@ class PhaseRunner:
                 DevicePlan.upload(p, self.device) for p in
                 build_class_plans(dg.src, dg.dst, dg.w, *classes,
                                   nv_local=nv)]
+        elif rebin:
+            t0 = time.perf_counter()
+            self.plan = device_plan(*dg.device_slab(self.device),
+                                    nv_local=nv)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.rebin_s = time.perf_counter() - t0
         else:
             plan = BucketPlan.build(dg.src, dg.dst, dg.w, nv_local=nv)
             self.plan = DevicePlan.upload(plan, self.device)
@@ -186,7 +218,8 @@ class PhaseRunner:
             self.device, torch.float32)
         self.comm0 = torch.arange(nv, dtype=torch.int32, device=self.device)
         self.real_mask = torch.from_numpy(dg.vertex_mask()).to(self.device)
-        self.constant = 1.0 / dg.graph.total_edge_weight_twice()
+        self.constant = TenantConstants.of(
+            1.0 / dg.graph.total_edge_weight_twice(), self.device)
         self.labels_dev = None    # device labels of the last run()
         self.convergence = None   # PhaseConvergence of the last run()
 
@@ -205,7 +238,7 @@ class PhaseRunner:
         Q is the start's, over the class plans together.  Returns (target,
         Q)."""
         mod = bucketed_modularity(self.class_plans, comm, self.vdeg,
-                                  self.constant, nv_total=self.nv_total)
+                                  self.constant, nv_total=self.nv_total)[0]
         info = comm if self.ordering else None
         work = comm
         for plan in self.class_plans:
@@ -224,7 +257,7 @@ class PhaseRunner:
         else:
             def sweep(comm, _active):
                 res = self.step(comm)
-                return res.target, res.modularity
+                return res.target, res.modularity[0]
         past, prev_mod, iters, self.convergence = phase_loop(
             sweep, self.comm0, threshold, et_mode=et_mode,
             et_delta=et_delta, real_mask=self.real_mask,
@@ -281,6 +314,40 @@ def _color_classes(g: Graph, dg: DistGraph, n: int, device,
     cls = np.full(dg.nv_pad, n_classes - 1, dtype=np.int32)
     cls[dg.old_to_pad] = dense
     return cls, n_classes
+
+
+def louvain_many(
+    graphs,
+    threshold: float = 1.0e-6,
+    max_phases: int = TERMINATION_PHASE_COUNT,
+    b_pad: int | None = None,
+    slab_class: tuple | None = None,
+    mesh="auto",
+    verbose: bool = False,
+    engine: str = "fused",
+    bucket_shape=None,
+    device=None,
+):
+    """Cluster B same-slab-class graphs as one batch (reference
+    ``louvain_many``, ``cuvite_tpu/louvain/driver.py:1689``): the
+    multi-tenant analog of :func:`louvain_phases`.
+
+    Returns a ``louvain.batched.BatchResult`` whose ``results`` hold one
+    :class:`LouvainResult` per input graph, in order, each equal to this
+    entry's run of that graph alone (B=1, same engine).  ``engine``:
+    ``'fused'`` (sort sweeps every phase) or ``'bucketed'`` (phase 0 on
+    host-built plans, coarse phases re-binned on the device where
+    eligible); ``bucket_shape`` pins the phase-0 plan geometry
+    (``core.batch.bucket_shape_for``) and refuses a batch that does not
+    fit it.  ``device=None`` runs on the card and raises when there is
+    none.  Mixed slab classes raise: binning is the serving layer's job.
+    """
+    from cuvite_tpu_torch.louvain.batched import cluster_many
+
+    return cluster_many(graphs, threshold=threshold, max_phases=max_phases,
+                        b_pad=b_pad, slab_class=slab_class, mesh=mesh,
+                        verbose=verbose, engine=engine,
+                        bucket_shape=bucket_shape, device=device)
 
 
 def louvain_phases(
@@ -357,6 +424,7 @@ def louvain_phases(
                    and device_coarsen_enabled())
     phases: list[PhaseStats] = []
     convergence: list = []
+    rebinned: list = []
     prev_mod = -1.0
     tot_iters = 0
     t_start = time.perf_counter()
@@ -406,10 +474,20 @@ def louvain_phases(
             classes = _color_classes(g, dg, coloring or vertex_ordering,
                                      dev, verbose)
             stages["color"] = time.perf_counter() - t1
+        # The reference re-bins on its floored class (nv_pad >= 4096,
+        # ne_pad >= 16384, driver.py:2062-2066 and :812-823).
+        rebin = (engine == "bucketed" and phase >= 1 and classes is None
+                 and device_rebin_enabled()
+                 and rebin_eligible(max(dg.nv_pad, 4096),
+                                    max(next_pow2(g.num_edges), 16384)))
         t_plan0 = time.perf_counter()
         runner = PhaseRunner(dg, dev, engine, classes=classes,
-                             ordering=bool(vertex_ordering and not coloring))
+                             ordering=bool(vertex_ordering and not coloring),
+                             rebin=rebin)
         t_plan = time.perf_counter()
+        if rebin:
+            stages["rebin"] = runner.rebin_s
+            rebinned.append(phase)
         comm_pad, _, iters = runner.run(th, et_mode=et_mode,
                                         et_delta=et_delta)
         t_iter = time.perf_counter()
@@ -494,6 +572,7 @@ def louvain_phases(
         total_iterations=tot_iters,
         total_seconds=time.perf_counter() - t_start,
         convergence=convergence,
+        rebinned_phases=rebinned,
     )
 
 

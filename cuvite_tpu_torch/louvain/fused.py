@@ -34,6 +34,7 @@ from cuvite_tpu_torch.core.types import MAX_TOTAL_ITERATIONS
 from cuvite_tpu_torch.louvain.loop import phase_loop
 from cuvite_tpu_torch.louvain.step import louvain_step_local
 from cuvite_tpu_torch.obs.convergence import PhaseConvergence
+from cuvite_tpu_torch.ops.segment import TenantConstants
 
 
 @dataclasses.dataclass
@@ -61,10 +62,11 @@ def fused_phase(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     (past, Q, sweeps, PhaseConvergence)."""
     vdeg = device_weighted_degrees(src, w, nv_pad=nv_pad)
     comm0 = torch.arange(nv_pad, dtype=torch.int32, device=src.device)
+    consts = TenantConstants.of(constant, src.device)
 
     def sweep(comm, _active):
-        out = louvain_step_local(src, dst, w, comm, vdeg, constant)
-        return out.target, out.modularity
+        out = louvain_step_local(src, dst, w, comm, vdeg, consts)
+        return out.target, out.modularity[0]
 
     return phase_loop(sweep, comm0, threshold)
 

@@ -21,6 +21,13 @@ card and the CPU give the same f32 values, and on the exactness domain
 the reference's.  The gain is f32, one torch op per operation: no fused
 multiply-adds form across ops (no ``torch.compile`` here).
 
+Batches: with a folded batch's ``TenantConstants`` (tenant b's vertex v
+at b * nv_pad + v, padding rows src == B * nv_pad) one sweep covers every
+tenant -- one sort of the whole folded slab, each edge's gain taking its
+tenant's constant -- and returns each tenant's Q and moved count (the
+reference's ``jax.vmap`` of its fused phase, ``cuvite_tpu/louvain/
+batched.py:101-130``).  One graph is a batch of one.
+
 Not ported: the multi-GPU form (``axis_name``, ``make_sharded_step``).
 """
 
@@ -30,30 +37,32 @@ from typing import NamedTuple
 
 import torch
 
-from cuvite_tpu_torch.kernels.row_argmax import SENTINEL
+from cuvite_tpu_torch.kernels.row_argmax import SENTINEL, tenant_shift
 from cuvite_tpu_torch.ops import segment as seg
+from cuvite_tpu_torch.ops.segment import TenantConstants
 
 
 class StepOut(NamedTuple):
     target: torch.Tensor      # [nv] int32 new community per vertex
-    modularity: torch.Tensor  # 0-dim f64: Q of the INPUT assignment
-    n_moved: torch.Tensor     # 0-dim int64: vertices that changed
+    modularity: torch.Tensor  # [B] f64: each tenant's Q of the INPUT
+    n_moved: torch.Tensor     # [B] int64: each tenant's vertices moved
 
 
 def louvain_step_local(src: torch.Tensor, dst: torch.Tensor,
                        w: torch.Tensor, comm: torch.Tensor,
-                       vdeg: torch.Tensor, constant: float) -> StepOut:
+                       vdeg: torch.Tensor, constant) -> StepOut:
     """One synchronous sweep on one device.
 
     ``src`` [ne] int32 source vertex, ascending (padding rows == nv);
     ``dst`` [ne] int32 tail vertex (padding 0, w 0); ``w`` [ne] f32;
     ``comm`` [nv] int32 assignment; ``vdeg`` [nv] f32 weighted degrees;
     ``constant`` = 1/(2m), rounded to f32 for the gains and used in f64
-    for Q."""
+    for Q, or a folded batch's ``TenantConstants`` (module note).  Q and
+    n_moved are [B], [1] for one graph."""
     nv = comm.shape[0]
-    # A fill, not a host-to-device copy: no wait on the stream.
-    cst = torch.full((), float(constant), dtype=torch.float32,
-                     device=comm.device)
+    consts = TenantConstants.of(constant, comm.device)
+    n_t = consts.c64.numel()
+    shift = tenant_shift(consts.c32, nv, "louvain_step_local")
     comm_l = comm.long()
 
     # Community size and degree, recomputed fresh.
@@ -87,6 +96,7 @@ def louvain_step_local(src: torch.Tensor, dst: torch.Tensor,
     k_i = vdeg[i_s]
     a_y = comm_deg[ckey_s.long()]
     a_x = comm_deg[comm_i.long()] - k_i
+    cst = consts.c32[i_s >> shift]
     gain = 2.0 * (eiy - eix[i_s]) - 2.0 * k_i * (a_y - a_x) * cst
     gain = torch.where(valid, gain, float("-inf"))
 
@@ -103,5 +113,7 @@ def louvain_step_local(src: torch.Tensor, dst: torch.Tensor,
              & (best_c_safe > comm))
     move &= ~guard
     target = torch.where(move, best_c_safe, comm)
-    modularity = seg.modularity_terms(counter0, comm_deg64, float(constant))
-    return StepOut(target=target, modularity=modularity, n_moved=move.sum())
+    return StepOut(
+        target=target,
+        modularity=seg.modularity_terms(counter0, comm_deg64, consts),
+        n_moved=move.view(n_t, -1).sum(1))

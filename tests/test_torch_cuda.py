@@ -21,6 +21,7 @@ from cuvite_tpu_torch.kernels.heavy_bincount import (
 )
 from cuvite_tpu_torch.kernels.row_argmax import row_argmax, row_argmax_plain
 from cuvite_tpu_torch.kernels.seg_coalesce import (
+    emit_coalesced,
     seg_coalesce,
     seg_coalesce_plain,
 )
@@ -132,6 +133,34 @@ def coalesce_case(nv_pad, ne_pad, seed, gapped=False, weights="dyadic"):
         w[:n_real] = rng.uniform(1e-4, 1e-2, n_real)
     w[n_real // 2: n_real // 2 + 37] = 0.0
     return src, dst, w
+
+
+def folded_case(n_tenants, nv_pad, n_rows, width, seed):
+    """A folded batch's tables (tenant b's vertex v at b * nv_pad + v):
+    rows of every tenant whose slots stay in their tenant, the first
+    quarter of them hot (all slots in the row's own community or one
+    other), and a per-tenant constant tensor, none of them dyadic but the
+    last tenant's, whose rows tie at gain zero.  Returns (dst, w, verts,
+    comm, comm_deg, vdeg, self_loop, constants) tensors."""
+    rng = np.random.default_rng(seed)
+    nv = n_tenants * nv_pad
+    tenant_of = np.repeat(np.arange(n_tenants), nv_pad)
+    comm = (rng.integers(0, nv_pad, nv) + tenant_of * nv_pad).astype(
+        np.int32)
+    comm_deg = (rng.integers(1, 256, nv) / 8.0).astype(np.float32)
+    vdeg = (rng.integers(1, 64, nv) / 4.0).astype(np.float32)
+    sl = np.where(rng.random(nv) < 0.2, 0.5, 0.0).astype(np.float32)
+    verts = rng.integers(0, nv, n_rows).astype(np.int32)
+    base = (verts // nv_pad * nv_pad)[:, None]
+    dst = (base + rng.integers(0, nv_pad, (n_rows, width))).astype(np.int32)
+    hot = n_rows // 4
+    pick = rng.integers(0, 2, (hot, width)).astype(bool)
+    dst[:hot] = np.where(pick, verts[:hot, None], dst[:hot, :1])
+    w = (rng.integers(1, 32, (n_rows, width)) / 16.0).astype(np.float32)
+    consts = np.array([0.3, 1 / 3000, 0.7, 0.0][:n_tenants]
+                      + [1 / 997] * max(n_tenants - 4, 0), np.float32)
+    return [torch.from_numpy(a) for a in
+            (dst, w, verts, comm, comm_deg, vdeg, sl, consts)]
 
 
 @pytest.fixture
@@ -291,11 +320,11 @@ def test_seg_coalesce_kernel_matches_twin_on_card(cuda_device, nv_pad,
     """The kernel sums each slot in f64 with atomics: the run sums of
     these slabs are exact in f64, so acc and cnt are bit-equal to the
     twin's sequential sums, float weights included."""
-    arrs = [torch.from_numpy(a) for a in
+    arrs = [torch.from_numpy(a)[None] for a in
             coalesce_case(nv_pad, 16384, nv_pad, gapped=nv_pad == 1024,
                           weights=weights)]
-    ref = seg_coalesce_plain(*arrs, nv_pad=nv_pad)
-    got = seg_coalesce(*[a.to(cuda_device) for a in arrs], nv_pad=nv_pad)
+    ref = seg_coalesce_plain(*arrs, grid=nv_pad)
+    got = seg_coalesce(*[a.to(cuda_device) for a in arrs], grid=nv_pad)
     torch.cuda.synchronize()
     for r, g in zip(ref, got):
         assert torch.equal(r, g.cpu())
@@ -401,3 +430,90 @@ def test_class_sweep_with_frozen_info_on_card_matches_cpu(cuda_device):
         assert torch.equal(got.counter0.cpu(), ref.counter0)
         assert int(got.n_moved) == int(ref.n_moved) > 0
     assert heavy_argmax.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 32, 64, 512, 4096])
+def test_batched_row_kernel_matches_twin_on_card(cuda_device, width):
+    """One launch over the rows of four tenants, each row with its own
+    tenant's constant: bit-equal to the twin."""
+    *args, consts = folded_case(4, 1024, 64 if width >= 512 else 400,
+                                width, width)
+    ref = row_argmax_plain(*args, consts)
+    n = row_argmax.launches
+    got = row_argmax(*[a.to(cuda_device) for a in args],
+                     consts.to(cuda_device))
+    torch.cuda.synchronize()
+    assert row_argmax.launches == n + 1
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g.cpu())
+
+
+@pytest.mark.cuda
+def test_batched_heavy_kernel_matches_twin_on_card(cuda_device):
+    """The hubs of two tenants in one chunk table and one launch, each
+    with its tenant's constant, twice: bit-equal, scratch left clean."""
+    *tabs, consts = folded_case(4, 16384, 1, 8, 3)[2:]
+    tabs = tabs[1:]
+    rng = np.random.default_rng(4)
+    nvp = 16384
+    hs = np.concatenate([np.full(9000, 11), np.full(20000, 2 * nvp + 5)])
+    hd = np.concatenate([rng.integers(0, nvp, 9000),
+                         2 * nvp + rng.integers(0, 40, 20000)])
+    hw = (rng.integers(1, 32, len(hs)) / 16.0).astype(np.float32)
+    lay = build_heavy_layout(hs, hd, hw, nv_local=4 * nvp)
+    ref = heavy_argmax_plain(lay, *tabs, consts)
+    lay_d = lay.to(cuda_device)
+    for _ in range(2):
+        got = heavy_argmax(lay_d, *[t.to(cuda_device) for t in tabs],
+                           consts.to(cuda_device))
+        torch.cuda.synchronize()
+        for r, g in zip(ref, got):
+            assert torch.equal(r, g.cpu())
+        assert lay_d.scratch.is_clean()
+
+
+@pytest.mark.cuda
+def test_batched_seg_coalesce_matches_twin_on_card(cuda_device):
+    """Four tenants, one of them pure padding, gapped ids and float
+    weights, in one launch: acc and cnt bit-equal to the twin, each
+    tenant compacted into its own prefix."""
+    rows = []
+    for i, gapped in enumerate((False, True, False)):
+        rows.append(coalesce_case(512, 8192, 40 + i, gapped=gapped,
+                                  weights="float" if i == 2 else "dyadic"))
+    rows.append((np.full(8192, 512, np.int32), np.zeros(8192, np.int32),
+                 np.zeros(8192, np.float32)))
+    arrs = [torch.from_numpy(np.stack(a)) for a in zip(*rows)]
+    ref = seg_coalesce_plain(*arrs, grid=512)
+    n = seg_coalesce.launches
+    got = seg_coalesce(*[a.to(cuda_device) for a in arrs], grid=512)
+    torch.cuda.synchronize()
+    assert seg_coalesce.launches == n + 1
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g.cpu())
+    er = emit_coalesced(*ref, ne_pad=8192, nv_pad=512)
+    eg = emit_coalesced(*got, ne_pad=8192, nv_pad=512)
+    for r, g in zip(er, eg):
+        assert torch.equal(r, g.cpu())
+    assert int(eg[3][3]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["fused", "bucketed"])
+def test_louvain_many_on_card_matches_cpu(cuda_device, engine):
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    gs = [generate_rmat(8, edge_factor=8, seed=s) for s in (1, 2)]
+    gs += [synthesize_graph(2048, seed=many_seed(7, k)) for k in (0, 1)]
+    rg = louvain_many(gs, engine=engine, device=cuda_device)
+    rc = louvain_many(gs, engine=engine, device="cpu")
+    assert rg.phase_engines == rc.phase_engines
+    for g, a, b in zip(gs, rg.results, rc.results):
+        assert np.array_equal(a.communities, b.communities)
+        assert a.total_iterations == b.total_iterations
+        assert abs(a.modularity - b.modularity) <= 1e-12
+        solo = louvain_many([g], engine=engine, device=cuda_device)
+        assert np.array_equal(solo.results[0].communities, a.communities)

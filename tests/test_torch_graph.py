@@ -126,11 +126,20 @@ def test_package_imports_without_jax():
         "    importlib.import_module(n)\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
+        "new = {'cuvite_tpu_torch.core.batch',\n"
+        "       'cuvite_tpu_torch.coarsen.rebin',\n"
+        "       'cuvite_tpu_torch.louvain.batched',\n"
+        "       'cuvite_tpu_torch.workloads.synth',\n"
+        "       'cuvite_tpu_torch.workloads.golden',\n"
+        "       'cuvite_tpu_torch.evaluate.compare'}\n"
+        "assert new <= set(names), new - set(names)\n"
+        "from cuvite_tpu_torch.workloads.golden import load_golden\n"
+        "assert 'powerlaw-test/default' in load_golden()['entries']\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 19
+    assert int(out.stdout.strip()) >= 41
 
 
 def test_louvain_phases_without_cuda_raises(monkeypatch):

@@ -32,6 +32,16 @@ def _torch(*arrs):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs)
 
 
+def _one(*arrs):
+    """One slab as a batch of one, [1, ne] tensors."""
+    return tuple(t[None] for t in _torch(*arrs))
+
+
+def _first(out):
+    """Tenant 0 of a batched emission, as (src, dst, w, n)."""
+    return out[0][0], out[1][0], out[2][0], int(out[3][0])
+
+
 def _assert_same_rows(port, ref):
     """(src, dst, w, n) of the port against the reference's: the same n
     and bit-equal [ne_pad] arrays (prefix and padding)."""
@@ -49,16 +59,18 @@ def test_twin_and_emit_match_pallas_and_jax_sort(nv_pad, ne_pad, gapped):
                                 gapped=gapped)
     jacc, jcnt = seg_coalesce_pallas(*_jax(src, dst, w), nv_pad=nv_pad,
                                      interpret=True)
-    acc, cnt = sc.seg_coalesce_plain(*_torch(src, dst, w), nv_pad=nv_pad)
+    acc, cnt = sc.seg_coalesce_plain(*_one(src, dst, w), grid=nv_pad)
     assert acc.dtype == torch.float64 and cnt.dtype == torch.int32
-    assert np.array_equal(cnt.numpy(), np.asarray(jcnt))
-    assert np.array_equal(acc.float().numpy(), np.asarray(jacc))
+    assert np.array_equal(cnt[0].numpy(), np.asarray(jcnt))
+    assert np.array_equal(acc[0].float().numpy(), np.asarray(jacc))
     ref = jax_emit(jacc, jcnt, ne_pad=ne_pad, src_dtype=jnp.int32,
                    dst_dtype=jnp.int32)
-    _assert_same_rows(sc.emit_coalesced(acc, cnt, ne_pad=ne_pad), ref)
+    emitted = _first(sc.emit_coalesced(acc, cnt, ne_pad=ne_pad,
+                                       nv_pad=nv_pad))
+    _assert_same_rows(emitted, ref)
     ref_sort = jseg.coalesced_runs(*_jax(src, dst, w), nv_pad=nv_pad,
                                    engine="sort")
-    _assert_same_rows(sc.emit_coalesced(acc, cnt, ne_pad=ne_pad), ref_sort)
+    _assert_same_rows(emitted, ref_sort)
     for engine in ("dense", "sort"):
         _assert_same_rows(seg.coalesced_runs(*_torch(src, dst, w),
                                              nv_pad=nv_pad, engine=engine),
@@ -122,15 +134,17 @@ def test_sort_matches_jax_at_packed_key_edges(nv_pad):
 
 
 def test_flat_nv_max_and_pow2_guards():
-    src, dst, w = _torch(*coalesce_case(64, 256, 0))
+    src, dst, w = _one(*coalesce_case(64, 256, 0))
     with pytest.raises(ValueError, match="FLAT_NV_MAX"):
-        sc.seg_coalesce(src, dst, w, nv_pad=sc.FLAT_NV_MAX * 2)
+        sc.seg_coalesce(src, dst, w, grid=sc.FLAT_NV_MAX * 2)
     with pytest.raises(ValueError, match="power of two"):
-        sc.seg_coalesce(src, dst, w, nv_pad=96)
-    with pytest.raises(ValueError, match="contiguous 1-d"):
-        sc.seg_coalesce(src.long(), dst, w, nv_pad=64)
+        sc.seg_coalesce(src, dst, w, grid=96)
+    with pytest.raises(ValueError, match=r"contiguous \[B, ne\]"):
+        sc.seg_coalesce(src.long(), dst, w, grid=64)
+    with pytest.raises(ValueError, match=r"contiguous \[B, ne\]"):
+        sc.seg_coalesce(src[0], dst[0], w[0], grid=64)
     with pytest.raises(ValueError, match="shapes"):
-        sc.seg_coalesce(src[:10], dst[:10], w, nv_pad=64)
+        sc.seg_coalesce(src[:, :10], dst[:, :10], w, grid=64)
 
 
 def test_slab_ne_max_guard(monkeypatch):
@@ -147,10 +161,10 @@ def test_slab_ne_max_guard(monkeypatch):
 
 
 def test_cpu_tensors_run_the_twin_without_a_launch():
-    src, dst, w = _torch(*coalesce_case(256, 4096, 5))
+    src, dst, w = _one(*coalesce_case(256, 4096, 5))
     before = sc.seg_coalesce.launches
-    got = sc.seg_coalesce(src, dst, w, nv_pad=256)
-    ref = sc.seg_coalesce_plain(src, dst, w, nv_pad=256)
+    got = sc.seg_coalesce(src, dst, w, grid=256)
+    ref = sc.seg_coalesce_plain(src, dst, w, grid=256)
     assert sc.seg_coalesce.launches == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
