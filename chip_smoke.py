@@ -103,6 +103,30 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    bound on RGG's distance weights (the reading printed); RGG --rgg-nv with
    re-binning on and off, rebin seconds against the host plan seconds
    they replace.
+19. sub-row packing: 16 synth 1024 tenants, and the seam pair (hub
+   communities at ids 4095 and 4096 of one row), packed two to a row of
+   class (8192, 32768) and run by cluster_packed on both engines: every
+   phase's community ids inside their fences, each tenant's labels equal
+   to the CPU run and to its B=1 run on the card;
+20. the serving queue: `serve demo --jobs 64 --edges 4096 --b-max 64
+   --json` through the CLI's main(argv) on both engines, each tenant's Q,
+   communities, phases and iterations equal to louvain_many on the same
+   64 jobs (phase 17's batch), and the library LouvainServer's labels
+   equal to them bit for bit; jobs/s, waits, pack and exec seconds,
+   launches and peak memory; then an overload setting chosen to force
+   merges, not the reference's mix: its 90:10 pools (72 synth 1024 : 8
+   R-MAT 13 edge factor 2) offered at 2,000 jobs/s (the reference's mix:
+   20) with b_max 4, linger 20 ms and a 500 ms SLO on the bucketed engine,
+   through run_mixed_open_loop with merge_packing off and on: fails
+   unless the merged arm packs a merged batch; every job's labels equal
+   across the arms and to its B=1 run;
+21. the daemon as a subprocess on the card (`--b-max 16 --fault-plan
+   device:transient:n=1`), pipelined and then serial (`--pipeline off`):
+   64 synth 4096 jobs over a unix socket, each result's labels equal to
+   the direct run, `stats`, then SIGTERM: exit 0, conservation ok, at
+   least one retry; overlap_frac, the kernel build and warm-up seconds
+   before the readiness line, and the served jobs' launches from the
+   `stats` reply (fails if the row kernel or seg_coalesce never ran).
    All three kernels printed as one JSON line, with their launches on
    every path and their batched forms' times.
 
@@ -496,21 +520,15 @@ def check_heavy(dev) -> None:
 
 def kernel_counts() -> dict:
     """Launches of each kernel."""
-    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
-    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
-    from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
+    from cuvite_tpu_torch.kernels import launch_counts
 
-    return {"row_argmax": row_argmax.launches,
-            "heavy_bincount": heavy_argmax.launches,
-            "seg_coalesce": seg_coalesce.launches}
+    return launch_counts()
 
 
 def zero_kernel_counts() -> None:
-    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
-    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
-    from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
+    from cuvite_tpu_torch.kernels import zero_launch_counts
 
-    row_argmax.launches = heavy_argmax.launches = seg_coalesce.launches = 0
+    zero_launch_counts()
 
 
 def check_same_run(what: str, rg, rc) -> None:
@@ -1716,6 +1734,356 @@ def run_rebin_full(g, name: str) -> dict:
     return {f"bucketed {name}, re-binning on": runs["on"][2]}
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-21: sub-row packing and the serving layer.
+
+SMALL_CLASS = (4096, 16384)
+ROW_CLASS = (8192, 32768)
+
+
+def hub_graph(nv: int, hub: int, seed: int):
+    """A ring plus a hub at vertex ``hub`` (the reference's seam case,
+    tests/test_subrow.py:115-128)."""
+    from cuvite_tpu_torch import Graph
+
+    rng = np.random.default_rng(seed)
+    spokes = rng.choice(nv - 1, size=nv // 8, replace=False)
+    spokes = np.where(spokes >= hub, spokes + 1, spokes) % nv
+    src = np.concatenate([np.arange(nv), np.full(spokes.size, hub),
+                          rng.integers(0, nv, 64)])
+    dst = np.concatenate([(np.arange(nv) + 1) % nv, spokes,
+                          rng.integers(0, nv, 64)])
+    keep = src != dst
+    return Graph.from_edges(nv, src[keep], dst[keep])
+
+
+def check_subrow() -> dict:
+    """Phase 19: merged batches on the card against the CPU and B=1, with
+    every phase's community ids checked against their fences."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.core.batch import (
+        batch_pad,
+        slab_class_of,
+        subrow_layout_for,
+    )
+    from cuvite_tpu_torch.louvain import batched
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    layout = subrow_layout_for(SMALL_CLASS, ROW_CLASS)
+    cases = {
+        "synth 1024 x 16": [synthesize_graph(1024, seed=many_seed(3, k))
+                            for k in range(16)],
+        "seam hubs at ids 4095 and 4096": [hub_graph(4096, 4095, 1),
+                                           hub_graph(4096, 0, 2)],
+    }
+    fences = []
+    tail = batched._phase_tail
+
+    def fenced_tail(slab, past, *a, **kw):
+        # past holds each sub-row's labels in its own ids: a community
+        # id from across a seam would fall outside [0, nv_sub).
+        real = slab.real_mask
+        lo = int(torch.where(real, past, 0).min())
+        hi = int(torch.where(real, past, 0).max())
+        fences.append((lo, hi, slab.nv_pad))
+        return tail(slab, past, *a, **kw)
+
+    out = {}
+    for name, gs in cases.items():
+        if {slab_class_of(g) for g in gs} != {SMALL_CLASS}:
+            fail(f"phase 19 {name}: tenants not of class {SMALL_CLASS}")
+        for engine in ("bucketed", "fused"):
+            fences.clear()
+            batched._phase_tail = fenced_tail
+            try:
+                zero_kernel_counts()
+                t0 = time.perf_counter()
+                br = batched.cluster_packed(gs, layout, engine=engine)
+                wall = time.perf_counter() - t0
+                launches = kernel_counts()
+            finally:
+                batched._phase_tail = tail
+            bad = [f for f in fences if f[0] < 0 or f[1] >= f[2]]
+            if bad or not fences:
+                fail(f"phase 19 {name} {engine}: community ids outside "
+                     f"their fences {bad}")
+            rc = batched.cluster_packed(gs, layout, engine=engine,
+                                        device="cpu")
+            for k, (g, a, b) in enumerate(zip(gs, br.results, rc.results)):
+                check_same_run(f"merged {name} {engine} tenant {k}", a, b)
+                solo = louvain_many([g], engine=engine).results[0]
+                if not (np.array_equal(solo.communities, a.communities)
+                        and solo.modularity == a.modularity):
+                    fail(f"merged {name} {engine} tenant {k}: differs from "
+                         "its B=1 run on the card")
+            if (br.b_pad, br.n_sub, br.slab_class) != (
+                    batch_pad(-(-len(gs) // 2)), 2, ROW_CLASS):
+                fail(f"merged {name}: geometry {br.b_pad}, {br.n_sub}, "
+                     f"{br.slab_class}")
+            key = f"merged {name}, {engine}"
+            out[key] = launches
+            print(f"  {key}: {br.b_pad} rows of {br.slab_class}, n_sub "
+                  f"{br.n_sub}, phases {br.phase_engines}, coarse class "
+                  f"{br.coarse_class}, wall {wall:.3f} s, {len(fences)} "
+                  f"phase ends with every id inside its fence, launches "
+                  f"{launches}: labels equal to the CPU run and to each "
+                  "tenant's B=1 run")
+    return out
+
+
+def run_cli_demo(engine: str, direct) -> dict:
+    """Phase 20, first half: ``serve demo`` through ``main(argv)``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cuvite_tpu_torch.serve import __main__ as cli
+
+    def warm_then_reset(server):
+        # The CLI's warm-up batch is not the served path: the peak starts
+        # after it, as the launch counts do (the CLI zeroes them).
+        out = real_warm(server)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    buf = io.StringIO()
+    real_warm = cli._warm
+    cli._warm = warm_then_reset
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["demo", "--jobs", "64", "--edges", "4096",
+                           "--b-max", "64", "--json", "--engine", engine])
+    finally:
+        cli._warm = real_warm
+    launches = kernel_counts()
+    if rc:
+        fail(f"serve demo ({engine}) exited {rc}")
+    if launches["seg_coalesce"] == 0 or (engine == "bucketed"
+                                         and launches["row_argmax"] == 0):
+        fail(f"serve demo ({engine}): a kernel of the path never launched "
+             f"{launches}")
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    rows, summary = lines[:-1], lines[-1]["summary"]
+    if len(rows) != 64 or summary["jobs_done"] != 64:
+        fail(f"serve demo ({engine}): {len(rows)} results, {summary}")
+    for row in rows:
+        k = int(row["job"].split("-")[1])
+        ref = direct.results[k]
+        want = (round(ref.modularity, 6), ref.num_communities,
+                len(ref.phases), ref.total_iterations)
+        got = (row["q"], row["communities"], row["phases"],
+               row["iterations"])
+        if got != want:
+            fail(f"serve demo ({engine}) {row['job']}: {got} against "
+                 f"louvain_many's {want}")
+    print(f"  serve demo --engine {engine}: {summary['batches']} batch, "
+          f"wall {summary['wall_s']} s, {summary['wall_jobs_per_s']} jobs/s "
+          f"(busy {summary['jobs_per_s']} jobs/s), wait p50/p95 "
+          f"{summary['wait_p50_ms']}/{summary['wait_p95_ms']} ms, pack "
+          f"{summary['pack_s']} s, exec {summary['device_s']} s, launches "
+          f"{launches}, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; every tenant's Q, "
+          "communities, phases and iterations equal louvain_many's")
+    return launches
+
+
+def check_queue_labels(gs, engine: str, direct) -> None:
+    """The same 64 jobs through the library API: labels bit for bit."""
+    from cuvite_tpu_torch.serve import LouvainServer, ServeConfig
+
+    srv = LouvainServer(ServeConfig(b_max=64, linger_s=0.0, engine=engine))
+    ids = [srv.submit(g, tenant=f"t{k % 4}") for k, g in enumerate(gs)]
+    done = dict(srv.drain())
+    for k, jid in enumerate(ids):
+        a, b = done[jid], direct.results[k]
+        if not (np.array_equal(a.communities, b.communities)
+                and a.modularity == b.modularity):
+            fail(f"LouvainServer ({engine}) job {k}: labels differ from "
+                 "louvain_many's")
+    if not srv.conservation()["ok"]:
+        fail(f"LouvainServer ({engine}): {srv.conservation()}")
+
+
+def run_mix(merge: bool, smalls, bigs) -> tuple:
+    """Phase 20, second half: one arm of an overload setting chosen to
+    force merges -- the reference's 90:10 pools (``tools/serve_load.py``)
+    offered at 2,000 jobs/s with b_max 4 on the bucketed engine, not the
+    reference's mix (20 jobs/s on its default engine)."""
+    from cuvite_tpu_torch.serve import (
+        AdmissionConfig,
+        LouvainServer,
+        ServeConfig,
+    )
+    from cuvite_tpu_torch.serve.loadgen import run_mixed_open_loop
+
+    srv = LouvainServer(ServeConfig(
+        b_max=4, linger_s=0.02, engine="bucketed", merge_packing=merge,
+        admission=AdmissionConfig(wait_slo_s=0.5)))
+    zero_kernel_counts()
+    rep = run_mixed_open_loop(srv, smalls, bigs, rate=2000.0,
+                              max_wall_s=300.0)
+    launches = kernel_counts()
+    r = rep.report
+    if not r.conservation["ok"] or r.done + r.rejected != r.offered:
+        fail(f"mix (merge {merge}): {r.conservation}, done {r.done}")
+    per = rep.per_class
+    print(f"  90:10 pools at 2000 jobs/s (overload), merge_packing "
+          f"{'on' if merge else 'off'}: "
+          f"{r.done} done, {r.rejected} rejected in {r.wall_s:.3f} s, "
+          f"goodput "
+          f"{r.goodput_jobs_per_s:.1f} jobs/s, merged_batches "
+          f"{rep.merged_batches}, batches {r.stats['batches']}, pack_util "
+          f"{rep.pack_util}, subrow_util {rep.subrow_util}, wait p95 small "
+          f"{per['small']['wait_p95_s'] * 1e3:.3f} ms / big "
+          f"{per['big']['wait_p95_s'] * 1e3:.3f} ms, pack "
+          f"{r.stats['pack_s']} s, exec {r.stats['device_s']} s, launches "
+          f"{launches}")
+    return rep, launches
+
+
+def check_mix() -> dict:
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.core.batch import slab_class_of
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    smalls = [synthesize_graph(1024, seed=many_seed(1, k))
+              for k in range(72)]
+    bigs = [generate_rmat(13, edge_factor=2, seed=1000 + k)
+            for k in range(8)]
+    if (slab_class_of(smalls[0]), slab_class_of(bigs[0])) != (SMALL_CLASS,
+                                                              ROW_CLASS):
+        fail("phase 20 mix: pools not of classes (4096, 16384) and "
+             "(8192, 32768)")
+    out, labels = {}, {}
+    for merge in (False, True):
+        rep, out[f"serve 90:10 overload, merge {'on' if merge else 'off'}"] = \
+            run_mix(merge, smalls, bigs)
+        labels[merge] = dict(rep.report.results)
+        if merge and rep.merged_batches < 1:
+            fail("mix: the merged arm packed no merged batch")
+    from cuvite_tpu_torch.serve.loadgen import mix_schedule
+
+    # Job ids follow the arrival order of both arms ("job-<k>"); a job
+    # admission rejected in one arm is held against B=1 in the other.
+    order = [g for _, g in mix_schedule(smalls, bigs)]
+    for k, g in enumerate(order):
+        jid = f"job-{k}"
+        got = [labels[m][jid] for m in (False, True) if jid in labels[m]]
+        if not got:
+            continue
+        solo = louvain_many([g], engine="bucketed").results[0]
+        for r in got:
+            if not (np.array_equal(r.communities, solo.communities)
+                    and r.modularity == solo.modularity):
+                fail(f"mix {jid}: labels differ across arms or from B=1")
+    both = labels[False].keys() & labels[True].keys()
+    print(f"  every served job's labels and Q equal to its B=1 run on the "
+          f"card, so identical across the arms ({len(both)} jobs served "
+          "by both)")
+    return out
+
+
+def run_daemon(direct, pipeline: str) -> dict:
+    """Phase 21: the daemon as a subprocess on the card, pipelined or
+    serial (``--pipeline on|off``).  Returns the launches of the served
+    jobs, from the daemon's ``stats`` reply (the CLI zeroes its counts
+    after the warm-up batch, before the readiness line)."""
+    import signal
+    import socket
+    import tempfile
+
+    from cuvite_tpu_torch.workloads.synth import many_seed
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(dir=os.path.join(root, "build", "chip_smoke"))
+    sock = os.path.join(tmp, "serve.sock")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cuvite_tpu_torch.serve", "daemon",
+         "--socket", sock, "--b-max", "16", "--fault-plan",
+         "device:transient:n=1", "--pipeline", pipeline],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root)
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        if not line:
+            fail(f"daemon died before its readiness line: "
+                 f"{proc.stderr.read()[-2000:]}")
+        ready = json.loads(line)["ready"]
+        print(f"  daemon ready after {time.perf_counter() - t0:.2f} s "
+              f"(process start included): device {ready['device']}, kernel "
+              f"build {ready['build_s']} s and warm-up batch "
+              f"{ready['warm_s']} s before the readiness line, pipelined "
+              f"{ready['pipelined']}")
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        conn.connect(sock)
+        conn.settimeout(300.0)
+        lines = conn.makefile("r", encoding="utf-8")
+        msgs = []
+
+        def call(req):
+            conn.sendall((json.dumps(req) + "\n").encode())
+            while True:
+                msg = json.loads(lines.readline())
+                if "ok" in msg:
+                    return msg
+                msgs.append(msg)
+
+        t1 = time.perf_counter()
+        for k in range(64):
+            ack = call({"op": "submit", "id": f"s{k}", "labels": True,
+                        "tenant": f"t{k % 4}",
+                        "synth": {"edges": 4096, "seed": many_seed(1, k)}})
+            if not ack["ok"]:
+                fail(f"daemon refused job {k}: {ack}")
+        while sum("result" in m for m in msgs) < 64:
+            msgs.append(json.loads(lines.readline()))
+        served = time.perf_counter() - t1
+        stats = call({"op": "stats"})
+        proc.send_signal(signal.SIGTERM)
+        while "serve_summary" not in msgs[-1]:
+            line = lines.readline()
+            if not line:
+                break
+            msgs.append(json.loads(line))
+        conn.close()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if rc != 0:
+        fail(f"daemon exited {rc}: {proc.stderr.read()[-2000:]}")
+    summary = msgs[-1].get("serve_summary") if msgs else None
+    if not summary or not summary["conservation"]["ok"] \
+            or summary["retries"] < 1 or summary["jobs_done"] != 64:
+        fail(f"daemon summary: {summary}")
+    for m in msgs:
+        if "result" in m:
+            k = int(m["result"]["job_id"][1:])
+            if m["result"]["labels"] != direct.results[k].communities.tolist():
+                fail(f"daemon job s{k}: labels differ from the direct run")
+    st, launches = stats["stats"], stats["kernels"]
+    if launches["row_argmax"] == 0 or launches["seg_coalesce"] == 0:
+        fail(f"daemon --pipeline {pipeline}: a kernel of the path never "
+             f"launched {launches}")
+    print(f"  --pipeline {pipeline}: 64 synth 4096 jobs served in "
+          f"{served:.3f} s "
+          f"({64 / served:.1f} jobs/s, submits and result lines included): "
+          f"batches {st['batches']}, wait p50/p95 {st['wait_p50_ms']}/"
+          f"{st['wait_p95_ms']} ms, pack {st['pack_s']} s, exec "
+          f"{st['device_s']} s, overlap_frac {summary['overlap_frac']}, "
+          f"retries {summary['retries']}, launches {launches}; SIGTERM: "
+          f"exit 0, conservation {summary['conservation']}; every result "
+          "equal to the direct run")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -1917,6 +2285,31 @@ def main() -> int:
     paths.update(run_rebin_full(generate_rgg(args.rgg_nv),
                                 f"RGG {args.rgg_nv}"))
     print(f"  phases 15-18 took {time.perf_counter() - t15:.1f} s")
+
+    t19 = time.perf_counter()
+    print("[19] sub-row packing: merged batches, card against CPU and B=1")
+    paths.update(check_subrow())
+
+    print("[20] the serving queue through the CLI, at full width")
+    from cuvite_tpu_torch import louvain_many
+
+    gs = serving_jobs("serving 4096")
+    direct = {}
+    for engine in ("bucketed", "fused"):
+        direct[engine] = louvain_many(gs, engine=engine)
+        paths[f"serve demo B=64 synth 4096, {engine}"] = run_cli_demo(
+            engine, direct[engine])
+        check_queue_labels(gs, engine, direct[engine])
+    print("  LouvainServer on the same 64 jobs, both engines: labels equal "
+          "louvain_many's bit for bit")
+    paths.update(check_mix())
+
+    print("[21] the daemon on the card, pipelined and serial, with a "
+          "transient fault")
+    for pipeline, name in (("on", "pipelined"), ("off", "serial")):
+        paths[f"daemon {name}, 64 synth 4096, b_max 16"] = run_daemon(
+            direct["bucketed"], pipeline)
+    print(f"  phases 19-21 took {time.perf_counter() - t19:.1f} s")
 
     kernels[0]["batched"] = batched_rows
     kernels[1]["batched"] = batched_heavy

@@ -17,9 +17,15 @@ card unless the caller passes ``device="cpu"``, which runs the kernels'
 plain PyTorch versions.  Coarse phases of the bucketed engine build their
 plans on the card (device re-binning).  ``louvain_many`` clusters a batch
 of same-class graphs at once (``louvain/batched.py``), every tenant
-folded into one id space so that each kernel launch covers the batch.
+folded into one id space so that each kernel launch covers the batch;
+``cluster_packed`` runs small graphs packed two or more to a row of a
+larger class (sub-row packing).  ``cuvite_tpu_torch.serve`` is the serving
+layer on top (``LouvainServer``, admission, faults, the pipelined
+dispatcher and the socket daemon; ``python -m cuvite_tpu_torch.serve
+demo|cluster-many|daemon``, with ``--device cpu`` for the CPU).
 Not ported yet: multi-GPU, the ``szT`` size channel, the RGG ``-e`` extra
-edges, sub-row packing, the serving daemon and streaming.
+edges, streaming (the daemon's ``delta`` verb), the flight recorder, the
+concurrency checker's scheduler and the serve benches.
 
 The package imports torch and numpy only; it never imports JAX or
 ``cuvite_tpu``.

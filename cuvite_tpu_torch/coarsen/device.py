@@ -34,8 +34,13 @@ ids and land in their own slab prefix, with one coalesce for the batch
 (``ops/segment.coalesced_runs_batched``: the ``seg_coalesce`` kernel's
 batched form or one folded sort).
 
-Not ported yet: ``grow_slab`` (streaming) and the sub-row lifts (with
-sub-row packing).
+The reference's sub-row lifts (``subrow_renumber``,
+``subrow_compose_labels`` and their ``[B, ...]`` forms, ``:200-266``) have
+no counterpart: the batched engine runs a packed batch as the fold of its
+sub-rows (``louvain/batched.py``), where ``batched_renumber`` over the
+sub-rows gives each its own dense ranks.
+
+Not ported yet: ``grow_slab`` (streaming).
 """
 
 from __future__ import annotations

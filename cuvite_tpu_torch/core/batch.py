@@ -1,5 +1,4 @@
-"""Batched multi-tenant slab packing (port of ``cuvite_tpu/core/batch.py:
-37-220, 454-644``).
+"""Batched multi-tenant slab packing (port of ``cuvite_tpu/core/batch.py``).
 
 Serving many small graphs at once: every graph canonicalizes to a pow2
 slab class ``(nv_pad, ne_pad)`` under the single-shard floors, and B graphs
@@ -25,8 +24,12 @@ What does not carry over, by design:
   vertices (``BatchedBucketPlan.fold``); the reference pads every tenant
   to a common [B, rows, width] geometry.  The geometry (``BucketShape``)
   is still computed, pinned and checked exactly as the reference does.
-- Sub-row packing (``SubRowLayout``, ``pack_subrows``, ``:221-452``) is
-  the next slice's, with the serving daemon.
+
+Sub-row packing (``SubRowLayout``, ``pack_subrows``, ``unpack_subrows``):
+2^k graphs of a small class ride one row of an exactly 2^k times larger
+class, each in its own fence interval of vertex ids and edge slots.  The
+arrays are the reference's, slab for slab; the batched engine runs a
+packed batch as a fold of its sub-rows (``louvain/batched.py``).
 """
 
 from __future__ import annotations
@@ -304,3 +307,193 @@ def fold_slab(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
     src_f = torch.where(src < nv_pad, src + base, b * nv_pad)
     return (src_f.to(torch.int32).reshape(-1),
             (dst + base).to(torch.int32).reshape(-1), w.reshape(-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class SubRowLayout:
+    """The sub-row geometry of a packed row: ``n_sub`` sub-rows of the
+    class ``sub_class`` in one row of ``row_class``."""
+
+    n_sub: int        # pow2 >= 2 sub-rows per packed row
+    sub_class: tuple  # (nv_sub, ne_sub): the small class being packed
+
+    def __post_init__(self):
+        n = self.n_sub
+        if n < 2 or (n & (n - 1)):
+            raise ValueError(f"SubRowLayout: n_sub={n} must be a pow2 >= 2")
+
+    @property
+    def nv_sub(self) -> int:
+        return int(self.sub_class[0])
+
+    @property
+    def ne_sub(self) -> int:
+        return int(self.sub_class[1])
+
+    @property
+    def row_class(self) -> tuple:
+        """The packed row's slab class: ``n_sub`` times the sub class in
+        both dimensions."""
+        return (self.n_sub * self.nv_sub, self.n_sub * self.ne_sub)
+
+    def vertex_offset(self, s: int) -> int:
+        return s * self.nv_sub
+
+    def edge_offset(self, s: int) -> int:
+        return s * self.ne_sub
+
+    def vertex_fences(self) -> tuple:
+        """The ``n_sub + 1`` vertex-id seams; sub-row ``s`` owns the ids
+        ``[fences[s], fences[s+1])``, and its community ids stay inside
+        them at every phase."""
+        return tuple(s * self.nv_sub for s in range(self.n_sub + 1))
+
+
+def subrow_layout_for(sub_class: tuple,
+                      row_class: tuple) -> SubRowLayout | None:
+    """The layout packing ``sub_class`` rows into ``row_class`` rows, or
+    None unless the classes are an exact pow2 ratio >= 2 in both
+    dimensions."""
+    nv_s, ne_s = sub_class
+    nv_r, ne_r = row_class
+    if nv_s <= 0 or ne_s <= 0 or nv_r % nv_s or ne_r % ne_s:
+        return None
+    n = nv_r // nv_s
+    if n < 2 or (n & (n - 1)) or ne_r // ne_s != n:
+        return None
+    return SubRowLayout(n_sub=n, sub_class=(int(nv_s), int(ne_s)))
+
+
+@dataclasses.dataclass
+class PackedSubRows:
+    """B packed rows of ``layout.row_class``, each holding up to
+    ``layout.n_sub`` small-class graphs at the layout's offsets.
+
+    The slab follows :class:`BatchedSlab` at the row class (src padding
+    == row nv_pad, dst and w padding 0); everything per graph is
+    ``[b_pad, n_sub]``.  Job j sits at ``(j // n_sub, j % n_sub)``."""
+
+    src: np.ndarray        # [b_pad, ne_pad] int32 (row class)
+    dst: np.ndarray        # [b_pad, ne_pad] int32
+    w: np.ndarray          # [b_pad, ne_pad] float32
+    real_mask: np.ndarray  # [b_pad, nv_pad] bool
+    constants: np.ndarray  # [b_pad, n_sub] f32 1/(2m) (0 on empty ones)
+    sub_valid: np.ndarray  # [b_pad, n_sub] bool
+    nv_real: np.ndarray    # [b_pad, n_sub] int64
+    ne_real: np.ndarray    # [b_pad, n_sub] int64
+    tw2: np.ndarray        # [b_pad, n_sub] float64
+    layout: SubRowLayout
+    n_jobs: int
+
+    @property
+    def b_pad(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def nv_pad(self) -> int:
+        return int(self.layout.row_class[0])
+
+    @property
+    def ne_pad(self) -> int:
+        return int(self.layout.row_class[1])
+
+    @property
+    def slab_class(self) -> tuple:
+        return self.layout.row_class
+
+    @property
+    def row_valid(self) -> np.ndarray:
+        return self.sub_valid.any(axis=1)
+
+    @property
+    def pack_util(self) -> float:
+        """Fraction of batch rows carrying at least one real job."""
+        return float(self.row_valid.sum()) / max(self.b_pad, 1)
+
+    @property
+    def subrow_util(self) -> float:
+        """Real graphs over the batch's sub-row capacity."""
+        return self.n_jobs / max(self.b_pad * self.layout.n_sub, 1)
+
+
+def pack_subrows(graphs, layout: SubRowLayout, *,
+                 b_pad: int | None = None) -> PackedSubRows:
+    """Pack small-class graphs into sub-rows of ``layout.row_class`` rows
+    (job j -> row ``j // n_sub``, sub-row ``j % n_sub``).
+
+    Every graph must fit ``layout.sub_class``.  Each sub-row is the
+    graph's own single-shard slab at the sub class, its vertex ids
+    shifted by ``vertex_offset(s)`` and its padding rows renamed to the
+    row's sentinel (src == row nv_pad)."""
+    if not graphs:
+        raise ValueError("pack_subrows: empty graph list")
+    nv_sub, ne_sub = layout.sub_class
+    nv_pad, ne_pad = layout.row_class
+    n_sub = layout.n_sub
+    too_big = [c for c in sorted({slab_class_of(g) for g in graphs})
+               if c[0] > nv_sub or c[1] > ne_sub]
+    if too_big:
+        raise ValueError(
+            f"pack_subrows: graphs of classes {too_big} do not fit the "
+            f"sub class {layout.sub_class}")
+
+    n = len(graphs)
+    rows = -(-n // n_sub)
+    bp = batch_pad(rows) if b_pad is None else int(b_pad)
+    if bp < rows:
+        raise ValueError(f"pack_subrows: b_pad={bp} < {rows} packed rows")
+    src = np.full((bp, ne_pad), nv_pad, dtype=np.int32)
+    dst = np.zeros((bp, ne_pad), dtype=np.int32)
+    w = np.zeros((bp, ne_pad), dtype=np.float32)
+    real_mask = np.zeros((bp, nv_pad), dtype=bool)
+    constants = np.zeros((bp, n_sub), dtype=np.float32)
+    sub_valid = np.zeros((bp, n_sub), dtype=bool)
+    nv_real = np.zeros((bp, n_sub), dtype=np.int64)
+    ne_real = np.zeros((bp, n_sub), dtype=np.int64)
+    tw2 = np.zeros((bp, n_sub), dtype=np.float64)
+
+    for j, g in enumerate(graphs):
+        i, s = j // n_sub, j % n_sub
+        nv, ne = g.num_vertices, g.num_edges
+        voff, eoff = layout.vertex_offset(s), layout.edge_offset(s)
+        # Real edges shift into the sub-row's fence interval; the
+        # sub-row's padding keeps the row sentinel and dst = w = 0.
+        src[i, eoff:eoff + ne] = np.repeat(
+            np.arange(nv, dtype=np.int32), g.degrees()) + np.int32(voff)
+        dst[i, eoff:eoff + ne] = g.tails.astype(np.int32) + np.int32(voff)
+        w[i, eoff:eoff + ne] = g.weights
+        real_mask[i, voff:voff + nv] = True
+        t2 = g.total_edge_weight_twice()
+        if t2 <= 0:
+            raise ValueError(
+                f"pack_subrows: graph {j} has no edge weight (edgeless "
+                "graphs are answered inline, as in louvain_many)")
+        constants[i, s] = np.float32(1.0 / t2)
+        sub_valid[i, s] = True
+        nv_real[i, s] = nv
+        ne_real[i, s] = ne
+        tw2[i, s] = t2
+
+    return PackedSubRows(
+        src=src, dst=dst, w=w, real_mask=real_mask, constants=constants,
+        sub_valid=sub_valid, nv_real=nv_real, ne_real=ne_real, tw2=tw2,
+        layout=layout, n_jobs=n,
+    )
+
+
+def unpack_subrows(packed: PackedSubRows, comm_all: np.ndarray,
+                   prev_mod: np.ndarray) -> list:
+    """Each job's ``(labels int64 [nv_real], Q)`` from a packed run's
+    final state: ``comm_all`` [b_pad, nv_pad] composed labels at the
+    pack-time offsets and ``prev_mod`` [b_pad, n_sub] per-sub-row Q.
+    A job's labels are its sub-row's slice minus the vertex offset."""
+    out = []
+    lay = packed.layout
+    for j in range(packed.n_jobs):
+        i, s = j // lay.n_sub, j % lay.n_sub
+        voff = lay.vertex_offset(s)
+        nv = int(packed.nv_real[i, s])
+        labels = np.asarray(
+            comm_all[i, voff:voff + nv], dtype=np.int64) - voff
+        out.append((labels, float(prev_mod[i, s])))
+    return out

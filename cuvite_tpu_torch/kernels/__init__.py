@@ -1,0 +1,26 @@
+"""The hand-written CUDA kernels and their plain PyTorch twins.
+
+Each wrapper counts the launches of its kernel in its ``launches``
+attribute (a launch on a CUDA tensor, never a twin call);
+:func:`launch_counts` reads the three counts and
+:func:`zero_launch_counts` resets them.
+"""
+
+
+def _wrappers() -> dict:
+    from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
+    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
+    from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
+
+    return {"row_argmax": row_argmax, "heavy_bincount": heavy_argmax,
+            "seg_coalesce": seg_coalesce}
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the counts were last zeroed."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def zero_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

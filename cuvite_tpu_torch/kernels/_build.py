@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -33,6 +34,9 @@ NVCC_TIMEOUT_S = 600
 
 # Loaded library handles, by source name: the package's only global state.
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Serializes builds and loads: the serving daemon's threads may all reach
+# a kernel first, and each library must be built and loaded once.
+_LOCK = threading.RLock()
 # nvcc's output (ptxas register and shared-memory report) per built source.
 BUILD_LOG: dict[str, str] = {}
 
@@ -67,6 +71,11 @@ def build(names=SOURCES) -> float:
     """Compile every library of ``names`` that is not built yet, all nvcc
     processes at once.  Returns the seconds spent; raises with nvcc's
     output if any source fails."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names) -> float:
     t0 = time.perf_counter()
     todo = [(n, library_path(n)) for n in names
             if not library_path(n).exists()]
@@ -107,13 +116,17 @@ def library(name: str, signature) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use.
     ``signature`` maps each C function to ``(argtypes, restype)``."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (argtypes, restype) in signature.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in signature.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _LIBS[name] = lib
     return lib
 
 

@@ -1,5 +1,5 @@
 """Batched multi-tenant Louvain on one device (port of
-``cuvite_tpu/louvain/batched.py:101-470, 554-1036, 1184-1355``).
+``cuvite_tpu/louvain/batched.py``).
 
 Serving many small graphs: B graphs of one slab class (``core/batch.py``)
 run as one batch.  Every tenant is folded into one id space -- tenant b's
@@ -49,15 +49,48 @@ What does not carry over, by design:
   ``BATCH_AXIS``): multi-GPU work, ``ROADMAP.md`` item 14.  ``mesh=None``
   and ``mesh="auto"`` resolve to the one device; any other value raises.
 - The accumulator binning of ``accum_class_of``: the port sums in f64 for
-  every graph, so every graph is one class (``"float64"``).
-- The tracer and its stages, the sub-row engine (``_subrow_phase_body``,
-  ``prepare_packed``, ``cluster_packed``: the next slice, with the
-  serving daemon) and the ``msd``/``hash`` coalesce engines.
+  every graph, so every graph is one class (``"float64"``).  The serving
+  queue still bins by the reference's tag (``serve/queue.py::
+  accum_tag``), which now decides binning only.
+- The ``msd``/``hash`` coalesce engines.
+
+Merged batches (``pack_subrow_many``, ``prepare_packed``,
+``cluster_packed``, reference ``:239-470, 772-822, 1038-1170,
+1264-1305``).  A packed row holds ``n_sub`` small graphs of the sub class
+(``core/batch.py::pack_subrows``); vertex v of sub-row s of row r has the
+id ``r * (n_sub * nv_sub) + s * nv_sub + v``, which is this engine's fold
+``t * nv_pad + v`` with tenant ``t = r * n_sub + s`` and
+``nv_pad = nv_sub``.  So a merged batch runs as a batch of
+``b_pad * n_sub`` tenants at the sub class, through the same phases,
+kernels and per-tenant stops as a plain batch (the reference's
+``_subrow_phase_body``, ``_subrow_phase_tail`` and
+``_shrink_subrow_batch`` are ``_phase_body``, ``_phase_tail`` and
+``_shrink_batch`` of that fold), and each sub-row freezes on its own
+criterion.  ``BatchResult`` reports the packed geometry: ``b_pad`` rows of
+the row class, ``n_sub``, and the coarse class scaled to the row.  The
+engine is the caller's (``engine=``; the reference's packed engine is the
+sort formulation, ``'fused'`` here); the reference refuses ds32-scale
+tenants from packed rows, which the port's f64 sums do not need.
+
+Uploads.  :func:`prepare_batch` uploads on the caller's stream.  With
+``side_stream=True`` (the pipelined serving dispatcher's packer,
+``serve/pipeline.py``) it uploads on the card from pinned host memory on
+a side stream of its own and records an event, which
+:func:`execute_prepared` makes its stream wait on: a batch packed on the
+packer thread then overlaps the previous batch's execution (the default
+stream is shared by every thread, and an upload from pageable memory is
+synchronous).  The batch's device buffers are allocated on the side
+stream and stay referenced by the ``PreparedBatch`` until its execution
+has read the labels back, so the caching allocator cannot hand them to
+the next pack while they are read.  Execution writes nothing into the
+prepared buffers: a retry re-runs the same uploaded batch bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -77,9 +110,12 @@ from cuvite_tpu_torch.coarsen.rebin import (
 from cuvite_tpu_torch.core.batch import (
     BATCH_ENGINES,
     BatchedSlab,
+    PackedSubRows,
+    SubRowLayout,
     batch_bucket_plans,
     batch_slabs,
     fold_slab,
+    pack_subrows,
 )
 from cuvite_tpu_torch.core.device import resolve_device
 from cuvite_tpu_torch.core.types import (
@@ -93,6 +129,7 @@ from cuvite_tpu_torch.louvain.bucketed import DevicePlan, bucketed_step
 from cuvite_tpu_torch.louvain.step import louvain_step_local
 from cuvite_tpu_torch.obs.convergence import decode_phase_conv
 from cuvite_tpu_torch.ops.segment import TenantConstants
+from cuvite_tpu_torch.utils.trace import NullTracer
 
 # Serving-coarse slab-class floors of the bucketed engine's one-notch
 # shrink after phase 0 (reference ``:395-396``).
@@ -307,6 +344,8 @@ class BatchResult:
     coalesce: list = dataclasses.field(default_factory=list)
     # Sweeps of each batch phase (its slowest tenant's).
     sweeps: list = dataclasses.field(default_factory=list)
+    # Sub-rows per row: 1 for a plain batch, the layout's for a merged one.
+    n_sub: int = 1
 
     @property
     def pack_util(self) -> float:
@@ -344,40 +383,81 @@ class PreparedBatch:
     slab: _Slab
     plan: DevicePlan | None = None   # phase-0 folded plan, bucketed only
     pack_s: float = 0.0
+    # The upload's event on the side stream (card only, module note).
+    ready: object = None
+    # A merged batch: its sub-row layout and packed row count (the
+    # fields above describe the fold of its sub-rows).
+    layout: SubRowLayout | None = None
+    rows: int = 0
+
+
+# One upload stream per card (module note), made on first use.
+_UPLOAD_STREAMS: dict = {}
+_UPLOAD_LOCK = threading.Lock()
+
+
+def _upload_stream(dev: torch.device):
+    with _UPLOAD_LOCK:
+        idx = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        stream = _UPLOAD_STREAMS.get(idx)
+        if stream is None:
+            stream = _UPLOAD_STREAMS[idx] = torch.cuda.Stream(idx)
+    return stream
 
 
 def prepare_batch(batch: BatchedSlab, *, mesh="auto", engine: str = "fused",
-                  bucket_shape=None, device=None) -> PreparedBatch:
+                  bucket_shape=None, device=None, tracer=None,
+                  side_stream: bool = False) -> PreparedBatch:
     """The pack half of :func:`run_batched`: the phase-0 plans
     (``engine='bucketed'``, built on the host and folded) and the upload
-    of the slab and the plans."""
+    of the slab and the plans (``side_stream`` on the card: pinned
+    memory, a side stream and an event, module note)."""
     if engine not in BATCH_ENGINES:
         raise ValueError(f"unknown batched engine {engine!r}; "
                          f"use one of {BATCH_ENGINES}")
     _resolve_mesh(mesh)
     dev = resolve_device(device)
+    tracer = tracer if tracer is not None else NullTracer()
     t0 = time.perf_counter()
     nv_pad = batch.nv_pad
-    plan = None
+    host_plan = None
     if engine == "bucketed":
-        plan = DevicePlan.upload(
-            batch_bucket_plans(batch, shape=bucket_shape).fold(), dev)
+        with tracer.stage("plan"):
+            host_plan = batch_bucket_plans(batch, shape=bucket_shape).fold()
+    side = side_stream and dev.type == "cuda"
+    stream = _upload_stream(dev) if side else None
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if side:
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
 
     b = batch.b_pad
-    slab = _Slab(
-        src=put(batch.src), dst=put(batch.dst), w=put(batch.w),
-        real_mask=put(batch.real_mask),
-        comm_all=torch.arange(nv_pad, dtype=torch.int32,
-                              device=dev).repeat(b).view(b, nv_pad))
+    ready = None
+    with tracer.stage("upload"), (torch.cuda.stream(stream) if side
+                                  else contextlib.nullcontext()):
+        plan = (None if host_plan is None
+                else DevicePlan.upload(host_plan, dev))
+        slab = _Slab(
+            src=put(batch.src), dst=put(batch.dst), w=put(batch.w),
+            real_mask=put(batch.real_mask),
+            comm_all=torch.arange(nv_pad, dtype=torch.int32,
+                                  device=dev).repeat(b).view(b, nv_pad))
+        if side:
+            ready = torch.cuda.Event()
+            ready.record(stream)
+    if side:
+        # The pack window ends with the upload done (the pinned buffers
+        # are free to go); the executor still orders itself after it.
+        ready.synchronize()
     return PreparedBatch(
         b_pad=b, nv_pad=nv_pad, ne_pad=batch.ne_pad, n_jobs=batch.n_jobs,
         slab_class=batch.slab_class, nv_real=batch.nv_real.copy(),
         ne_real=batch.ne_real.copy(), row_valid=batch.row_valid.copy(),
         tw2=batch.tw2.copy(), engine=engine, device=dev, slab=slab,
-        plan=plan, pack_s=time.perf_counter() - t0)
+        plan=plan, pack_s=time.perf_counter() - t0, ready=ready)
 
 
 def _coarse_engine(engine: str, nv: int, ne: int) -> str:
@@ -390,9 +470,32 @@ def _coarse_engine(engine: str, nv: int, ne: int) -> str:
 
 def execute_prepared(prep: PreparedBatch, *, threshold: float = 1.0e-6,
                      max_phases: int = TERMINATION_PHASE_COUNT,
-                     verbose: bool = False) -> BatchResult:
+                     tracer=None, verbose: bool = False) -> BatchResult:
     """The execute half of :func:`run_batched`: the phases, one batch
-    coarsening after each, and one final label gather."""
+    coarsening after each, and one final label gather.  Re-runnable: the
+    prepared buffers are only read, so a retry gives the same bits.  A
+    merged batch (``prep.layout``) runs as the fold of its sub-rows and
+    reports the packed geometry."""
+    tracer = tracer if tracer is not None else NullTracer()
+    if prep.ready is not None:
+        torch.cuda.current_stream(prep.device).wait_event(prep.ready)
+    with tracer.stage("iterate"):
+        br = _execute_fold(prep, threshold=threshold,
+                           max_phases=max_phases, verbose=verbose)
+    if prep.layout is not None:
+        n_sub = prep.layout.n_sub
+        br.b_pad = prep.rows
+        br.slab_class = prep.layout.row_class
+        br.n_sub = n_sub
+        if br.coarse_class is not None:
+            br.coarse_class = (n_sub * br.coarse_class[0],
+                               n_sub * br.coarse_class[1])
+    return br
+
+
+def _execute_fold(prep: PreparedBatch, *, threshold: float,
+                  max_phases: int, verbose: bool) -> BatchResult:
+    """The phases of a prepared batch over its folded tenants."""
     from cuvite_tpu_torch.louvain.driver import LouvainResult, PhaseStats
 
     t0 = time.perf_counter()
@@ -484,6 +587,38 @@ def execute_prepared(prep: PreparedBatch, *, threshold: float = 1.0e-6,
         sweeps=sweeps)
 
 
+def prepare_packed(packed: PackedSubRows, *, mesh="auto",
+                   engine: str = "fused", device=None, tracer=None,
+                   side_stream: bool = False) -> PreparedBatch:
+    """The pack half of a merged batch: the packed rows as the fold of
+    their sub-rows -- ``b_pad * n_sub`` tenants of the sub class, each
+    sub-row's ids and padding back at its own offset 0 -- prepared as a
+    plain batch of ``engine``, with the layout recorded."""
+    lay = packed.layout
+    n_sub, (nv_sub, ne_sub) = lay.n_sub, lay.sub_class
+    bt = packed.b_pad * n_sub
+    src = packed.src.reshape(bt, ne_sub)
+    pad = src >= packed.nv_pad
+    base = (np.arange(bt, dtype=np.int32) % n_sub * nv_sub)[:, None]
+    batch = BatchedSlab(
+        src=np.where(pad, nv_sub, src - base).astype(np.int32),
+        dst=np.where(pad, 0, packed.dst.reshape(bt, ne_sub)
+                     - base).astype(np.int32),
+        w=packed.w.reshape(bt, ne_sub),
+        real_mask=packed.real_mask.reshape(bt, nv_sub),
+        constant=packed.constants.reshape(bt),
+        row_valid=packed.sub_valid.reshape(bt),
+        nv_real=packed.nv_real.reshape(bt),
+        ne_real=packed.ne_real.reshape(bt),
+        tw2=packed.tw2.reshape(bt),
+        nv_pad=nv_sub, ne_pad=ne_sub, n_jobs=packed.n_jobs)
+    prep = prepare_batch(batch, mesh=mesh, engine=engine, device=device,
+                         tracer=tracer, side_stream=side_stream)
+    prep.layout = lay
+    prep.rows = packed.b_pad
+    return prep
+
+
 def run_batched(batch: BatchedSlab, *, threshold: float = 1.0e-6,
                 max_phases: int = TERMINATION_PHASE_COUNT, mesh="auto",
                 verbose: bool = False, engine: str = "fused",
@@ -517,16 +652,20 @@ class PreparedMany:
 def pack_many(graphs, *, b_pad: int | None = None,
               slab_class: tuple | None = None, mesh="auto",
               engine: str = "fused", bucket_shape=None,
-              device=None) -> PreparedMany:
+              device=None, tracer=None,
+              side_stream: bool = False) -> PreparedMany:
     """The pack stage of :func:`cluster_many`: edgeless split, slab
-    stacking, plans and upload."""
+    stacking, plans and upload (``side_stream``: :func:`prepare_batch`)."""
+    tracer = tracer if tracer is not None else NullTracer()
     edgeless = {i for i, g in enumerate(graphs) if g.num_edges == 0}
     packed = [g for i, g in enumerate(graphs) if i not in edgeless]
     prep = None
     if packed:
-        batch = batch_slabs(packed, b_pad=b_pad, slab_class=slab_class)
+        with tracer.stage("plan"):
+            batch = batch_slabs(packed, b_pad=b_pad, slab_class=slab_class)
         prep = prepare_batch(batch, mesh=mesh, engine=engine,
-                             bucket_shape=bucket_shape, device=device)
+                             bucket_shape=bucket_shape, device=device,
+                             tracer=tracer, side_stream=side_stream)
     else:
         if engine not in BATCH_ENGINES:
             raise ValueError(f"unknown batched engine {engine!r}; "
@@ -537,17 +676,62 @@ def pack_many(graphs, *, b_pad: int | None = None,
                         edgeless=edgeless, prep=prep)
 
 
+def pack_subrow_many(graphs, layout: SubRowLayout, *,
+                     b_pad: int | None = None, mesh="auto",
+                     engine: str = "fused", device=None,
+                     tracer=None, side_stream: bool = False) -> PreparedMany:
+    """The pack stage of a merged batch: edgeless split, sub-row packing
+    (``core/batch.py::pack_subrows``) and :func:`prepare_packed`.  The
+    result is the :class:`PreparedMany` of :func:`pack_many`, which
+    :func:`execute_many` runs the same way."""
+    tracer = tracer if tracer is not None else NullTracer()
+    if engine not in BATCH_ENGINES:
+        raise ValueError(f"unknown batched engine {engine!r}; "
+                         f"use one of {BATCH_ENGINES}")
+    edgeless = {i for i, g in enumerate(graphs) if g.num_edges == 0}
+    packed_graphs = [g for i, g in enumerate(graphs) if i not in edgeless]
+    prep = None
+    if packed_graphs:
+        with tracer.stage("plan"):
+            packed = pack_subrows(packed_graphs, layout, b_pad=b_pad)
+        prep = prepare_packed(packed, mesh=mesh, engine=engine,
+                              device=device, tracer=tracer,
+                              side_stream=side_stream)
+    else:
+        _resolve_mesh(mesh)
+        resolve_device(device)
+    return PreparedMany(graphs_nv=[g.num_vertices for g in graphs],
+                        edgeless=edgeless, prep=prep)
+
+
+def cluster_packed(graphs, layout: SubRowLayout, *,
+                   threshold: float = 1.0e-6,
+                   max_phases: int = TERMINATION_PHASE_COUNT,
+                   b_pad: int | None = None, mesh="auto", tracer=None,
+                   verbose: bool = False, engine: str = "fused",
+                   device=None) -> BatchResult:
+    """Pack small-class graphs as sub-rows of ``layout.row_class`` rows and
+    run them as one merged batch: the packed analog of
+    :func:`cluster_many` (in-order results, edgeless graphs answered
+    inline).  Each graph's labels and Q equal its own B=1 run's."""
+    pm = pack_subrow_many(graphs, layout, b_pad=b_pad, mesh=mesh,
+                          engine=engine, device=device, tracer=tracer)
+    return execute_many(pm, threshold=threshold, max_phases=max_phases,
+                        tracer=tracer, verbose=verbose)
+
+
 def execute_many(pm: PreparedMany, *, threshold: float = 1.0e-6,
                  max_phases: int = TERMINATION_PHASE_COUNT,
-                 verbose: bool = False) -> BatchResult:
-    """The execute stage of :func:`cluster_many`: the prepared batch, and
-    the in-order results with the edgeless jobs answered inline (every
-    vertex its own community, Q = 0)."""
+                 tracer=None, verbose: bool = False) -> BatchResult:
+    """The execute stage of :func:`cluster_many` (and of a merged batch):
+    the prepared batch, and the in-order results with the edgeless jobs
+    answered inline (every vertex its own community, Q = 0)."""
     from cuvite_tpu_torch.louvain.driver import LouvainResult
 
     if pm.prep is not None:
         br = execute_prepared(pm.prep, threshold=threshold,
-                              max_phases=max_phases, verbose=verbose)
+                              max_phases=max_phases, tracer=tracer,
+                              verbose=verbose)
     else:
         br = BatchResult(results=[], wall_s=0.0, n_phases=0, b_pad=0,
                          n_jobs=0, slab_class=(0, 0))

@@ -1,0 +1,51 @@
+"""cuvite_tpu_torch.serve: the multi-tenant serving layer on one CUDA card
+(port of ``cuvite_tpu/serve/``).
+
+A slab-class serving queue in front of the batched driver
+(``louvain/batched.py``): jobs bin by their pow2 slab class with
+per-tenant fairness sub-queues, pack into batches of up to ``b_max`` with
+a linger deadline (or, with ``merge_packing``, as fenced sub-rows of a
+larger served class), run as one batch on the card and unpack into
+per-tenant ``LouvainResult``s.  Around it: SLO-projected admission
+control with ``retry_after_s`` rejections and the measured-service b_max
+autotuner (``admission.py``), deadline shedding, deterministic fault
+injection with bounded retry (``faults.py``), a socket daemon with a
+graceful SIGTERM drain (``daemon.py``), the two-stage pipelined
+dispatcher (``pipeline.py``), and an open-loop load generator
+(``loadgen.py``).  Every deadline runs on the injectable clock
+(``clock.py``); every lock, event and thread comes from ``sync.py``.
+
+    python -m cuvite_tpu_torch.serve demo --jobs 64 --b-max 64
+    python -m cuvite_tpu_torch.serve cluster-many a.vite b.vite ...
+    python -m cuvite_tpu_torch.serve daemon --socket /tmp/cuvite.sock
+
+Not ported yet: streaming (the daemon's ``delta`` verb is refused,
+``ROADMAP.md`` queue A item 6), the flight recorder (item 8), the
+concurrency checker's cooperative scheduler (item 9) and the serve
+benches (item 1).
+"""
+
+from cuvite_tpu_torch.serve.admission import (
+    AdmissionConfig,
+    AdmissionController,
+    AdmissionReject,
+    AutotuneConfig,
+    BmaxAutotuner,
+)
+from cuvite_tpu_torch.serve.daemon import ServeDaemon
+from cuvite_tpu_torch.serve.faults import FaultPlan, InjectedFault
+from cuvite_tpu_torch.serve.pipeline import PipelinedDispatcher
+from cuvite_tpu_torch.serve.queue import (
+    Job,
+    LouvainServer,
+    PackedBatch,
+    ServeConfig,
+    ServeStats,
+)
+
+__all__ = [
+    "AdmissionConfig", "AdmissionController", "AdmissionReject",
+    "AutotuneConfig", "BmaxAutotuner", "FaultPlan", "InjectedFault",
+    "Job", "LouvainServer", "PackedBatch", "PipelinedDispatcher",
+    "ServeConfig", "ServeDaemon", "ServeStats",
+]

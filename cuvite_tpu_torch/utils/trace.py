@@ -1,0 +1,134 @@
+"""Stage timers, counters and the span/event seam (port of
+``cuvite_tpu/utils/trace.py:21-255``: ``rss_high_water_mb``, ``Tracer``,
+``NullTracer``).
+
+A :class:`Tracer` accumulates named stage timers (host wall clock) and
+counters.  Its span and event calls -- the serving queue's ``pack`` and
+``execute`` spans and its ``admit``, ``reject``, ``shed``, ``retry``,
+``autotune`` and ``tenant_result`` events -- go to an attached recorder
+and are no-ops without one.  The reference's recorder is its flight
+recorder (``obs/recorder.py``, a JSONL trace behind ``--trace-out``),
+which is not ported yet (``ROADMAP.md`` queue A item 8); any object with
+an ``emitter`` (``begin(name, **attrs)`` -> handle, ``end(handle,
+**attrs)``, ``event(name, **attrs)``) plugs in.
+
+Not ported: the memory-ledger and phase-tag forwarding of the flight
+recorder (``track``, ``ledger_*``, ``set_phase``, item 8), and
+``dist_stats_report`` and ``ShardDiag`` (multi-shard diagnostics, item
+7).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import resource
+import time
+
+
+def rss_high_water_mb() -> float:
+    """Peak resident set size of this process in MiB (getrusage)."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    # ru_maxrss is KiB on Linux.
+    return ru.ru_maxrss / 1024.0
+
+
+class Tracer:
+    """Accumulating named stage timers and counters, and the facade over
+    an optional recorder (module note).
+
+    Usage::
+
+        tr = Tracer()
+        with tr.stage("load"):
+            ...
+        tr.count("iterations", n)
+        print(tr.report())
+    """
+
+    # Stage names the drivers use, in pipeline order: always present in
+    # :meth:`breakdown` (0.0 when the stage never ran).
+    CANONICAL_STAGES = ("coarsen", "coalesce", "rebin", "upload",
+                        "iterate")
+
+    def __init__(self, enabled: bool = True, recorder=None):
+        # A recorder implies recording: its spans report stage times.
+        self.enabled = enabled or recorder is not None
+        self.recorder = recorder
+        self.emitter = recorder.emitter if recorder is not None else None
+        self.times: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
+        self.counters: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        em = self.emitter
+        sid = em.begin(name) if em is not None else None
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            if em is not None:
+                em.end(sid, dur_s=dt)
+            self.times[name] = self.times.get(name, 0.0) + dt
+            self.calls[name] = self.calls.get(name, 0) + 1
+
+    def count(self, name: str, value: float = 1) -> None:
+        if self.enabled:
+            self.counters[name] = self.counters.get(name, 0) + value
+
+    # -- recorder facade (no-ops without an attached recorder) --------------
+
+    def event(self, name: str, **attrs) -> None:
+        """A point event in the structured trace."""
+        if self.emitter is not None:
+            self.emitter.event(name, **attrs)
+
+    def begin_span(self, name: str, **attrs):
+        """Open a span whose extent is not a ``with`` block; returns a
+        handle for :meth:`end_span`."""
+        if self.emitter is not None:
+            return self.emitter.begin(name, **attrs)
+        return None
+
+    def end_span(self, handle, **attrs) -> None:
+        if self.emitter is not None and handle is not None:
+            self.emitter.end(handle, **attrs)
+
+    def breakdown(self) -> dict:
+        """Per-stage seconds, full precision: ``<stage>_s`` for every
+        CANONICAL_STAGES entry and every other recorded stage."""
+        out = {k + "_s": self.times.get(k, 0.0)
+               for k in self.CANONICAL_STAGES}
+        for k, v in sorted(self.times.items()):
+            out.setdefault(k + "_s", v)
+        return out
+
+    def teps(self) -> float:
+        """Traversed edges per second: counter 'traversed_edges' over the
+        'iterate' stage's wall time."""
+        t = self.times.get("iterate", 0.0)
+        return self.counters.get("traversed_edges", 0.0) / t if t else 0.0
+
+    def report(self) -> str:
+        lines = ["stage breakdown (s):"]
+        total = sum(self.times.values())
+        for name, t in sorted(self.times.items(), key=lambda kv: -kv[1]):
+            lines.append(
+                f"  {name:<16} {t:9.3f}  ({self.calls[name]}x, "
+                f"{100.0 * t / total if total else 0.0:4.1f}%)"
+            )
+        for name, v in sorted(self.counters.items()):
+            lines.append(f"  {name:<16} {v:g}")
+        if self.counters.get("traversed_edges"):
+            lines.append(f"  TEPS (wall)      {self.teps():.4g}")
+        lines.append(f"  rss high-water   {rss_high_water_mb():.0f} MiB")
+        return "\n".join(lines)
+
+
+class NullTracer(Tracer):
+    def __init__(self):
+        super().__init__(enabled=False)

@@ -1,17 +1,25 @@
-"""A/B timing of the port's one-graph kernel paths between two trees of
-this repo, on one CUDA card.
+"""A/B timing of the port's one-graph kernel paths, or of its serving
+batches, between two trees of this repo, on one CUDA card.
 
     python3 kernel_ab.py OLD_TREE NEW_TREE [--pairs 3] [--scale 20]
+    python3 kernel_ab.py TREE TREE [TREE ...] --many [--pairs 3] [--reps 5]
 
 Each tree's ``cuvite_tpu_torch`` runs in its own process (its kernels
-built from its own sources under its own ``build/``), OLD, NEW, OLD,
-NEW, ...  Each process prints one JSON line: at the phase-0 shapes of
+built from its own sources under its own ``build/``), the trees in turn,
+``--pairs`` rounds: OLD, NEW, OLD, NEW, ...  Each process prints one JSON
+line: at the phase-0 shapes of
 R-MAT ``--scale`` (bucketed engine, identity assignment) the row
 kernel's class launches of one sweep, one whole ``bucketed_step`` sweep
 and the heavy launch, and the dense coalesce (kernel and emission) of a
 22,059-row slab at nv_pad 4096, the shape of the RGG 4,194,304 sort
 path's first dense coarsening; CUDA events, the median of 7 blocks of 20
 calls; and the host time to enqueue one sweep.
+
+``--many`` times ``louvain_many`` instead, on the serving batches of
+``chip_smoke.py`` phase 17: B=64 synth 4096 and B=64 synth 65536 jobs
+(``many_seed(1, k)``), both engines, one warm-up call and then the
+median and the list of ``--reps`` calls' host wall seconds (the card
+drained before and after each) and of their ``pack_s``.
 """
 
 from __future__ import annotations
@@ -100,22 +108,59 @@ def measure(root: str, scale: int) -> dict:
     }
 
 
+def measure_many(root: str, reps: int) -> dict:
+    """One tree's louvain_many timings; ``root`` goes first on sys.path."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    out = {"root": root}
+    for edges in (4096, 65536):
+        gs = [synthesize_graph(edges, seed=many_seed(1, k))
+              for k in range(64)]
+        for engine in ("bucketed", "fused"):
+            louvain_many(gs, engine=engine)
+            walls, packs = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                br = louvain_many(gs, engine=engine)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                packs.append(br.pack_s)
+            out[f"B=64 synth {edges} {engine}"] = {
+                "wall_s": statistics.median(walls),
+                "pack_s": statistics.median(packs),
+                "walls_s": walls}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("trees", nargs="*", help="OLD_TREE NEW_TREE")
-    ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("trees", nargs="*", help="OLD_TREE NEW_TREE [...]")
+    ap.add_argument("--pairs", type=int, default=3,
+                    help="rounds over the trees")
     ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--many", action="store_true",
+                    help="time louvain_many on the serving batches")
+    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(measure(args.one, args.scale)), flush=True)
+        out = (measure_many(args.one, args.reps) if args.many
+               else measure(args.one, args.scale))
+        print(json.dumps(out), flush=True)
         return 0
-    if len(args.trees) != 2:
-        ap.error("give OLD_TREE and NEW_TREE")
+    if len(args.trees) < 2:
+        ap.error("give OLD_TREE and NEW_TREE (and more trees to compare)")
     for _ in range(args.pairs):
         for tree in args.trees:
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", tree, "--scale", str(args.scale)],
+                            "--one", tree, "--scale", str(args.scale),
+                            "--reps", str(args.reps)]
+                           + (["--many"] if args.many else []),
                            check=True)
     return 0
 

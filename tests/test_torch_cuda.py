@@ -517,3 +517,84 @@ def test_louvain_many_on_card_matches_cpu(cuda_device, engine):
         assert abs(a.modularity - b.modularity) <= 1e-12
         solo = louvain_many([g], engine=engine, device=cuda_device)
         assert np.array_equal(solo.results[0].communities, a.communities)
+
+
+@pytest.mark.cuda
+def test_kernel_build_and_load_once_under_threads(cuda_device, monkeypatch):
+    """Eight threads reaching an unbuilt, unloaded kernel at once: one
+    nvcc and one load, every thread gets the same library."""
+    import threading
+
+    from cuvite_tpu_torch.kernels import _build
+    from cuvite_tpu_torch.kernels import seg_coalesce as sc
+
+    _build.library_path("seg_coalesce").unlink(missing_ok=True)
+    _build._LIBS.pop("seg_coalesce", None)
+    popens, loads = [], []
+    real_popen, real_cdll = _build.subprocess.Popen, _build.ctypes.CDLL
+    monkeypatch.setattr(_build.subprocess, "Popen",
+                        lambda *a, **k: popens.append(a) or
+                        real_popen(*a, **k))
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda p: loads.append(p) or real_cdll(p))
+    barrier = threading.Barrier(8)
+    libs, errors = [], []
+
+    def reach():
+        try:
+            barrier.wait()
+            libs.append(_build.library("seg_coalesce", sc._SIGNATURE))
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=reach) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors, errors
+    assert len(popens) == 1 and len(loads) == 1
+    assert len(libs) == 8 and all(lib is libs[0] for lib in libs)
+
+
+@pytest.mark.cuda
+def test_pipelined_dispatcher_on_card_matches_cpu(cuda_device):
+    """The pipelined dispatcher on the card: batches packed and uploaded on
+    the packer thread (pinned memory, the side stream, an event), executed
+    on the executor thread; every tenant equals its CPU B=1 run."""
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.louvain.batched import execute_many, pack_many
+    from cuvite_tpu_torch.serve import (
+        LouvainServer,
+        PipelinedDispatcher,
+        ServeConfig,
+    )
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    gs = [synthesize_graph(4096, seed=many_seed(1, k)) for k in range(12)]
+    assert pack_many(gs[:2], engine="bucketed",
+                     device=cuda_device).prep.ready is None
+    pm = pack_many(gs[:2], engine="bucketed", device=cuda_device,
+                   side_stream=True)
+    assert isinstance(pm.prep.ready, torch.cuda.Event)
+    assert pm.prep.slab.src.is_cuda and pm.prep.ready.query()
+    first = execute_many(pm).results
+    again = execute_many(pm).results
+    srv = LouvainServer(ServeConfig(b_max=4, linger_s=0.0,
+                                    engine="bucketed"))
+    pipe = PipelinedDispatcher(srv, poll_s=0.001)
+    assert srv.side_stream_upload
+    pipe.start()
+    ids = [pipe.submit(g) for g in gs]
+    pipe.request_drain()
+    assert pipe.wait_done(timeout=600)
+    got = dict(pipe.results)
+    assert srv.conservation()["ok"] and srv.stats.pipeline_depth == 2
+    assert 0.0 <= srv.stats.overlap_frac <= 1.0
+    for k, (jid, g) in enumerate(zip(ids, gs)):
+        solo = louvain_many([g], engine="bucketed", device="cpu").results[0]
+        assert np.array_equal(got[jid].communities, solo.communities)
+        assert abs(got[jid].modularity - solo.modularity) <= 1e-12
+        if k < 2:
+            assert np.array_equal(first[k].communities, solo.communities)
+            assert np.array_equal(again[k].communities, solo.communities)
