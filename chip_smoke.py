@@ -35,10 +35,15 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    assignment and at the converged phase-0 assignment, beside their twins
    and bounds from the real rows and edges; fails if a padding row reaches
    the row kernel (real rows must equal launched rows in every class);
-7. the seg_coalesce kernel against its twin at nv_pad 64, 1024 and 4096,
-   dyadic and RGG-like float weights, duplicates, heavy self-loop runs,
-   zero-weight rows, gapped ids and padding rows: acc and cnt bit-equal,
-   and the emitted slab bit-equal to the sort engine's;
+7. the seg_coalesce pipeline against its twin at nv_pad 64, 1024 and
+   4096, dyadic and RGG-like float weights, duplicates, heavy self-loop
+   runs, zero-weight rows, gapped ids and padding rows, each coalesced slab
+   bit-equal to the twin's and to the sort engine's; a slab whose real
+   rows all share one src at nv_pad 4096, 16384 and 32768 (a block's
+   dense row in shared memory, in 1, 2 and 4 dst tiles); four tenants
+   whose buckets hold ~800 to ~3,300 rows; a 300-row run of weight 0,
+   three tenants of 16,461 rows, a pure-padding slab and an empty one; then the whole coalesce, one slab and a batch, under
+   torch.cuda.set_sync_debug_mode("error") (no host sync);
 8. louvain_phases(engine="sort") on RGG --rgg-check-nv on the card and on
    the CPU: identical labels, phases and iterations, Q to 1e-9, and at
    least one dense coarsening;
@@ -50,9 +55,12 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    dense coarsening's rows differ from the sort engine's on the same
    relabeled slab (src, dst, count exact; weights at most one f32 ulp);
    then one phase-0 sort sweep timed on the device stream;
-10. seg_coalesce timed at the first dense coarsening of that run beside
-   its twin, the compaction, the whole sort engine, two torch.bincount
-   calls and its bound;
+10. the whole seg_coalesce timed at the first dense coarsening of that
+   run, bit-equal to its twin, beside the twin, the sort engine on the
+   same slab and its bound (the real rows read, the coalesced slab
+   written: no key grid), with the bytes it allocates; then both engines
+   on the run's narrowest sort coarsening, the class above the dense
+   engine's cap, admitted with CUVITE_SEG_COALESCE_MAX_NV;
 11. louvain_phases(engine="fused") on R-MAT --fused-check-scale and RGG
    --rgg-check-nv, on the card and on the CPU, with FUSED_SHRINK_EDGES
    lowered to --fused-shrink so one-phase calls and device coarsenings,
@@ -83,7 +91,8 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    heavy kernel over two tenants' hubs (the 2^18-edge hub among them) in
    one launch, twice, scratch clean, and the batched seg_coalesce over
    four tenants (gapped ids, float weights, one pure padding) in one
-   launch, each tenant's rows equal to the sort engine's;
+   launch, bit-equal to the twin, each tenant's rows equal to the sort
+   engine's;
 16. louvain_many on the reference's job set (two R-MAT 8, two synth
    2048), both engines, card against CPU and each tenant against its own
    B=1 run on the card; louvain_phases (bucketed and fused) on the
@@ -93,8 +102,12 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    (class (4096, 16384)), B=64 of synth 65536 (class (4096, 65536)),
    B=16 of synth 2^20 (class (65536, 2^20)); wall, jobs/s, phases,
    sweeps, engines, launches, peak memory, every tenant's Q within 1e-6
-   of the host f64 modularity; the batched row kernel and seg_coalesce
-   timed at the B=64 synth 65536 batch's shapes beside twins and bounds;
+   of the host f64 modularity; the batched seg_coalesce bit-equal to its
+   twin at the first coarsening of the B=64 synth 4096 and synth 65536
+   batches; the batched row kernel and the whole seg_coalesce timed at
+   the B=64 synth 65536 batch's shapes beside twins, bounds and the sort
+   engine; both engines on the first (sort) coarsening of B=16 synth
+   2^20, the batch above DENSE_BATCH_MAX_SLOTS;
 18. device re-binning on the per-graph bucketed driver: R-MAT
    --check-scale and RGG --rgg-check-nv card against CPU and against
    CUVITE_DEVICE_REBIN=0; each one's phase-1 re-binned plan equal to the
@@ -812,36 +825,138 @@ def coalesce_case(nv_pad: int, ne_pad: int, seed: int, gapped: bool,
     return [torch.from_numpy(a).to(dev) for a in (src, dst, w)]
 
 
+def hot_src_case(nv_pad: int, ne_pad: int, seed: int, dev):
+    """A relabeled slab whose real rows all leave one src (11), the late
+    phase where one community absorbs most vertices: a third of them its
+    self-loop run, the rest to 40 ids spread over [0, nv_pad); dyadic
+    weights, zeros among them; padding after, every row shuffled.  Every
+    real row falls in one bucket: the pipeline's dense row in shared
+    memory, tiled past 8192 dst slots."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_real = ne_pad - ne_pad // 7
+    src = np.full(ne_pad, nv_pad, np.int32)
+    dst = np.zeros(ne_pad, np.int32)
+    w = np.zeros(ne_pad, np.float32)
+    src[:n_real] = 11
+    dst[:n_real] = rng.choice(nv_pad, 40, replace=False)[
+        rng.integers(0, 40, n_real)]
+    dst[: n_real // 3] = 11
+    w[:n_real] = rng.integers(0, 16, n_real) / 4.0
+    perm = rng.permutation(ne_pad)
+    return [torch.from_numpy(a[perm]).to(dev) for a in (src, dst, w)]
+
+
 def rows_equal(a, b) -> bool:
     """(src, dst, w, n) of two coalesced slabs, bit for bit."""
     return a[3] == b[3] and all(bits_equal(x, y) for x, y in zip(a[:3], b[:3]))
 
 
-def check_coalesce(dev) -> None:
+def batch_rows_equal(a, b) -> bool:
+    """(src, dst, w [B, ne], n [B]) of two coalesced batches, bit for
+    bit."""
+    return all(bits_equal(x, y) for x, y in zip(a, b))
+
+
+def coalesce_err(got, ref) -> float:
+    """Largest |pipeline - twin| over (src, dst, w, n) of two batches."""
+    return max((float((g.double() - r.double()).abs().max())
+                if g.numel() else 0.0) for g, r in zip(got, ref))
+
+
+def check_pipeline(what: str, args, nv_pad: int, grid: int) -> tuple:
+    """seg_coalesce on [B, ne] card tensors against its twin on the same
+    tensors, bit for bit, the launch count up by one.  Returns the
+    pipeline's rows."""
+    import torch
+
     from cuvite_tpu_torch.kernels.seg_coalesce import (
         seg_coalesce,
         seg_coalesce_plain,
     )
-    from cuvite_tpu_torch.ops.segment import coalesced_runs
+
+    n = seg_coalesce.launches
+    got = seg_coalesce(*args, nv_pad=nv_pad, grid=grid)
+    torch.cuda.synchronize()
+    if seg_coalesce.launches != n + 1:
+        fail(f"seg_coalesce {what}: launch count did not go up by one")
+    ref = seg_coalesce_plain(*args, nv_pad=nv_pad, grid=grid)
+    if not batch_rows_equal(got, ref):
+        fail(f"seg_coalesce {what}: rows differ from the twin "
+             f"(max abs err {coalesce_err(got, ref)})")
+    del ref
+    torch.cuda.empty_cache()
+    return got
+
+
+def check_coalesce(dev) -> None:
+    import torch
+
+    from cuvite_tpu_torch.ops.segment import (
+        coalesced_runs,
+        coalesced_runs_batched,
+    )
 
     for nv_pad in (64, 1024, 4096):
         for weights in ("dyadic", "float"):
             args = coalesce_case(nv_pad, 1 << 16, nv_pad, nv_pad == 1024,
                                  weights, dev)
-            one = [a[None] for a in args]
-            acc, cnt = seg_coalesce(*one, grid=nv_pad)
-            racc, rcnt = seg_coalesce_plain(*one, grid=nv_pad)
-            if not (bits_equal(acc, racc) and bits_equal(cnt, rcnt)):
-                fail(f"seg_coalesce nv_pad {nv_pad} {weights}: acc/cnt "
-                     "differ from the twin")
-            got = coalesced_runs(*args, nv_pad=nv_pad, engine="dense")
+            got = check_pipeline(f"nv_pad {nv_pad} {weights}",
+                                 [a[None] for a in args], nv_pad, nv_pad)
             ref = coalesced_runs(*args, nv_pad=nv_pad, engine="sort")
-            if not rows_equal(got, ref):
-                fail(f"seg_coalesce nv_pad {nv_pad} {weights}: emitted "
-                     "slab differs from the sort engine's")
+            if not rows_equal((got[0][0], got[1][0], got[2][0],
+                               int(got[3][0])), ref):
+                fail(f"seg_coalesce nv_pad {nv_pad} {weights}: rows "
+                     "differ from the sort engine's")
             print(f"  seg_coalesce nv_pad {nv_pad:5d} {weights:6s}: "
-                  f"{args[0].numel()} rows -> {got[3]} runs, acc/cnt "
-                  "bit-equal to the twin, rows to the sort engine")
+                  f"{args[0].numel()} rows -> {ref[3]} runs, bit-equal to "
+                  "the twin and to the sort engine")
+    for nv_pad, ne in ((4096, 1 << 15), (16384, 1 << 16), (32768, 1 << 16)):
+        args = [a[None] for a in hot_src_case(nv_pad, ne, nv_pad, dev)]
+        got = check_pipeline(f"one-src slab at nv_pad {nv_pad}", args,
+                             nv_pad, nv_pad)
+        print(f"  seg_coalesce one-src slab, nv_pad {nv_pad:5d}: {ne} rows "
+              f"-> {int(got[3][0])} runs in one bucket (dst tiles of 8192: "
+              f"{max(nv_pad // 8192, 1)}), bit-equal to the twin")
+    zero = coalesce_case(1024, 4096, 9, False, "dyadic", dev)
+    zero[0][:300], zero[1][:300], zero[2][:300] = 7, 8, 0.0
+    medium = [coalesce_case(512, 16384, 80 + i, False, "dyadic", dev)
+              for i in range(4)]
+    for i, (src, _, _) in enumerate(medium):
+        src[src < 512] %= 4 * (i + 1)   # buckets of ~800 to ~3300 rows
+    edge = {"a 300-row run of weight 0": ([a[None] for a in zero], 1024),
+            "four tenants of 4 to 16 buckets":
+                ([torch.stack(a) for a in zip(*medium)], 512),
+            "three tenants of 16,461 rows":
+                ([torch.stack(a) for a in zip(*[coalesce_case(
+                    1024, 16461, 60 + i, i == 1, "dyadic", dev)
+                    for i in range(3)])], 1024),
+            "a pure-padding slab":
+                ([torch.full((1, 8192), 512, dtype=torch.int32, device=dev),
+                  torch.zeros((1, 8192), dtype=torch.int32, device=dev),
+                  torch.zeros((1, 8192), device=dev)], 512),
+            "an empty slab":
+                ([torch.zeros((2, 0), dtype=torch.int32, device=dev),
+                  torch.zeros((2, 0), dtype=torch.int32, device=dev),
+                  torch.zeros((2, 0), device=dev)], 64)}
+    for what, (args, nv_pad) in edge.items():
+        got = check_pipeline(what, args, nv_pad, nv_pad)
+        print(f"  seg_coalesce {what}: rows {got[3].tolist()}, bit-equal "
+              "to the twin")
+    one = [a[None] for a in hot_src_case(4096, 1 << 15, 3, dev)]
+    many = [torch.stack(a) for a in zip(*[coalesce_case(
+        512, 8192, 70 + i, i == 1, "dyadic", dev) for i in range(4)])]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        coalesced_runs_batched(*one, nv_pad=4096, engine="dense")
+        coalesced_runs_batched(*many, nv_pad=512, engine="dense", grid=512)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  the whole coalesce, one slab and a batch of 4, under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync")
 
 
 def check_sort_card_vs_cpu(nv: int) -> None:
@@ -871,14 +986,17 @@ def run_sort_path(g, nv: int) -> tuple:
     from cuvite_tpu_torch.ops import segment as seg
 
     # Observe, without changing, every coalesce of the run: keep the
-    # relabeled slab and the result of each dense one.
-    captured = []
+    # relabeled slab and the result of each dense one, and the slab of the
+    # narrowest sort coarsening (the class above the dense engine's cap).
+    captured, above = [], []
     coalesced_runs = seg.coalesced_runs
 
     def observed(src, ckey, w, *, nv_pad, engine="sort"):
         out = coalesced_runs(src, ckey, w, nv_pad=nv_pad, engine=engine)
         if engine == "dense":
             captured.append(((src, ckey, w), nv_pad, out))
+        elif not above or nv_pad < above[0][1]:
+            above[:] = [((src, ckey, w), nv_pad, out)]
         return out
 
     seg.coalesced_runs = observed
@@ -925,7 +1043,7 @@ def run_sort_path(g, nv: int) -> tuple:
         print(f"  dense coarsening {k}: nv_pad {nv_pad}, "
               f"{args[0].numel()} slab rows -> {n} rows, equal to the sort "
               f"engine's; {int((ulps > 0).sum())} weights one ulp apart")
-    return launches, captured, total_s
+    return launches, captured, above, total_s
 
 
 def time_sort_sweep(g) -> float:
@@ -939,61 +1057,125 @@ def time_sort_sweep(g) -> float:
     return time_ms(lambda: run.step(run.comm0), 10)
 
 
-def time_coalesce(launches: int, captured: list) -> dict:
-    """seg_coalesce at the relabeled slab of the sort path's first dense
-    coarsening.  The bound counts the bytes the function must move: 12 B
-    per real slab row read (src, dst, w) and the nv_pad^2 x 12 B of
-    outputs (f64 acc, i32 cnt) written once; its operations are one f64
-    add per real row."""
+def coalesce_bound(src, grid: int) -> tuple:
+    """The least time of one coalesce of [B, ne] slabs: 12 B read per real
+    row (src, dst, w) and 12 B per output slot plus the [B] int64 counts
+    written once, one f64 add per real row.  No key grid: the function's
+    output is the coalesced slab.  Returns (ms, bound_by, bytes, rows)."""
+    rows = int((src < grid).sum())
+    n_bytes = rows * 12 + src.numel() * 12 + src.shape[0] * 8
+    return (*bound(n_bytes, rows, F64_OPS_PER_S), n_bytes, rows)
+
+
+def peak_bytes(fn) -> int:
+    """Device memory one call allocates beyond what was live before it
+    (outputs and scratch)."""
     import torch
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def time_coalesce(launches: int, captured: list) -> dict:
+    """The whole coalesce at the relabeled slab of the sort path's first
+    dense coarsening: the pipeline against its twin (bit for bit) and the
+    sort engine on the same slab, with the recounted bound."""
     from cuvite_tpu_torch.kernels.seg_coalesce import (
-        emit_coalesced,
         seg_coalesce,
         seg_coalesce_plain,
     )
-    from cuvite_tpu_torch.ops.segment import coalesced_runs
+    from cuvite_tpu_torch.ops.segment import coalesced_runs_batched
 
     (src, dst, w), nv_pad, _ = captured[0]
     one = (src[None], dst[None], w[None])
-    acc, cnt = seg_coalesce(*one, grid=nv_pad)
-    racc, rcnt = seg_coalesce_plain(*one, grid=nv_pad)
-    err = max(float((acc - racc).abs().max()),
-              float((cnt - rcnt).abs().max()))
-    real = src < nv_pad
-    rows = int(real.sum())
-    kbits = (nv_pad - 1).bit_length()
-    flat = (src[real].long() << kbits) | dst[real].long()
-    w64 = w[real].double()
-    slots = nv_pad * nv_pad
-
-    def library():
-        torch.bincount(flat, weights=w64, minlength=slots)
-        torch.bincount(flat, minlength=slots)
-
-    b_ms, b_by = bound(rows * 12 + slots * 12, rows, F64_OPS_PER_S)
-    k_ms = time_ms(lambda: seg_coalesce(*one, grid=nv_pad), 20)
+    got = check_pipeline("at the sort-path slab", one, nv_pad, nv_pad)
+    err = coalesce_err(got, seg_coalesce_plain(*one, nv_pad=nv_pad,
+                                               grid=nv_pad))
+    b_ms, b_by, n_bytes, rows = coalesce_bound(one[0], nv_pad)
     return {
         "name": "seg_coalesce", "route": "cuda",
         "source": "cuvite_tpu_torch/kernels/csrc/seg_coalesce.cu",
         "replaces": "cuvite_tpu/kernels/seg_coalesce.py:202",
         "tpu_function":
-            "cuvite_tpu/kernels/seg_coalesce.py:seg_coalesce_pallas",
+            "cuvite_tpu/kernels/seg_coalesce.py:seg_coalesce_pallas "
+            "with emit_coalesced (:272)",
         "launches": launches, "max_abs_err": err,
-        "ms": k_ms, "kernel_ms": k_ms,
-        "emit_ms": time_ms(
-            lambda: emit_coalesced(acc, cnt, ne_pad=src.numel(),
-                                   nv_pad=nv_pad), 20),
-        "sort_engine_ms": time_ms(
-            lambda: coalesced_runs(src, dst, w, nv_pad=nv_pad,
-                                   engine="sort"), 20),
+        "ms": time_ms(lambda: seg_coalesce(*one, nv_pad=nv_pad,
+                                           grid=nv_pad), 20),
         "plain_ms": time_ms(
-            lambda: seg_coalesce_plain(*one, grid=nv_pad), 20),
-        "library_ms": time_ms(library, 20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "bytes": rows * 12 + slots * 12, "ops": rows, "nv_pad": nv_pad,
-        "slab_rows": src.numel(), "real_rows": rows,
+            lambda: seg_coalesce_plain(*one, nv_pad=nv_pad, grid=nv_pad), 20),
+        "sort_engine_ms": time_ms(
+            lambda: coalesced_runs_batched(*one, nv_pad=nv_pad,
+                                           engine="sort"), 20),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the coalesced slab",
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "ops": rows,
+        "alloc_bytes": peak_bytes(
+            lambda: seg_coalesce(*one, nv_pad=nv_pad, grid=nv_pad)),
+        "nv_pad": nv_pad, "slab_rows": src.numel(), "real_rows": rows,
     }
+
+
+def time_engines_above_cap(what: str, args, nv_pad: int, grid: int,
+                           env_max_nv: bool) -> dict:
+    """Both engines on a coarsening the routing sends to the sort: the
+    whole dense coalesce (admitted with CUVITE_SEG_COALESCE_MAX_NV when
+    ``env_max_nv``) and the sort engine, on the same [B, ne] slab.  The
+    dense rows must equal the sort engine's (src, dst, n exact, weights at
+    most one f32 ulp apart)."""
+    import torch
+
+    from cuvite_tpu_torch.kernels.seg_coalesce import (
+        FLAT_NV_MAX,
+        batched_coalesce_engine,
+        coalesce_engine,
+    )
+    from cuvite_tpu_torch.ops.segment import coalesced_runs_batched
+
+    b = args[0].shape[0]
+    out = {"what": what, "tenants": b, "nv_pad": nv_pad, "grid": grid,
+           "slab_rows": args[0].numel(),
+           "routed": batched_coalesce_engine(nv_pad, b, grid)}
+    sort = lambda: coalesced_runs_batched(*args, nv_pad=nv_pad,  # noqa: E731
+                                          engine="sort", grid=grid)
+    out["sort_ms"] = time_ms(sort, 10)
+    if grid > FLAT_NV_MAX:
+        out["dense_ms"] = None
+        out["dense"] = f"grid {grid} over FLAT_NV_MAX = {FLAT_NV_MAX}"
+        return out
+    old = os.environ.get("CUVITE_SEG_COALESCE_MAX_NV")
+    if env_max_nv:
+        os.environ["CUVITE_SEG_COALESCE_MAX_NV"] = str(nv_pad)
+    try:
+        if env_max_nv and coalesce_engine(nv_pad) != "dense":
+            fail(f"{what}: CUVITE_SEG_COALESCE_MAX_NV={nv_pad} did not "
+                 "admit the class")
+        dense = lambda: coalesced_runs_batched(  # noqa: E731
+            *args, nv_pad=nv_pad, engine="dense", grid=grid)
+        got, ref = dense(), sort()
+        out["dense_ms"] = time_ms(dense, 10)
+        out["dense_alloc_bytes"] = peak_bytes(dense)
+    finally:
+        if old is None:
+            os.environ.pop("CUVITE_SEG_COALESCE_MAX_NV", None)
+        else:
+            os.environ["CUVITE_SEG_COALESCE_MAX_NV"] = old
+    out["sort_alloc_bytes"] = peak_bytes(sort)
+    if not (bits_equal(got[0], ref[0]) and bits_equal(got[1], ref[1])
+            and bits_equal(got[3], ref[3])):
+        fail(f"{what}: the dense rows differ from the sort engine's")
+    ulps = (got[2].cpu().view(torch.int32).long()
+            - ref[2].cpu().view(torch.int32).long()).abs()
+    if ulps.numel() and int(ulps.max()) > 1:
+        fail(f"{what}: a dense weight is {int(ulps.max())} f32 ulps from "
+             "the sort engine's")
+    out["weights_one_ulp_apart"] = int((ulps > 0).sum())
+    out["real_rows"] = int((args[0] < grid).sum())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1289,11 +1471,6 @@ def check_batched_kernels(dev) -> dict:
         row_argmax,
         row_argmax_plain,
     )
-    from cuvite_tpu_torch.kernels.seg_coalesce import (
-        emit_coalesced,
-        seg_coalesce,
-        seg_coalesce_plain,
-    )
     from cuvite_tpu_torch.ops.segment import coalesced_runs
 
     cpu = torch.device("cpu")
@@ -1348,12 +1525,8 @@ def check_batched_kernels(dev) -> dict:
                  torch.zeros(1 << 14, dtype=torch.int32),
                  torch.zeros(1 << 14)])
     src, dst, w = (torch.stack(a).to(dev) for a in zip(*rows))
-    acc, cnt = seg_coalesce(src, dst, w, grid=1024)
-    racc, rcnt = seg_coalesce_plain(src, dst, w, grid=1024)
-    if not (bits_equal(acc, racc) and bits_equal(cnt, rcnt)):
-        fail("batched seg_coalesce: acc/cnt differ from the twin")
-    s2, d2, w2, n2 = emit_coalesced(acc, cnt, ne_pad=1 << 14,
-                                            nv_pad=1024)
+    s2, d2, w2, n2 = check_pipeline("batched, 4 tenants", (src, dst, w),
+                                    1024, 1024)
     for i in range(4):
         ref = coalesced_runs(src[i], dst[i], w[i], nv_pad=1024)
         if not rows_equal((s2[i], d2[i], w2[i], int(n2[i])), ref):
@@ -1362,7 +1535,7 @@ def check_batched_kernels(dev) -> dict:
     if int(n2[3]) != 0:
         fail("batched seg_coalesce: the padding tenant emitted rows")
     print(f"  seg_coalesce: 4 tenants (gapped ids, float weights, one pure "
-          f"padding) in one launch, acc/cnt bit-equal to the twin, rows "
+          f"padding) in one launch, bit-equal to the twin, rows "
           f"{n2.tolist()} equal to the sort engine's per tenant")
     return heavy
 
@@ -1424,8 +1597,8 @@ def check_many_card_vs_cpu(g_golden, truth_path) -> dict:
 
 def run_serving(kind: str, gs: list) -> dict:
     """Phase 17 on one job set, both engines.  Returns each run's launch
-    counts, and the bucketed run's first dense batched coarsening (its
-    relabeled slab) for timing."""
+    counts, and the bucketed run's first batched coarsening (its relabeled
+    slab, nv_pad, grid and engine) for timing."""
     import torch
 
     from cuvite_tpu_torch import louvain_many
@@ -1436,8 +1609,8 @@ def run_serving(kind: str, gs: list) -> dict:
     batched = seg.coalesced_runs_batched
 
     def observed(src, ckey, w, *, nv_pad, engine="sort", grid=None):
-        if engine == "dense" and not captured:
-            captured.append((src, ckey, w, nv_pad, grid))
+        if not captured:
+            captured.append((src, ckey, w, nv_pad, grid, engine))
         return batched(src, ckey, w, nv_pad=nv_pad, engine=engine, grid=grid)
 
     out = {}
@@ -1538,45 +1711,33 @@ def time_batched_rows(gs) -> dict:
 
 def time_batched_coalesce(captured, what: str) -> dict:
     """seg_coalesce's batched form at a serving batch's first dense
-    coarsening: kernel, twin, two torch.bincount calls over the same
-    (tenant, src, dst) keys, and the bound (12 B per real row read, 12 B
-    per key-grid slot written, one f64 add per row)."""
-    import torch
-
+    coarsening: the whole coalesce against its twin (bit for bit), the
+    sort engine on the same slab, and the recounted bound."""
     from cuvite_tpu_torch.kernels.seg_coalesce import (
         seg_coalesce,
         seg_coalesce_plain,
     )
+    from cuvite_tpu_torch.ops.segment import coalesced_runs_batched
 
-    src, dst, w, nv_pad, grid = captured[0]
-    b = src.shape[0]
-    acc, cnt = seg_coalesce(src, dst, w, grid=grid)
-    racc, rcnt = seg_coalesce_plain(src, dst, w, grid=grid)
-    if not (bits_equal(acc, racc) and bits_equal(cnt, rcnt)):
-        fail(f"batched seg_coalesce differs from its twin at {what}")
-    real = src < grid
-    rows = int(real.sum())
-    kbits = (grid - 1).bit_length()
-    tenant = torch.arange(b, device=src.device)[:, None].expand_as(src)
-    flat = (((tenant[real].long() << kbits) | src[real].long()) << kbits) \
-        | dst[real].long()
-    w64 = w[real].double()
-    slots = b * grid * grid
-
-    def library():
-        torch.bincount(flat, weights=w64, minlength=slots)
-        torch.bincount(flat, minlength=slots)
-
-    b_ms, b_by = bound(rows * 12 + slots * 12, rows, F64_OPS_PER_S)
-    return {"ms": time_ms(lambda: seg_coalesce(src, dst, w, grid=grid),
-                          20),
+    src, dst, w, nv_pad, grid, engine = captured[0]
+    if engine != "dense":
+        fail(f"{what}: the first coarsening took {engine!r}, not 'dense'")
+    check_pipeline(f"at {what}", (src, dst, w), nv_pad, grid)
+    b_ms, b_by, n_bytes, rows = coalesce_bound(src, grid)
+    return {"ms": time_ms(lambda: seg_coalesce(
+                src, dst, w, nv_pad=nv_pad, grid=grid), 20),
             "plain_ms": time_ms(lambda: seg_coalesce_plain(
-                src, dst, w, grid=grid), 20),
-            "library_ms": time_ms(library, 20),
-            "bound_ms": b_ms, "bound_by": b_by, "tenants": b,
-            "grid": grid, "nv_pad": nv_pad, "slab_rows": src.numel(),
-            "real_rows": rows, "max_abs_err": 0.0,
-            "shape": f"{what}: the first dense batched coarsening"}
+                src, dst, w, nv_pad=nv_pad, grid=grid), 5),
+            "sort_engine_ms": time_ms(lambda: coalesced_runs_batched(
+                src, dst, w, nv_pad=nv_pad, engine="sort", grid=grid), 20),
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "alloc_bytes": peak_bytes(lambda: seg_coalesce(
+                src, dst, w, nv_pad=nv_pad, grid=grid)),
+            "tenants": src.shape[0], "grid": grid, "nv_pad": nv_pad,
+            "slab_rows": src.numel(), "real_rows": rows, "max_abs_err": 0.0,
+            "shape": f"{what}: the first dense batched coarsening, the "
+                     "whole coalesce"}
 
 
 def check_rebin_card_vs_cpu(graphs: dict) -> dict:
@@ -2165,13 +2326,20 @@ def main() -> int:
     g = generate_rgg(args.rgg_nv)
     print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
           f"edges in {time.perf_counter() - t0:.2f} s")
-    sort_launches, captured, sort_s = run_sort_path(g, args.rgg_nv)
+    sort_launches, captured, above, sort_s = run_sort_path(g, args.rgg_nv)
     print(f"  one phase-0 sort sweep: {time_sort_sweep(g):.4f} ms on the "
           "device stream")
     g_rgg = g
 
     print("[10] seg_coalesce at the first dense coarsening of the sort path")
     kernels.append(time_coalesce(sort_launches["seg_coalesce"], captured))
+    if not above:
+        fail(f"RGG {args.rgg_nv}: the sort path ran no sort coarsening")
+    (a_src, a_dst, a_w), a_nv, _ = above[0]
+    above_caps = [time_engines_above_cap(
+        f"RGG {args.rgg_nv} sort path, its narrowest sort coarsening",
+        (a_src[None], a_dst[None], a_w[None]), a_nv, a_nv, True)]
+    del above
     for k in kernels:
         conv = (f", converged {k['ms_converged']:.4f} ms (twin "
                 f"{k['plain_ms_converged']:.4f} ms)"
@@ -2186,8 +2354,9 @@ def main() -> int:
                   f"ms, bound {p['bound_ms']:.4f} ms")
     c = kernels[-1]
     print(f"    seg_coalesce at nv_pad {c['nv_pad']}, {c['real_rows']} real "
-          f"rows: emit {c['emit_ms']:.4f} ms, whole sort engine "
-          f"{c['sort_engine_ms']:.4f} ms")
+          f"rows: the whole coalesce {c['ms']:.4f} ms, the sort engine "
+          f"{c['sort_engine_ms']:.4f} ms, {c['alloc_bytes']} B allocated")
+    print(f"    both engines above the cap: {above_caps[0]}")
     if c["max_abs_err"] != 0.0:
         fail(f"seg_coalesce differs from its twin at the sort-path slab "
              f"(max abs err {c['max_abs_err']})")
@@ -2261,6 +2430,8 @@ def main() -> int:
             fail(f"{kind}: the row kernel never launched")
         if kind != "serving 2^20" and bucketed["seg_coalesce"] == 0:
             fail(f"{kind}: seg_coalesce never launched")
+        if kind == "serving 4096":
+            check_pipeline(f"at {kind}", captured[0][:3], *captured[0][3:5])
         if kind == "serving 65536":
             batched_rows = time_batched_rows(gs)
             batched_coal = time_batched_coalesce(captured, kind)
@@ -2268,9 +2439,15 @@ def main() -> int:
                             ("seg_coalesce", batched_coal)):
                 print(f"  {name} batched at {d['shape']}: {d['ms']:.4f} ms"
                       f" (twin {d['plain_ms']:.4f} ms, bound "
-                      f"{d['bound_ms']:.4f} ms by {d['bound_by']}"
-                      + (f", library {d['library_ms']:.4f} ms"
-                         if "library_ms" in d else "") + ")")
+                      f"{d['bound_ms']:.4f} ms by {d['bound_by']})")
+            print(f"    the sort engine on that slab "
+                  f"{batched_coal['sort_engine_ms']:.4f} ms; the pipeline "
+                  f"allocates {batched_coal['alloc_bytes']} B")
+        if kind == "serving 2^20":
+            above_caps.append(time_engines_above_cap(
+                f"{kind}, its first (sort) coarsening", captured[0][:3],
+                *captured[0][3:5], False))
+            print(f"  both engines above the cap: {above_caps[-1]}")
         del gs, captured
     batched_rows["launches"] = paths["serving 65536 bucketed"]["row_argmax"]
     batched_coal["launches"] = \
@@ -2314,6 +2491,7 @@ def main() -> int:
     kernels[0]["batched"] = batched_rows
     kernels[1]["batched"] = batched_heavy
     kernels[2]["batched"] = batched_coal
+    kernels[2]["above_caps"] = above_caps
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

@@ -1,53 +1,59 @@
-"""Segmented coalesce of a relabeled edge slab: the CUDA kernel wrapper,
-its plain PyTorch twin, the compaction and the engine policy.
+"""Segmented coalesce of relabeled edge slabs: the CUDA pipeline's
+wrapper, its plain PyTorch twin and the engine policy.
 
 Replaces ``seg_coalesce_pallas`` (``cuvite_tpu/kernels/seg_coalesce.py:202``)
-and follows that module's ``seg_coalesce_xla`` (``:246``),
-``emit_coalesced`` (``:272``), ``coalesce_slab`` (``:299``) and
+with its emission ``emit_coalesced`` (``:272``), and follows that module's
+``seg_coalesce_xla`` (``:246``), ``coalesce_slab`` (``:299``) and
 ``coalesce_engine`` (``:106``).  The device coarsening must turn the
 relabeled slab (dense ids < nv_pad, padding src == nv_pad) into one row per
 distinct (src, dst), in ascending order, compacted into the slab prefix,
-duplicate weights summed.  The dense engine accumulates a weight sum and a
-presence count per slot of the key grid (the kernel,
-``csrc/seg_coalesce.cu``), then compacts the present slots in flat order,
-which is the sorted (src, dst) order (``emit_coalesced``).
+duplicate weights summed.
 
 Every function here takes a batch: B tenants' relabeled slabs
-``[B, ne_pad]``, keyed by (tenant, src, dst) into a ``[B, grid, grid]``
-accumulator pair, each tenant compacted into its own slab prefix.  One
-slab is a batch of one with ``grid = nv_pad`` (``ops/segment.
-coalesced_runs``).  The batched engine (``louvain/batched.py``) runs the
-kernel on a whole batch in one launch; the reference never runs its
-kernel on a batch (a Pallas grid does not lift over ``vmap``), and its
-batched coarsening takes the XLA twin, which gives the same rows.
+``[B, ne_pad]``, each tenant coalesced into its own slab prefix; real ids
+are below ``grid``.  One slab is a batch of one with ``grid = nv_pad``
+(``ops/segment.coalesced_runs``).  The batched engine
+(``louvain/batched.py``) runs the pipeline on a whole batch at once; the
+reference never runs its kernel on a batch (a Pallas grid does not lift
+over ``vmap``), and its batched coarsening takes the XLA twin, which gives
+the same rows.
+
+On the card :func:`seg_coalesce` runs the pipeline of
+``csrc/seg_coalesce.cu``: rows counted and scattered into (tenant, src)
+buckets, each bucket deduplicated by dst in registers or shared memory,
+the distinct rows placed by a scan -- work proportional to the rows plus
+B * grid counters, no [B, grid, grid] key grid, no host sync between the
+launch and the return.  Its twin :func:`seg_coalesce_plain` is the
+reference's dense form: a weight sum and a presence count per slot of the
+[B, grid, grid] key grid (:func:`dense_accumulate_plain`), then the
+present slots compacted in flat order, which is the sorted (src, dst)
+order (:func:`emit_coalesced`).
 
 Differences from the reference, by design:
 
-- The weight accumulator is float64 and is rounded to float32 once, at
-  the emission; the reference accumulates in the weight dtype.  So the
-  dense engine equals the sort engine (``ops/segment.coalesced_runs``,
-  which also sums each run in f64) wherever the f64 run sums are exact,
-  and the reference's f32 accumulator on unit and dyadic weights.
+- Weights are summed in float64 and rounded to float32 once; the
+  reference accumulates in the weight dtype.  So the dense engine equals
+  the sort engine (``ops/segment.coalesced_runs``, which also sums each run
+  in f64) wherever the f64 run sums are exact, and the reference's f32
+  accumulator on unit and dyadic weights.
 - The dense engine is the default for every class with
   ``nv_pad <= DEFAULT_MAX_NV``; the reference defaults to its sort
   engine, because on its CPU backend the sort was faster and its dense
   engines waited for a TPU measurement.  Both engines sum in f64 here,
   so the port needs no ds32 rule (the reference sends ds32 accumulators
-  to the sort), and the kernel is on by default on CUDA as the heavy
-  kernel is.  ``PERF.md`` holds the card's times of both engines on the
+  to the sort).  ``PERF.md`` holds the card's times of both engines on the
   same slab; ``CUVITE_SEG_COALESCE=sort`` pins the sort for comparisons.
-- The compaction takes the present slots with ``nonzero`` (a device scan)
-  instead of the reference's cumsum and drop-scatter.
 
-``seg_coalesce`` launches the kernel for CUDA tensors and runs
+``seg_coalesce`` launches the pipeline for CUDA tensors and runs
 ``seg_coalesce_plain`` only for CPU tensors.  Not ported: the reference's
 ``hash`` engine (``:335-427``).
 
-Memory bound of a batch: ``grid`` is the phase's largest community
-count rounded up to a power of two, which the host holds after the
-renumber, not the class's nv_pad -- a [64, 4096, 4096] pair would be
-12.9 GB -- and :func:`batched_coalesce_engine` sends a coarsening whose
-``B * grid^2`` exceeds ``DENSE_BATCH_MAX_SLOTS`` to the sort engine.
+The routing caps ``DEFAULT_MAX_NV`` and ``DENSE_BATCH_MAX_SLOTS`` were
+set by the memory of the key grid the first CUDA form accumulated; the
+pipeline needs no grid, so they now stand as routing choices that wait
+for a measurement of both engines above them (``PERF.md``).  In a batch
+``grid`` is the phase's largest community count rounded up to a power of
+two, which the host holds after the renumber, not the class's nv_pad.
 """
 
 from __future__ import annotations
@@ -59,21 +65,29 @@ import torch
 
 from cuvite_tpu_torch.kernels import _build
 
-# Widest slab class the dense engine takes by default: a [4096, 4096]
-# f64 + i32 accumulator pair is 192 MiB.
+# Widest slab class the dense engine takes by default.  A routing
+# choice: the first CUDA form's [4096, 4096] accumulator pair (192 MiB)
+# set it; the pipeline holds no such grid.
 DEFAULT_MAX_NV = 4096
-# Ceiling of the dense key grid (reference ``:94``): nv_pad^2 <= 2^30
-# slots, an 8 GiB f64 accumulator.  ``CUVITE_SEG_COALESCE_MAX_NV`` may not
+# Ceiling of the dense engine's ids (reference ``:94``): the twin's key
+# grid is nv_pad^2 <= 2^30 slots.  ``CUVITE_SEG_COALESCE_MAX_NV`` may not
 # exceed it.
 FLAT_NV_MAX = 1 << 15
 
-# Most slots of the batched form's key grid, B * grid^2: 2^27 slots are
-# 1.5 GiB of f64 + i32 accumulators.  Past it the coarsening sorts.
+# Most B * grid^2 of a batched coarsening the dense engine takes; past it
+# the coarsening sorts.  A routing choice, like DEFAULT_MAX_NV: the first
+# CUDA form's 1.5 GiB of accumulators at 2^27 slots set it.
 DENSE_BATCH_MAX_SLOTS = 1 << 27
+
+# Most rows (B * ne_pad) and buckets (B * grid) of one launch: the
+# pipeline indexes both with int32.
+LAUNCH_MAX = 1 << 30
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {
-    "cv_seg_coalesce": ([_P, _P, _P, _I, _L, _I, _P, _P, _P], _I),
+    "cv_seg_coalesce": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P], _I),
+    "cv_seg_coalesce_scratch_bytes": ([_I, _I, _I], _L),
 }
 
 
@@ -112,8 +126,8 @@ def coalesce_engine(nv_pad: int) -> str:
 
 def batched_coalesce_engine(nv_pad: int, n_tenants: int, grid: int) -> str:
     """The engine of one batched coarsening: ``coalesce_engine(nv_pad)``
-    of the slab class, and ``'sort'`` when the dense form's
-    ``n_tenants * grid^2`` key grid exceeds ``DENSE_BATCH_MAX_SLOTS``."""
+    of the slab class, and ``'sort'`` when ``n_tenants * grid^2`` exceeds
+    ``DENSE_BATCH_MAX_SLOTS``."""
     if coalesce_engine(nv_pad) != "dense":
         return "sort"
     return "dense" if n_tenants * grid * grid <= DENSE_BATCH_MAX_SLOTS \
@@ -149,39 +163,59 @@ def _validate(src, dst, w, grid: int) -> int:
     return kbits
 
 
-def seg_coalesce(src, dst, w, *, grid: int):
-    """Dense accumulators of B relabeled slabs in one launch.
+def seg_coalesce(src, dst, w, *, nv_pad: int, grid: int):
+    """Coalesce B relabeled slabs: the pipeline of ``csrc/seg_coalesce.cu``
+    on the card, :func:`seg_coalesce_plain` on the CPU.
 
     src, dst [B, ne] int32 (rows with src or dst outside [0, grid) drop;
     padding rows carry src == the class's nv_pad >= grid); w [B, ne] f32.
-    Returns (acc [B, grid, grid] f64 weight sums, cnt [B, grid, grid]
-    int32 row counts); feed :func:`emit_coalesced`."""
+    Returns (src_c, dst_c, w_c [B, ne], n [B] int64), all on the device:
+    tenant b's distinct (src, dst) ascending in [0, n[b]), weights summed
+    in f64 and rounded once, a row by presence (never by weight); padding
+    (src == ``nv_pad``, dst == 0, w == 0) after.  Nothing is read back to
+    the host."""
     _validate(src, dst, w, grid)
     if src.device.type == "cpu":
-        return seg_coalesce_plain(src, dst, w, grid=grid)
+        return seg_coalesce_plain(src, dst, w, nv_pad=nv_pad, grid=grid)
     if src.device.type != "cuda":
         raise ValueError(f"seg_coalesce: no kernel for device {src.device}")
     b, ne = src.shape
-    acc = torch.empty((b, grid, grid), dtype=torch.float64,
-                      device=src.device)
-    cnt = torch.empty((b, grid, grid), dtype=torch.int32, device=src.device)
+    if b * ne > LAUNCH_MAX or b * grid > LAUNCH_MAX:
+        raise ValueError(f"seg_coalesce: {b} x {ne} rows or {b} x {grid} "
+                         f"buckets over LAUNCH_MAX = {LAUNCH_MAX}")
+    dev = src.device
+    out = torch.empty((3, b, ne), dtype=torch.int32, device=dev)
+    src_c, dst_c, w_c = out[0], out[1], out[2].view(torch.float32)
+    n = torch.empty(b, dtype=torch.int64, device=dev)
     lib = _build.library("seg_coalesce", _SIGNATURE)
+    scratch = torch.empty(lib.cv_seg_coalesce_scratch_bytes(b, ne, grid),
+                          dtype=torch.uint8, device=dev)
     err = lib.cv_seg_coalesce(
-        src.data_ptr(), dst.data_ptr(), w.data_ptr(), b, ne, grid,
-        acc.data_ptr(), cnt.data_ptr(),
-        torch.cuda.current_stream(src.device).cuda_stream)
+        src.data_ptr(), dst.data_ptr(), w.data_ptr(), b, ne, grid, nv_pad,
+        src_c.data_ptr(), dst_c.data_ptr(), w_c.data_ptr(), n.data_ptr(),
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "seg_coalesce")
     seg_coalesce.launches += 1
-    return acc, cnt
+    return src_c, dst_c, w_c, n
 
 
 seg_coalesce.launches = 0
 
 
-def seg_coalesce_plain(src, dst, w, *, grid: int):
+def seg_coalesce_plain(src, dst, w, *, nv_pad: int, grid: int):
     """Plain PyTorch twin of :func:`seg_coalesce` (same signature and
-    results): the reference's ``seg_coalesce_xla``, two ``index_add_``
-    over the flat [B * grid^2] key domain plus one drop slot."""
+    results): the reference's ``seg_coalesce_xla`` and
+    ``emit_coalesced``, over the [B, grid, grid] key grid."""
+    acc, cnt = dense_accumulate_plain(src, dst, w, grid=grid)
+    return emit_coalesced(acc, cnt, ne_pad=src.shape[1], nv_pad=nv_pad,
+                          w_dtype=w.dtype)
+
+
+def dense_accumulate_plain(src, dst, w, *, grid: int):
+    """The twin's accumulate step, the reference's ``seg_coalesce_xla``:
+    two ``index_add_`` over the flat [B * grid^2] key domain plus one drop
+    slot.  Returns (acc [B, grid, grid] f64 weight sums, cnt [B, grid,
+    grid] int32 row counts)."""
     kbits = _validate(src, dst, w, grid)
     b = src.shape[0]
     n = b * grid * grid
@@ -200,28 +234,30 @@ def seg_coalesce_plain(src, dst, w, *, grid: int):
 def emit_coalesced(acc, cnt, *, ne_pad: int, nv_pad: int,
                    w_dtype=torch.float32):
     """Compact B tenants' dense accumulators, each into its own slab
-    prefix, in one pass.
+    prefix (the reference's ``emit_coalesced``, under a batch axis).
 
     A slot is a row when its count is > 0 -- by presence, never by weight,
     so a zero-weight real edge is a row.  Ascending flat order is each
-    tenant's sorted (src, dst) order.  Returns (src2, dst2, w2
-    [B, ne_pad], ne2 [B] int64 tensor): tenant b's rows in [0, ne2[b]),
-    padding (src == ``nv_pad``, dst == 0, w == 0) after."""
-    from cuvite_tpu_torch.ops.segment import compact_batched
-
+    tenant's sorted (src, dst) order: a slot's place is the cumsum of the
+    presence before it, and absent slots aim at one dropped slot past the
+    end.  Returns (src2, dst2, w2 [B, ne_pad], ne2 [B] int64 tensor):
+    tenant b's rows in [0, ne2[b]), padding (src == ``nv_pad``, dst == 0,
+    w == 0) after."""
     b, grid, _ = acc.shape
     kbits = _kbits(grid)
-    flat = torch.nonzero(cnt.reshape(-1) > 0).squeeze(1)
-    return compact_batched(
-        flat >> (2 * kbits), (flat >> kbits) & (grid - 1), flat & (grid - 1),
-        acc.reshape(-1)[flat].to(w_dtype), n_tenants=b, ne_pad=ne_pad,
-        nv_pad=nv_pad)
-
-
-def coalesce_slabs(src, dst, w, *, nv_pad: int, grid: int):
-    """One dense coalesce of B slabs: accumulate (kernel on the card, twin
-    on the CPU) and emit.  Same contract as
-    ``ops/segment.coalesced_runs_batched``."""
-    acc, cnt = seg_coalesce(src, dst, w, grid=grid)
-    return emit_coalesced(acc, cnt, ne_pad=src.shape[1], nv_pad=nv_pad,
-                          w_dtype=w.dtype)
+    dev = acc.device
+    present = (cnt > 0).reshape(b, grid * grid)
+    size = b * ne_pad
+    slot = torch.cumsum(present, 1)
+    slot += torch.arange(b, device=dev)[:, None] * ne_pad - 1
+    slot = slot.masked_fill_(~present, size).reshape(-1)
+    key = torch.arange(grid * grid, dtype=torch.int32, device=dev)
+    src2 = torch.full((size + 1,), nv_pad, dtype=torch.int32, device=dev)
+    dst2 = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+    w2 = torch.zeros(size + 1, dtype=w_dtype, device=dev)
+    src2.index_copy_(0, slot, (key >> kbits).repeat(b))
+    dst2.index_copy_(0, slot, (key & (grid - 1)).repeat(b))
+    w2.index_copy_(0, slot, acc.reshape(-1).to(w_dtype))
+    shape = (b, ne_pad)
+    return (src2[:size].view(shape), dst2[:size].view(shape),
+            w2[:size].view(shape), present.sum(1))

@@ -20,9 +20,9 @@ two-operand variadic fallback have no use) and sorts it with a stable
 coalesce has the ``sort`` and ``dense`` engines.
 
 ``coalesced_runs_batched`` coalesces B tenants' slabs ``[B, ne_pad]`` in
-one pass (one packed-key sort keyed by (tenant, src, key), or one dense
-kernel launch), each tenant compacted into its own slab prefix; one
-slab's ``coalesced_runs`` is a batch of one.
+one pass (one packed-key sort keyed by (tenant, src, key), or one
+``seg_coalesce`` pipeline), each tenant compacted into its own slab
+prefix; one slab's ``coalesced_runs`` is a batch of one.
 """
 
 from __future__ import annotations
@@ -208,10 +208,10 @@ def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
 
     ``engine='sort'``: one stable sort of the folded key
     ((b * nv_pad + src) << kbits) | ckey and the run sums.
-    ``engine='dense'``: the ``seg_coalesce`` kernel's (weight, count)
-    accumulators over a [B, grid, grid] key grid and their compaction,
-    ``grid`` a power of two above every real id (default ``nv_pad``;
-    ``kernels/seg_coalesce.coalesce_engine`` and
+    ``engine='dense'``: the ``seg_coalesce`` pipeline on the card (rows
+    bucketed by (tenant, src) and deduplicated by dst, no host sync) or
+    its dense twin on the CPU, ``grid`` a power of two above every real
+    id (default ``nv_pad``; ``kernels/seg_coalesce.coalesce_engine`` and
     ``batched_coalesce_engine`` pick the engine).  Both sum each run in
     f64 and round once, so they are bit-identical wherever the f64 run
     sums are exact.  A run is emitted by presence, never by weight: a
@@ -223,10 +223,10 @@ def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
     b, ne_pad = src.shape
     _check_slab(b * ne_pad, "coalesced_runs")
     if engine == "dense":
-        from cuvite_tpu_torch.kernels.seg_coalesce import coalesce_slabs
+        from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
 
-        return coalesce_slabs(src, ckey, w, nv_pad=nv_pad,
-                              grid=nv_pad if grid is None else grid)
+        return seg_coalesce(src, ckey, w, nv_pad=nv_pad,
+                            grid=nv_pad if grid is None else grid)
     if engine != "sort":
         raise ValueError(f"coalesced_runs: unknown engine {engine!r} (the "
                          "port has 'sort' and 'dense'; 'msd' and 'hash' "

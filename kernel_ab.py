@@ -10,16 +10,27 @@ built from its own sources under its own ``build/``), the trees in turn,
 line: at the phase-0 shapes of
 R-MAT ``--scale`` (bucketed engine, identity assignment) the row
 kernel's class launches of one sweep, one whole ``bucketed_step`` sweep
-and the heavy launch, and the dense coalesce (kernel and emission) of a
-22,059-row slab at nv_pad 4096, the shape of the RGG 4,194,304 sort
-path's first dense coarsening; CUDA events, the median of 7 blocks of 20
-calls; and the host time to enqueue one sweep.
+and the heavy launch, and the whole dense coalesce
+(``coalesced_runs_batched(engine="dense")``: whatever kernels and
+emission the tree has) of a 22,059-row slab at nv_pad 4096, the shape of
+the RGG 4,194,304 sort path's first dense coarsening, beside the sort
+engine on the same slab; CUDA events, the median of 7 blocks of 20 calls
+issued back to back (so the host's enqueue time counts when it is the
+longer); the host time to enqueue one sweep; and the device memory one
+dense coalesce allocates (``torch.cuda.max_memory_allocated`` over what
+was live before it) and its device microseconds by kernel name
+(torch.profiler).
 
 ``--many`` times ``louvain_many`` instead, on the serving batches of
 ``chip_smoke.py`` phase 17: B=64 synth 4096 and B=64 synth 65536 jobs
 (``many_seed(1, k)``), both engines, one warm-up call and then the
 median and the list of ``--reps`` calls' host wall seconds (the card
-drained before and after each) and of their ``pack_s``.
+drained before and after each), of their ``pack_s`` and of their peak
+device memory; then the whole dense coalesce of the synth 65536 bucketed
+batch's first coarsening (the relabeled [64, 65536] slab, captured from
+the warm-up call) timed, its allocation and its device microseconds by
+kernel measured as above, with its (tenant, src) buckets counted by
+length.
 """
 
 from __future__ import annotations
@@ -62,6 +73,38 @@ def _host_issue_ms(torch, fn, reps=5, blocks=7):
     return statistics.median(out)
 
 
+def _device_us(torch, fn, calls=10) -> dict:
+    """Device microseconds a call of ``fn`` spends in each kernel, by
+    name (torch.profiler's CUDA activity over ``calls`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+        name = name.removeprefix("void ") or e.key
+        out[name] = out.get(name, 0.0) + e.device_time_total / calls
+    return out
+
+
+def _alloc_bytes(torch, fn) -> int:
+    """Device memory one call allocates beyond what was live before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def measure(root: str, scale: int) -> dict:
     """One tree's timings; ``root`` goes first on sys.path."""
     sys.path.insert(0, os.path.abspath(root))
@@ -73,7 +116,10 @@ def measure(root: str, scale: int) -> dict:
     from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
     from cuvite_tpu_torch.kernels.row_argmax import row_argmax, vertex_table
     from cuvite_tpu_torch.louvain.driver import PhaseRunner
-    from cuvite_tpu_torch.ops.segment import coalesced_runs, segment_sum
+    from cuvite_tpu_torch.ops.segment import (
+        coalesced_runs_batched,
+        segment_sum,
+    )
 
     run = PhaseRunner(DistGraph.build(generate_rmat(scale)), "cuda")
     c = run.constant   # a float in older trees, TenantConstants after
@@ -95,7 +141,12 @@ def measure(root: str, scale: int) -> dict:
     dst[:real] = rng.integers(0, 3317, real)
     w = np.zeros(ne, np.float32)
     w[:real] = rng.random(real).astype(np.float32)
-    s, d, ww = (torch.from_numpy(a).cuda() for a in (src, dst, w))
+    s, d, ww = (torch.from_numpy(a)[None].cuda() for a in (src, dst, w))
+
+    def coalesce(engine):
+        return lambda: coalesced_runs_batched(s, d, ww, nv_pad=nvp,
+                                              engine=engine)
+
     return {
         "root": root,
         "sweep_host_issue_ms": _host_issue_ms(torch, lambda: run.step(comm)),
@@ -103,8 +154,10 @@ def measure(root: str, scale: int) -> dict:
         "bucketed_sweep_ms": _ms(torch, lambda: run.step(comm)),
         "heavy_ms": _ms(torch, lambda: heavy_argmax(run.plan.heavy, *tables,
                                                     const)),
-        "dense_coalesce_ms": _ms(torch, lambda: coalesced_runs(
-            s, d, ww, nv_pad=nvp, engine="dense")),
+        "dense_coalesce_ms": _ms(torch, coalesce("dense")),
+        "sort_coalesce_ms": _ms(torch, coalesce("sort")),
+        "dense_coalesce_alloc_bytes": _alloc_bytes(torch, coalesce("dense")),
+        "dense_coalesce_device_us": _device_us(torch, coalesce("dense")),
     }
 
 
@@ -114,26 +167,64 @@ def measure_many(root: str, reps: int) -> dict:
     import torch
 
     from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.ops import segment as seg
     from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    captured = []
+    batched = seg.coalesced_runs_batched
+
+    def observed(src, ckey, w, *, nv_pad, engine="sort", grid=None):
+        if engine == "dense" and not captured:
+            captured.append((src, ckey, w, nv_pad, grid))
+        return batched(src, ckey, w, nv_pad=nv_pad, engine=engine, grid=grid)
 
     out = {"root": root}
     for edges in (4096, 65536):
         gs = [synthesize_graph(edges, seed=many_seed(1, k))
               for k in range(64)]
         for engine in ("bucketed", "fused"):
-            louvain_many(gs, engine=engine)
-            walls, packs = [], []
+            capture = edges == 65536 and engine == "bucketed"
+            seg.coalesced_runs_batched = observed if capture else batched
+            try:
+                louvain_many(gs, engine=engine)
+            finally:
+                seg.coalesced_runs_batched = batched
+            walls, packs, peaks = [], [], []
             for _ in range(reps):
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 br = louvain_many(gs, engine=engine)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
                 packs.append(br.pack_s)
+                peaks.append(torch.cuda.max_memory_allocated())
             out[f"B=64 synth {edges} {engine}"] = {
                 "wall_s": statistics.median(walls),
                 "pack_s": statistics.median(packs),
+                "max_memory_allocated": max(peaks),
                 "walls_s": walls}
+    src, ckey, w, nv_pad, grid = captured[0]
+
+    def coalesce():
+        batched(src, ckey, w, nv_pad=nv_pad, engine="dense", grid=grid)
+
+    real = src < grid
+    key = (torch.arange(src.shape[0], device=src.device)[:, None] * grid
+           + src.long())[real]
+    per_bucket = torch.bincount(key)
+    per_bucket = per_bucket[per_bucket > 0]
+    edges = (0, 32, 256, 4096, 1 << 30)
+    out["B=64 synth 65536 first dense coarsening"] = {
+        "shape": list(src.shape), "nv_pad": nv_pad, "grid": grid,
+        "real_rows": int(real.sum()),
+        "buckets_by_rows": {f"{a + 1}-{b}": int(((per_bucket > a)
+                                                  & (per_bucket <= b)).sum())
+                            for a, b in zip(edges, edges[1:])},
+        "longest_bucket": int(per_bucket.max()),
+        "dense_coalesce_ms": _ms(torch, coalesce),
+        "dense_coalesce_alloc_bytes": _alloc_bytes(torch, coalesce),
+        "dense_coalesce_device_us": _device_us(torch, coalesce)}
     return out
 
 

@@ -29,7 +29,7 @@ from cuvite_tpu_torch.kernels.heavy_bincount import (
 )
 from cuvite_tpu_torch.kernels.row_argmax import row_argmax_plain
 from cuvite_tpu_torch.kernels.seg_coalesce import (
-    seg_coalesce_plain,
+    dense_accumulate_plain,
 )
 from cuvite_tpu_torch.louvain import batched as pbatched
 from cuvite_tpu_torch.louvain.bucketed import DevicePlan, bucketed_step
@@ -404,10 +404,10 @@ def test_batched_coalesce_matches_per_tenant_and_jax():
         dst[i, :n] = rng.choice(pool, n)
         w[i, :n] = rng.integers(1, 64, n) / 8.0
     ts = [torch.from_numpy(a) for a in (src, dst, w)]
-    acc, cnt = seg_coalesce_plain(*ts, grid=nvp)
+    acc, cnt = dense_accumulate_plain(*ts, grid=nvp)
     for i in range(b):
-        a1, c1 = seg_coalesce_plain(ts[0][i:i + 1], ts[1][i:i + 1],
-                                    ts[2][i:i + 1], grid=nvp)
+        a1, c1 = dense_accumulate_plain(ts[0][i:i + 1], ts[1][i:i + 1],
+                                        ts[2][i:i + 1], grid=nvp)
         assert torch.equal(acc[i], a1[0]) and torch.equal(cnt[i], c1[0])
     outs = {e: coalesced_runs_batched(*ts, nv_pad=nvp, engine=e, grid=nvp)
             for e in ("dense", "sort")}

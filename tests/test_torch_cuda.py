@@ -21,7 +21,6 @@ from cuvite_tpu_torch.kernels.heavy_bincount import (
 )
 from cuvite_tpu_torch.kernels.row_argmax import row_argmax, row_argmax_plain
 from cuvite_tpu_torch.kernels.seg_coalesce import (
-    emit_coalesced,
     seg_coalesce,
     seg_coalesce_plain,
 )
@@ -133,6 +132,30 @@ def coalesce_case(nv_pad, ne_pad, seed, gapped=False, weights="dyadic"):
         w[:n_real] = rng.uniform(1e-4, 1e-2, n_real)
     w[n_real // 2: n_real // 2 + 37] = 0.0
     return src, dst, w
+
+
+def hot_src_slab(nv_pad, ne_pad, seed, n_dst=40, all_hot=False):
+    """A relabeled slab where one src (11) holds two thirds of the real
+    rows (``all_hot``: all of them) -- the late phase where one community
+    absorbs most vertices -- a third of them its self-loop run, the rest
+    to ``n_dst`` ids spread over [0, nv_pad); the other real rows random;
+    dyadic weights, zeros among them; padding after, then every row
+    shuffled.  Returns numpy (src, dst, w)."""
+    rng = np.random.default_rng(seed)
+    n_real = ne_pad - ne_pad // 7
+    n_hot = n_real if all_hot else 2 * n_real // 3
+    src = np.full(ne_pad, nv_pad, np.int32)
+    dst = np.zeros(ne_pad, np.int32)
+    w = np.zeros(ne_pad, np.float32)
+    src[:n_real] = rng.integers(0, nv_pad, n_real)
+    dst[:n_real] = rng.integers(0, nv_pad, n_real)
+    src[:n_hot] = 11
+    dst[:n_hot] = rng.choice(nv_pad, n_dst, replace=False)[
+        rng.integers(0, n_dst, n_hot)]
+    dst[: n_hot // 3] = 11
+    w[:n_real] = rng.integers(0, 16, n_real) / 4.0
+    perm = rng.permutation(ne_pad)
+    return src[perm], dst[perm], w[perm]
 
 
 def folded_case(n_tenants, nv_pad, n_rows, width, seed):
@@ -312,22 +335,148 @@ def test_louvain_on_card_matches_cpu(cuda_device):
     assert abs(rg.modularity - rc.modularity) <= 1e-9
 
 
+def assert_rows_equal(got, ref):
+    """Two coalesced batches (src, dst, w [B, ne], n [B]), bit for bit."""
+    for g, r in zip(got, ref):
+        g = g.cpu()
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r)
+
+
+def coalesce_on_card(device, arrs, *, nv_pad, grid):
+    """seg_coalesce on the card and its twin on the CPU from the same
+    [B, ne] arrays; the launch count must go up by one."""
+    ref = seg_coalesce_plain(*arrs, nv_pad=nv_pad, grid=grid)
+    n = seg_coalesce.launches
+    got = seg_coalesce(*[a.to(device) for a in arrs], nv_pad=nv_pad,
+                       grid=grid)
+    torch.cuda.synchronize()
+    assert seg_coalesce.launches == n + 1
+    assert_rows_equal(got, ref)
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nv_pad", [64, 1024, 4096])
 @pytest.mark.parametrize("weights", ["dyadic", "float"])
 def test_seg_coalesce_kernel_matches_twin_on_card(cuda_device, nv_pad,
                                                   weights):
-    """The kernel sums each slot in f64 with atomics: the run sums of
-    these slabs are exact in f64, so acc and cnt are bit-equal to the
-    twin's sequential sums, float weights included."""
+    """The pipeline sums each run in f64 (warp sums and shared-memory
+    atomics): the run sums of these slabs are exact in f64, so the
+    coalesced rows are bit-equal to the twin's, float weights
+    included."""
     arrs = [torch.from_numpy(a)[None] for a in
             coalesce_case(nv_pad, 16384, nv_pad, gapped=nv_pad == 1024,
                           weights=weights)]
-    ref = seg_coalesce_plain(*arrs, grid=nv_pad)
-    got = seg_coalesce(*[a.to(cuda_device) for a in arrs], grid=nv_pad)
+    coalesce_on_card(cuda_device, arrs, nv_pad=nv_pad, grid=nv_pad)
+
+
+def _zero_weight_slab():
+    src = np.full(4096, 1024, np.int32)
+    dst = np.zeros(4096, np.int32)
+    w = np.zeros(4096, np.float32)
+    src[:3], dst[:3], w[:3] = [5, 7, 9], [6, 8, 10], [1.0, 0.0, 2.0]
+    src[3:300], dst[3:300] = 7, 8   # a 298-row run of weight 0 (dense)
+    return src, dst, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_src", "medium_buckets", "zero_weight",
+                                  "pure_padding", "empty_slab", "odd_ne"])
+def test_seg_coalesce_edge_cases_on_card(cuda_device, case):
+    """Bucket shapes the pipeline treats apart: every real row in one src
+    (a large block's dense row in shared memory), four tenants whose
+    buckets hold a few hundred to a few thousand rows (small blocks), zero-
+    weight runs (emitted by presence), a slab with no real row, a slab
+    with no row at all, and three tenants of 16,461 rows (not a multiple
+    of any block size)."""
+    if case == "one_src":
+        slabs, nv_pad = [hot_src_slab(4096, 32768, 1, all_hot=True)], 4096
+    elif case == "medium_buckets":
+        slabs, nv_pad = [], 512
+        for i in range(4):
+            src, dst, w = coalesce_case(nv_pad, 16384, 80 + i)
+            src[src < nv_pad] %= 4 * (i + 1)  # 4..16 buckets of the rows
+            slabs.append((src, dst, w))
+    elif case == "zero_weight":
+        slabs, nv_pad = [_zero_weight_slab()], 1024
+    elif case == "pure_padding":
+        slabs, nv_pad = [(np.full(8192, 512, np.int32),
+                          np.zeros(8192, np.int32),
+                          np.zeros(8192, np.float32))], 512
+    elif case == "empty_slab":
+        slabs, nv_pad = [(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                          np.zeros(0, np.float32))] * 2, 64
+    else:
+        nv_pad = 1024
+        slabs = [coalesce_case(nv_pad, 16384 + 77, 60 + i, gapped=i == 1)
+                 for i in range(3)]
+    arrs = [torch.from_numpy(np.stack(a)) for a in zip(*slabs)]
+    got = coalesce_on_card(cuda_device, arrs, nv_pad=nv_pad, grid=nv_pad)
+    n = got[3].tolist()
+    if case == "zero_weight":
+        assert n == [3] and float(got[2][0, 1]) == 0.0
+    elif case in ("pure_padding", "empty_slab"):
+        assert n == [0] * len(slabs)
+    else:
+        assert min(n) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv_pad", [16384, 32768])
+def test_seg_coalesce_dst_tiles_on_card(cuda_device, nv_pad, monkeypatch):
+    """Classes wider than one shared-memory tile of dst slots, admitted
+    by CUVITE_SEG_COALESCE_MAX_NV: the dense buckets re-read their rows
+    tile by tile; the rows equal the twin's and the sort engine's."""
+    from cuvite_tpu_torch.kernels.seg_coalesce import coalesce_engine
+    from cuvite_tpu_torch.ops.segment import coalesced_runs
+
+    monkeypatch.setenv("CUVITE_SEG_COALESCE_MAX_NV", str(nv_pad))
+    assert coalesce_engine(nv_pad) == "dense"
+    arrs = [torch.from_numpy(a) for a in hot_src_slab(nv_pad, 65536, 2)]
+    ref = seg_coalesce_plain(*[a[None] for a in arrs], nv_pad=nv_pad,
+                             grid=nv_pad)
+    n = seg_coalesce.launches
+    dev = [a.to(cuda_device) for a in arrs]
+    got = coalesced_runs(*dev, nv_pad=nv_pad, engine="dense")
+    assert seg_coalesce.launches == n + 1
+    assert_rows_equal([t[None] for t in got[:3]] + [torch.tensor([got[3]])],
+                      ref)
+    srt = coalesced_runs(*dev, nv_pad=nv_pad, engine="sort")
+    assert got[3] == srt[3]
+    for g, r in zip(got[:3], srt[:3]):
+        assert torch.equal(g, r)
+    del ref
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_seg_coalesce_makes_no_host_sync_on_card(cuda_device):
+    """The whole coalesce, one slab and a batch, under
+    torch.cuda.set_sync_debug_mode("error"): any call that waits on the
+    card raises."""
+    from cuvite_tpu_torch.ops.segment import coalesced_runs_batched
+
+    one = [torch.from_numpy(a)[None].to(cuda_device)
+           for a in hot_src_slab(4096, 32768, 3)]
+    many = [torch.from_numpy(np.stack(a)).to(cuda_device) for a in
+            zip(*[coalesce_case(512, 8192, 70 + i) for i in range(4)])]
+    n = seg_coalesce.launches
     torch.cuda.synchronize()
-    for r, g in zip(ref, got):
-        assert torch.equal(r, g.cpu())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [coalesced_runs_batched(*one, nv_pad=4096, engine="dense"),
+                coalesced_runs_batched(*many, nv_pad=512, engine="dense",
+                                       grid=512)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert seg_coalesce.launches == n + 2
+    assert_rows_equal(outs[0], seg_coalesce_plain(
+        *[a.cpu() for a in one], nv_pad=4096, grid=4096))
+    assert_rows_equal(outs[1], seg_coalesce_plain(
+        *[a.cpu() for a in many], nv_pad=512, grid=512))
 
 
 @pytest.mark.cuda
@@ -476,8 +625,8 @@ def test_batched_heavy_kernel_matches_twin_on_card(cuda_device):
 @pytest.mark.cuda
 def test_batched_seg_coalesce_matches_twin_on_card(cuda_device):
     """Four tenants, one of them pure padding, gapped ids and float
-    weights, in one launch: acc and cnt bit-equal to the twin, each
-    tenant compacted into its own prefix."""
+    weights, in one launch: each tenant's coalesced rows bit-equal to the
+    twin's, in its own prefix."""
     rows = []
     for i, gapped in enumerate((False, True, False)):
         rows.append(coalesce_case(512, 8192, 40 + i, gapped=gapped,
@@ -485,18 +634,8 @@ def test_batched_seg_coalesce_matches_twin_on_card(cuda_device):
     rows.append((np.full(8192, 512, np.int32), np.zeros(8192, np.int32),
                  np.zeros(8192, np.float32)))
     arrs = [torch.from_numpy(np.stack(a)) for a in zip(*rows)]
-    ref = seg_coalesce_plain(*arrs, grid=512)
-    n = seg_coalesce.launches
-    got = seg_coalesce(*[a.to(cuda_device) for a in arrs], grid=512)
-    torch.cuda.synchronize()
-    assert seg_coalesce.launches == n + 1
-    for r, g in zip(ref, got):
-        assert torch.equal(r, g.cpu())
-    er = emit_coalesced(*ref, ne_pad=8192, nv_pad=512)
-    eg = emit_coalesced(*got, ne_pad=8192, nv_pad=512)
-    for r, g in zip(er, eg):
-        assert torch.equal(r, g.cpu())
-    assert int(eg[3][3]) == 0
+    got = coalesce_on_card(cuda_device, arrs, nv_pad=512, grid=512)
+    assert int(got[3][3]) == 0 and min(got[3][:3].tolist()) > 0
 
 
 @pytest.mark.cuda

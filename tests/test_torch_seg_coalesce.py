@@ -1,8 +1,9 @@
 """cuvite_tpu_torch's segmented coalesce held against the JAX package on
-the CPU: the ``seg_coalesce`` twin and its compaction against the Pallas
-kernel (interpret mode) and the JAX sort engine, the port's packed sort
-against the JAX one at the packed-key edges, and the guards and the engine
-policy.  The CUDA kernel itself is held against the twin on a card, in
+the CPU: the ``seg_coalesce`` twin (its dense accumulate step and its
+compaction) against the Pallas kernel (interpret mode), the reference's
+``coalesce_slab`` and the JAX sort engine, the port's packed sort against
+the JAX one at the packed-key edges, and the guards and the engine policy.
+The CUDA pipeline itself is held against the twin on a card, in
 tests/test_torch_cuda.py.
 
 Slab weights are dyadic (multiples of 1/8): every run sum is exact in f32,
@@ -16,12 +17,13 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from cuvite_tpu.kernels.seg_coalesce import coalesce_slab as jax_coalesce_slab
 from cuvite_tpu.kernels.seg_coalesce import emit_coalesced as jax_emit
 from cuvite_tpu.kernels.seg_coalesce import seg_coalesce_pallas
 from cuvite_tpu.ops import segment as jseg
 from cuvite_tpu_torch.kernels import seg_coalesce as sc
 from cuvite_tpu_torch.ops import segment as seg
-from test_torch_cuda import coalesce_case
+from test_torch_cuda import coalesce_case, hot_src_slab
 
 
 def _jax(*arrs):
@@ -59,7 +61,7 @@ def test_twin_and_emit_match_pallas_and_jax_sort(nv_pad, ne_pad, gapped):
                                 gapped=gapped)
     jacc, jcnt = seg_coalesce_pallas(*_jax(src, dst, w), nv_pad=nv_pad,
                                      interpret=True)
-    acc, cnt = sc.seg_coalesce_plain(*_one(src, dst, w), grid=nv_pad)
+    acc, cnt = sc.dense_accumulate_plain(*_one(src, dst, w), grid=nv_pad)
     assert acc.dtype == torch.float64 and cnt.dtype == torch.int32
     assert np.array_equal(cnt[0].numpy(), np.asarray(jcnt))
     assert np.array_equal(acc[0].float().numpy(), np.asarray(jacc))
@@ -68,6 +70,8 @@ def test_twin_and_emit_match_pallas_and_jax_sort(nv_pad, ne_pad, gapped):
     emitted = _first(sc.emit_coalesced(acc, cnt, ne_pad=ne_pad,
                                        nv_pad=nv_pad))
     _assert_same_rows(emitted, ref)
+    _assert_same_rows(_first(sc.seg_coalesce_plain(
+        *_one(src, dst, w), nv_pad=nv_pad, grid=nv_pad)), ref)
     ref_sort = jseg.coalesced_runs(*_jax(src, dst, w), nv_pad=nv_pad,
                                    engine="sort")
     _assert_same_rows(emitted, ref_sort)
@@ -75,6 +79,31 @@ def test_twin_and_emit_match_pallas_and_jax_sort(nv_pad, ne_pad, gapped):
         _assert_same_rows(seg.coalesced_runs(*_torch(src, dst, w),
                                              nv_pad=nv_pad, engine=engine),
                           ref_sort)
+
+
+@pytest.mark.parametrize("engine", ["pallas", "xla"])
+@pytest.mark.parametrize("case", ["one_src", "no_real_row"])
+def test_twin_matches_reference_coalesce_slab(case, engine):
+    """The twin against the reference's whole dense coalesce
+    (``coalesce_slab``, Pallas in interpret mode or its XLA twin), tenant
+    by tenant: a slab whose rows all share one src, and a batch whose
+    second tenant has no real row."""
+    nv_pad, ne_pad = 256, 4096
+    slabs = [hot_src_slab(nv_pad, ne_pad, 3, all_hot=True)]
+    if case == "no_real_row":
+        slabs.append((np.full(ne_pad, nv_pad, np.int32),
+                      np.zeros(ne_pad, np.int32),
+                      np.zeros(ne_pad, np.float32)))
+    batch = _torch(*(np.stack(a) for a in zip(*slabs)))
+    got = sc.seg_coalesce_plain(*batch, nv_pad=nv_pad, grid=nv_pad)
+    for b, slab in enumerate(slabs):
+        ref = jax_coalesce_slab(*_jax(*slab), nv_pad=nv_pad, engine=engine,
+                                interpret=True)
+        mine = (got[0][b], got[1][b], got[2][b], int(got[3][b]))
+        _assert_same_rows(mine, ref)
+    assert int(got[3][0]) > 0
+    if case == "no_real_row":
+        assert int(got[3][1]) == 0 and (got[0][1] == nv_pad).all()
 
 
 def test_zero_weight_runs_emitted_by_presence():
@@ -136,15 +165,15 @@ def test_sort_matches_jax_at_packed_key_edges(nv_pad):
 def test_flat_nv_max_and_pow2_guards():
     src, dst, w = _one(*coalesce_case(64, 256, 0))
     with pytest.raises(ValueError, match="FLAT_NV_MAX"):
-        sc.seg_coalesce(src, dst, w, grid=sc.FLAT_NV_MAX * 2)
+        sc.seg_coalesce(src, dst, w, nv_pad=64, grid=sc.FLAT_NV_MAX * 2)
     with pytest.raises(ValueError, match="power of two"):
-        sc.seg_coalesce(src, dst, w, grid=96)
+        sc.seg_coalesce(src, dst, w, nv_pad=64, grid=96)
     with pytest.raises(ValueError, match=r"contiguous \[B, ne\]"):
-        sc.seg_coalesce(src.long(), dst, w, grid=64)
+        sc.seg_coalesce(src.long(), dst, w, nv_pad=64, grid=64)
     with pytest.raises(ValueError, match=r"contiguous \[B, ne\]"):
-        sc.seg_coalesce(src[0], dst[0], w[0], grid=64)
+        sc.seg_coalesce(src[0], dst[0], w[0], nv_pad=64, grid=64)
     with pytest.raises(ValueError, match="shapes"):
-        sc.seg_coalesce(src[:, :10], dst[:, :10], w, grid=64)
+        sc.seg_coalesce(src[:, :10], dst[:, :10], w, nv_pad=64, grid=64)
 
 
 def test_slab_ne_max_guard(monkeypatch):
@@ -163,8 +192,8 @@ def test_slab_ne_max_guard(monkeypatch):
 def test_cpu_tensors_run_the_twin_without_a_launch():
     src, dst, w = _one(*coalesce_case(256, 4096, 5))
     before = sc.seg_coalesce.launches
-    got = sc.seg_coalesce(src, dst, w, grid=256)
-    ref = sc.seg_coalesce_plain(src, dst, w, grid=256)
+    got = sc.seg_coalesce(src, dst, w, nv_pad=256, grid=256)
+    ref = sc.seg_coalesce_plain(src, dst, w, nv_pad=256, grid=256)
     assert sc.seg_coalesce.launches == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
