@@ -140,8 +140,29 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    least one retry; overlap_frac, the kernel build and warm-up seconds
    before the readiness line, and the served jobs' launches from the
    `stats` reply (fails if the row kernel or seg_coalesce never ran).
+22. the bench on the card through its command line, in subprocesses
+   (``python -m cuvite_tpu_torch.workloads bench``): R-MAT --scale with 2
+   timed runs (Q, phases and iterations equal to phase 5's, and the first
+   timed run's launches, counted in the child, equal to phase 5's), B=64
+   with phase 17's 64 synth 4096 jobs on both batched engines (a timed
+   pass's launches equal to phase 17's), and the serving bench at 200
+   jobs/s (jobs conserved);
+   each record valid, with a checked guard, platform cuda and phase 1's
+   card and power limit; then run_mixed_serve_bench on phase 20's 90:10
+   pools, merge off and on (the merged arm merges), and the guard on the
+   card: run_bench with its first timed run pointed at an emptied build
+   directory must raise BenchCompileGuardError;
+23. the command line: ``-n 65536 -e 10 --json --trace-out --metrics-out
+   -s -o`` on the card and with --device cpu (JSON equal but for seconds
+   and teps, labels identical, traces valid, the metrics file's keys the
+   reference's, g.bin equal to the generated graph, Q the host f64
+   modularity of the labels); ``serve demo --trace-out`` (a valid trace
+   with pack and execute spans); louvain_phases on R-MAT --scale with a
+   flight recorder under torch.cuda.set_sync_debug_mode("warn"): labels
+   equal to phase 5's and no more synchronizing operations than without
+   the tracer.
    All three kernels printed as one JSON line, with their launches on
-   every path and their batched forms' times.
+   every path (the bench's among them) and their batched forms' times.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -601,7 +622,7 @@ def run_main_path(g, scale: int) -> tuple:
     if abs(q_host - res.modularity) > 1e-6:
         fail(f"reported Q {res.modularity} vs host f64 {q_host}")
     print(f"  reported Q {res.modularity:.9f}, host f64 Q {q_host:.9f}")
-    return launches, sweeps, total_s
+    return launches, sweeps, total_s, res
 
 
 # Bounds count the bytes the function must move on this run's data: each
@@ -2245,6 +2266,336 @@ def run_daemon(direct, pipeline: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-23: the bench harness, the command line and the flight
+# recorder.
+
+CLI_METRICS_KEYS = {"graph", "nv", "ne", "modularity", "communities",
+                    "iterations", "phases", "seconds", "teps", "stages",
+                    "rss_mb", "convergence", "compile_events",
+                    "hbm_peak_by_buffer", "hbm_snapshots"}
+
+
+def smi_card(line: str) -> tuple:
+    """(name, power limit in W) of an ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` line."""
+    name, limit = (x.strip() for x in line.rsplit(",", 1))
+    return name, float(limit.split()[0])
+
+
+def bench_child(what: str, argv: list, card: tuple) -> tuple:
+    """``python -m cuvite_tpu_torch.workloads bench ARGV`` in a child on
+    the card.  Fails unless it exits 0 with exactly one JSON line: a
+    valid record with a checked guard, platform cuda, phase 1's card and
+    non-negative stage seconds.  Returns (record, stderr, wall s)."""
+    from cuvite_tpu_torch.workloads.bench import validate_record
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "cuvite_tpu_torch.workloads", "bench",
+         *argv], cwd=root, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        fail(f"{what}: bench exited {out.returncode}: {out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    if len(lines) != 1:
+        fail(f"{what}: bench printed {len(lines)} lines on stdout")
+    rec = json.loads(lines[0])
+    problems = validate_record(rec)
+    if problems:
+        fail(f"{what}: invalid record {problems}")
+    if rec["compile_guard"] != {"checked": True, "new_compiles": 0}:
+        fail(f"{what}: guard {rec['compile_guard']}")
+    if (rec["platform"], rec["device"], rec["power_limit_w"]) != \
+            ("cuda", *card):
+        fail(f"{what}: record on {rec['platform']} {rec['device']} "
+             f"{rec['power_limit_w']} W, not phase 1's card {card}")
+    if any(v < 0 for v in rec["stages"].values()):
+        fail(f"{what}: negative stage seconds {rec['stages']}")
+    print_record(what, rec, wall)
+    return rec, out.stderr, wall
+
+
+def print_record(what: str, rec: dict, wall: float) -> None:
+    print(f"  {what}:")
+    print(f"    {rec['metric']} {rec['value']} {rec['unit']} "
+          f"(vs_baseline {rec['vs_baseline']})")
+    print(f"    wall {wall:.3f} s (the whole command or call, set-up and "
+          "warm-up included)")
+    print(f"    peak_alloc_bytes {rec['peak_alloc_bytes']}")
+    print(f"    spread {rec.get('spread')} over runs "
+          f"{rec.get('teps_runs')}")
+    for blk in ("batch", "serve", "mix"):
+        if blk in rec:
+            print(f"    {blk} {json.dumps(rec[blk])}")
+    print(f"    stages {json.dumps(rec['stages'])}")
+    print(f"    card {rec['device']}, {rec['power_limit_w']} W")
+
+
+def stderr_json(what: str, err: str, prefix: str):
+    for line in err.splitlines():
+        if line.startswith(prefix):
+            return json.loads(line[len(prefix):])
+    fail(f"{what}: no '{prefix}' line on the child's stderr")
+
+
+def check_guard_trip(scale: int) -> None:
+    """Phase 22, the guard on the card: ``run_bench`` in this process,
+    its first timed run pointed at a freshly emptied build directory, so
+    that it must build and load the kernel libraries again."""
+    import tempfile
+    from pathlib import Path
+
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.kernels import _build
+    from cuvite_tpu_torch.workloads.bench import (
+        BenchCompileGuardError,
+        run_bench,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    empty = Path(tempfile.mkdtemp(dir=os.path.join(root, "build",
+                                                   "chip_smoke")))
+    g = generate_rmat(scale)
+    calls = []
+    saved_dir, saved_libs = _build.BUILD_DIR, dict(_build._LIBS)
+
+    def factory():
+        calls.append(1)
+        if len(calls) == 2:
+            _build.BUILD_DIR = empty
+            _build._LIBS.clear()
+        return g
+
+    try:
+        run_bench(factory, repeats=1, t_start=time.perf_counter())
+    except BenchCompileGuardError as e:
+        print(f"  guard tripped on R-MAT {scale} with an emptied build "
+              f"directory: {e}; events {e.compile_log}")
+        if not any(line.startswith("load ") for line in e.compile_log):
+            fail(f"guard trip without a library load: {e.compile_log}")
+    else:
+        fail("the bench emitted a record although its first timed run "
+             "built and loaded the kernels")
+    finally:
+        _build.BUILD_DIR = saved_dir
+        _build._LIBS.clear()
+        _build._LIBS.update(saved_libs)
+
+
+def run_bench_phase(card: tuple, scale: int, main_res, paths: dict) -> dict:
+    """Phase 22.  Returns the launch counts of the bench paths."""
+    from cuvite_tpu_torch.workloads.bench import (
+        run_mixed_serve_bench,
+        validate_record,
+    )
+
+    out = {}
+    main_launches = paths[f"bucketed R-MAT {scale}"]
+    what = f"bench R-MAT {scale}"
+    rec, err, _ = bench_child(what, ["--graph", "rmat", "--scale",
+                                     str(scale), "--repeats", "2"], card)
+    got = (rec["modularity"], rec["phases"], rec["iterations"])
+    want = (round(main_res.modularity, 6), len(main_res.phases),
+            main_res.total_iterations)
+    if got != want:
+        fail(f"{what}: Q, phases, iterations {got}, phase 5 {want}")
+    cats = {"tables", "plans"} | ({"slab"} if rec.get("rebin_device")
+                                  else set())
+    if not cats <= set(rec["hbm_peak_by_buffer"]):
+        fail(f"{what}: memory ledger {rec['hbm_peak_by_buffer']} lacks "
+             f"{cats}")
+    run1 = stderr_json(what, err, "# launches run 1: ")
+    if run1 != main_launches:
+        fail(f"{what}: timed run 1 launched {run1}, phase 5 "
+             f"{main_launches}")
+    print(f"  {what}: Q, phases and iterations {got} as phase 5; "
+          f"timed run 1 launched {run1}, as phase 5; ledger peaks "
+          f"{rec['hbm_peak_by_buffer']}")
+    out[f"bench R-MAT {scale}, timed run 1"] = run1
+
+    # --batch-jobs 64: the job set is phase 17's batch itself, so the
+    # bucket geometry the bench pins over its jobs is that batch's own,
+    # and a pass's launches must equal phase 17's.
+    for engine in ("bucketed", "fused"):
+        what = (f"bench --batch 64 --batch-jobs 64 --batch-edges 4096 "
+                f"--batch-engine {engine}")
+        rec, err, _ = bench_child(what, ["--batch", "64", "--batch-jobs",
+                                         "64", "--batch-edges", "4096",
+                                         "--batch-engine", engine], card)
+        (pass1,) = stderr_json(what, err, "# launches pass 1, by batch: ")
+        want = paths[f"serving 4096 {engine}"]
+        if pass1 != want or pass1["seg_coalesce"] == 0:
+            fail(f"{what}: timed pass 1 launched {pass1}, phase 17 {want}")
+        print(f"  {what}: timed pass 1 launched {pass1}, as phase 17")
+        out[f"bench --batch 64 synth 4096 {engine}, timed pass 1"] = pass1
+
+    what = "bench --serve-rate 200 --batch-edges 1024 --serve-b-max 8"
+    rec, _, _ = bench_child(what, ["--serve-rate", "200", "--batch-edges",
+                                   "1024", "--serve-b-max", "8",
+                                   "--batch-jobs", "64"], card)
+    c = rec["serve"]["conservation"]
+    if not (c["ok"] and c["done"] + c["failed"] + c["shed"] + c["pending"]
+            + c["inflight"] == c["submitted"]):
+        fail(f"{what}: conservation {c}")
+    print(f"  {what}: conservation {c}")
+
+    for merge in (False, True):
+        what = (f"run_mixed_serve_bench, 90:10 pools at 2000 jobs/s, merge "
+                f"{'on' if merge else 'off'}")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        rec = run_mixed_serve_bench(
+            rate=2000.0, merge_packing=merge, b_max=4, small_edges=1024,
+            big_scale=13, big_edge_factor=2, n_small=72, n_big=8,
+            slo_ms=500.0, linger_ms=20.0, engine="bucketed",
+            t_start=time.perf_counter())
+        wall = time.perf_counter() - t0
+        out[what] = kernel_counts()
+        problems = validate_record(rec)
+        if problems or rec["compile_guard"]["new_compiles"] != 0:
+            fail(f"{what}: invalid record {problems}")
+        if merge and rec["mix"]["merged_batches"] < 1:
+            fail(f"{what}: the merged arm packed no merged batch")
+        print_record(what, rec, wall)
+        print(f"    launches (warm-up included) {out[what]}")
+
+    check_guard_trip(14)
+    return out
+
+
+def cli_child(argv: list, cwd: str, timeout: int = 900) -> str:
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, *argv], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode:
+        fail(f"{' '.join(argv[:3])}: exit {out.returncode}: "
+             f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def count_syncs(fn) -> tuple:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``; returns
+    (its result, the synchronizing operations it warned of)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return res, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def run_cli_phase(scale: int, g_rmat, main_res) -> None:
+    """Phase 23."""
+    import tempfile
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+    from cuvite_tpu_torch.io.generate import generate_rgg
+    from cuvite_tpu_torch.io.vite import read_vite
+    from cuvite_tpu_torch.obs import (
+        FlightRecorder,
+        read_trace,
+        spans_of,
+        validate_trace,
+    )
+    from cuvite_tpu_torch.utils.trace import Tracer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(dir=os.path.join(root, "build", "chip_smoke"))
+    runs = {}
+    for where in ("card", "cpu"):
+        d = os.path.join(work, where)
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        line = cli_child(["-m", "cuvite_tpu_torch.cli", "-n", "65536", "-e",
+                          "10", "--json", "--quiet", "-o", "--trace-out",
+                          "t.jsonl", "--metrics-out", "m.json", "-s",
+                          "g.bin"]
+                         + (["--device", "cpu"] if where == "cpu" else []),
+                         d).strip().splitlines()[-1]
+        runs[where] = (json.loads(line), d, time.perf_counter() - t0)
+    (js, d, wall), (cjs, cd, cwall) = runs["card"], runs["cpu"]
+    drop = ("seconds", "teps")
+    if {k: v for k, v in js.items() if k not in drop} != \
+            {k: v for k, v in cjs.items() if k not in drop}:
+        fail(f"cli -n 65536 -e 10: card {js} and CPU {cjs} differ")
+    labels = np.loadtxt(os.path.join(d, "rgg65536.communities"),
+                        dtype=np.int64)
+    if not np.array_equal(labels, np.loadtxt(
+            os.path.join(cd, "rgg65536.communities"), dtype=np.int64)):
+        fail("cli -n 65536 -e 10: card and CPU labels differ")
+    for where_dir in (d, cd):
+        problems = validate_trace(read_trace(os.path.join(where_dir,
+                                                          "t.jsonl")))
+        if problems:
+            fail(f"cli trace: {problems[:5]}")
+        with open(os.path.join(where_dir, "m.json")) as f:
+            m = json.load(f)
+        if set(m) != CLI_METRICS_KEYS:
+            fail(f"cli metrics keys {sorted(m)}")
+    g = generate_rgg(65536, random_edge_percent=10)
+    back = read_vite(os.path.join(d, "g.bin"), bits64=False)
+    for name in ("offsets", "tails", "weights"):
+        if not np.array_equal(getattr(back, name), getattr(g, name)):
+            fail(f"cli -s g.bin: {name} differ from the generated graph")
+    q = modularity(g, labels)
+    if abs(q - js["modularity"]) > 1e-6:
+        fail(f"cli Q {js['modularity']} vs host f64 {q}")
+    with open(os.path.join(d, "m.json")) as f:
+        m = json.load(f)
+    print(f"  cli -n 65536 -e 10 on the card ({wall:.2f} s) and with "
+          f"--device cpu ({cwall:.2f} s): {js['ne']} directed edges, "
+          f"{js['phases']} phases, {js['iterations']} iterations, Q "
+          f"{js['modularity']:.9f} (host f64 of the labels {q:.9f}); "
+          f"JSON lines equal but seconds and teps (card {js['seconds']:.3f}"
+          f" s, CPU {cjs['seconds']:.3f} s), labels identical, traces "
+          f"valid, g.bin equal to the generated graph; card compile events "
+          f"{m['compile_events']}, memory peaks {m['hbm_peak_by_buffer']}")
+
+    sd = os.path.join(work, "serve")
+    os.makedirs(sd)
+    cli_child(["-m", "cuvite_tpu_torch.serve", "demo", "--jobs", "64",
+               "--edges", "4096", "--trace-out", "s.jsonl"], sd)
+    recs = read_trace(os.path.join(sd, "s.jsonl"))
+    problems = validate_trace(recs)
+    names = {s["name"] for s in spans_of(recs)}
+    if problems or not {"pack", "execute"} <= names:
+        fail(f"serve demo trace: {problems[:5]}, spans {names}")
+    print(f"  serve demo --trace-out: {len(recs)} records, valid, spans "
+          f"{sorted(names)}")
+
+    res_plain, n_plain = count_syncs(lambda: louvain_phases(g_rmat))
+
+    def traced():
+        with FlightRecorder() as rec:
+            return louvain_phases(g_rmat, tracer=Tracer(recorder=rec)), rec
+
+    (res_traced, rec), n_traced = count_syncs(traced)
+    for what, res in (("without", res_plain), ("with", res_traced)):
+        if not np.array_equal(res.communities, main_res.communities):
+            fail(f"R-MAT {scale} {what} a tracer: labels differ from "
+                 "phase 5's")
+    if n_traced > n_plain:
+        fail(f"R-MAT {scale}: {n_traced} synchronizing operations with a "
+             f"tracer, {n_plain} without")
+    problems = validate_trace(rec.records)
+    if problems:
+        fail(f"R-MAT {scale} trace: {problems[:5]}")
+    print(f"  R-MAT {scale} with a flight recorder: labels equal to phase "
+          f"5's; {n_traced} synchronizing operations warned of, {n_plain} "
+          f"without a tracer; {len(rec.records)} trace records, memory "
+          f"peaks {rec.ledger.peak_by_buffer}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -2307,7 +2658,7 @@ def main() -> int:
     print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
           f"edges, max degree {int(g.degrees().max())} in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches, sweeps, bucketed_s = run_main_path(g, args.scale)
+    launches, sweeps, bucketed_s, main_res = run_main_path(g, args.scale)
 
     print(f"[6] kernels at the R-MAT {args.scale} phase-0 shapes")
     kernels = time_kernels(g, launches, sweeps)
@@ -2487,6 +2838,14 @@ def main() -> int:
         paths[f"daemon {name}, 64 synth 4096, b_max 16"] = run_daemon(
             direct["bucketed"], pipeline)
     print(f"  phases 19-21 took {time.perf_counter() - t19:.1f} s")
+
+    t22 = time.perf_counter()
+    card = smi_card(smi_line())
+    print("[22] the bench on the card, through its command line")
+    paths.update(run_bench_phase(card, args.scale, main_res, paths))
+    print("[23] the command line and the flight recorder on the card")
+    run_cli_phase(args.scale, generate_rmat(args.scale), main_res)
+    print(f"  phases 22-23 took {time.perf_counter() - t22:.1f} s")
 
     kernels[0]["batched"] = batched_rows
     kernels[1]["batched"] = batched_heavy

@@ -23,9 +23,11 @@ larger class (sub-row packing).  ``cuvite_tpu_torch.serve`` is the serving
 layer on top (``LouvainServer``, admission, faults, the pipelined
 dispatcher and the socket daemon; ``python -m cuvite_tpu_torch.serve
 demo|cluster-many|daemon``, with ``--device cpu`` for the CPU).
-Not ported yet: multi-GPU, the ``szT`` size channel, the RGG ``-e`` extra
-edges, streaming (the daemon's ``delta`` verb), the flight recorder, the
-concurrency checker's scheduler and the serve benches.
+The flight recorder (``obs/``) rides on the drivers' ``tracer=``, and
+``python -m cuvite_tpu_torch.workloads bench`` prints the reference's
+bench record (``workloads/bench.py``).  Not ported yet: multi-GPU, the
+``szT`` size channel, streaming (the daemon's ``delta`` verb) and the
+concurrency checker's scheduler.
 
 The package imports torch and numpy only; it never imports JAX or
 ``cuvite_tpu``.

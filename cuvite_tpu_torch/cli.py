@@ -1,22 +1,43 @@
-"""Command line for the port (a subset of ``cuvite_tpu/cli.py``).
+"""Command line for the port (the single-GPU flags of
+``cuvite_tpu/cli.py``), the counterpart of the reference application's
+``graphClustering``.
 
-    python -m cuvite_tpu_torch.cli --rmat 20
-    python -m cuvite_tpu_torch.cli -n 4194304 --engine sort
+    python -m cuvite_tpu_torch.cli --rmat 20 [--edge-factor 16]
+    python -m cuvite_tpu_torch.cli -n 4194304 -e 10 --engine sort
     python -m cuvite_tpu_torch.cli --file graph.bin [--bits64] --output
-    python -m cuvite_tpu_torch.cli --rmat 20 --engine fused
+    python -m cuvite_tpu_torch.cli --rmat 20 --engine fused --json
     python -m cuvite_tpu_torch.cli --rmat 20 -t 3 -c 8
     python -m cuvite_tpu_torch.cli --rmat 20 --checkpoint-dir ck [--resume]
+    python -m cuvite_tpu_torch.cli -n 65536 -s g.bin -j
+    python -m cuvite_tpu_torch.cli --file g.bin -g truth.txt [--gt-zero-based]
+    python -m cuvite_tpu_torch.cli --rmat 16 --trace --trace-out t.jsonl \\
+        --metrics-out m.json [--profile-dir prof] [--quiet]
 
-``-n NV`` generates the random geometric graph of the reference
-application's ``-n`` (no ``-e`` extra edges yet), ``--seed`` its stream.
+Flags as in the reference (reference application -> here): ``-f`` file,
+``-n NV`` the random geometric graph of its generator with ``-e PCT``
+extra long-range edges, ``-s FILE`` write the generated graph, ``-j``
+load or generate only, ``-g FILE`` compare with a ground truth (1-based
+ids unless ``--gt-zero-based``), ``-o`` write the communities, ``-t`` /
+``-a`` early termination, ``-c`` / ``-d`` coloring and vertex ordering,
+``-i`` threshold cycling, ``-p`` one phase.  ``--json`` prints the
+reference's summary line, ``--trace`` the stage breakdown, ``--trace-out``
+the flight recorder's JSONL trace, ``--metrics-out`` its metrics file,
+``--profile-dir`` the card's allocator snapshot.
 
-Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
-PyTorch versions instead.
+Runs on the CUDA card by default; ``--device cpu`` runs the kernels'
+plain PyTorch versions instead, and the reference's ``--platform`` has no
+other counterpart.  Not ported yet: the multi-device and multi-host flags
+(``--shards``, ``--mesh``, ``--exchange``, ``--balanced``,
+``--dist-ingest``, ``--distributed`` with its coordinator and process
+flags, ``--dist-stats``, ``--diag-prefix``), which wait for multi-GPU
+(``ROADMAP.md`` queue A item 7).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import sys
 import time
 
@@ -25,82 +46,210 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cuvite_tpu_torch",
         description="Louvain community detection on one CUDA device")
-    src = p.add_mutually_exclusive_group(required=True)
+    src = p.add_argument_group("input")
     src.add_argument("--file", "-f", help="Vite binary graph file")
-    src.add_argument("--rmat", type=int, metavar="SCALE",
-                     help="generate an R-MAT graph of 2^SCALE vertices")
+    src.add_argument("--bits64", action="store_true",
+                     help="64-bit vertex ids / double weights in the file")
     src.add_argument("--generate", "-n", type=int, metavar="NV",
                      help="generate a random geometric graph of NV "
                           "vertices")
-    p.add_argument("--seed", type=int, default=1,
-                   help="seed of the generated graph")
-    p.add_argument("--engine", choices=("auto", "bucketed", "sort", "fused"),
-                   default="auto",
-                   help="sweep engine (auto = bucketed)")
-    p.add_argument("--bits64", action="store_true",
-                   help="the file uses 64-bit ids and weights")
-    p.add_argument("--threshold", type=float, default=1e-6)
-    p.add_argument("--threshold-cycling", "-i", action="store_true")
-    p.add_argument("--one-phase", "-p", action="store_true")
-    p.add_argument("--early-term", "-t", type=int, choices=[1, 2, 3, 4],
-                   help="early termination mode")
-    p.add_argument("--et-delta", "-a", type=float, default=0.25)
-    p.add_argument("--coloring", "-c", type=int, metavar="NC",
-                   help="distance-1 coloring with NC max colors")
-    p.add_argument("--vertex-ordering", "-d", type=int, metavar="NC",
-                   help="color-based vertex ordering with NC max colors")
-    p.add_argument("--checkpoint-dir", metavar="DIR",
-                   help="save the state after each phase")
-    p.add_argument("--resume", action="store_true",
-                   help="resume from the latest checkpoint in "
-                        "--checkpoint-dir")
-    p.add_argument("--output", "-o", action="store_true",
-                   help="write <graph>.communities")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card)")
+    src.add_argument("--rmat", type=int, metavar="SCALE",
+                     help="generate an R-MAT graph of 2^SCALE vertices")
+    src.add_argument("--edge-factor", type=int, default=16,
+                     help="R-MAT edges per vertex")
+    src.add_argument("--random-edges", "-e", type=int, default=0,
+                     metavar="PCT",
+                     help="percent extra random edges for generated graphs")
+    src.add_argument("--seed", type=int, default=1,
+                     help="seed of the generated graph")
+    src.add_argument("--write-graph", "-s", metavar="FILE",
+                     help="write the generated graph in Vite binary format")
+
+    run = p.add_argument_group("clustering")
+    run.add_argument("--device", default=None,
+                     help="torch device (default: the CUDA card)")
+    run.add_argument("--engine", choices=("auto", "bucketed", "sort",
+                                          "fused"),
+                     default="auto", help="sweep engine (auto = bucketed)")
+    run.add_argument("--threshold", type=float, default=1e-6)
+    run.add_argument("--threshold-cycling", "-i", action="store_true")
+    run.add_argument("--one-phase", "-p", action="store_true")
+    run.add_argument("--early-term", "-t", type=int, choices=[1, 2, 3, 4],
+                     help="early termination mode")
+    run.add_argument("--et-delta", "-a", type=float, default=0.25)
+    run.add_argument("--coloring", "-c", type=int, metavar="NC",
+                     help="distance-1 coloring with NC max colors")
+    run.add_argument("--vertex-ordering", "-d", type=int, metavar="NC",
+                     help="color-based vertex ordering with NC max colors")
+    run.add_argument("--checkpoint-dir", metavar="DIR",
+                     help="save the state after each phase")
+    run.add_argument("--resume", action="store_true",
+                     help="resume from the latest checkpoint in "
+                          "--checkpoint-dir")
+
+    out = p.add_argument_group("output")
+    out.add_argument("--output", "-o", action="store_true",
+                     help="write <graph>.communities")
+    out.add_argument("--ground-truth", "-g", metavar="FILE",
+                     help="compare against a ground truth (LFR format)")
+    out.add_argument("--gt-zero-based", action="store_true",
+                     help="ground-truth community ids start at 0")
+    out.add_argument("--just-process", "-j", action="store_true",
+                     help="load or generate (and write) the graph only")
+    out.add_argument("--json", action="store_true",
+                     help="emit a machine-readable summary line")
+    out.add_argument("--trace", action="store_true",
+                     help="print the stage-time breakdown, counters, TEPS "
+                          "and RSS high-water")
+    out.add_argument("--trace-out", metavar="FILE.jsonl",
+                     help="write the flight recorder's span/event trace "
+                          "as JSONL")
+    out.add_argument("--metrics-out", metavar="FILE.json",
+                     help="write a metrics summary: stage times, "
+                          "convergence rows, kernel build and load "
+                          "events, device-memory peaks")
+    out.add_argument("--profile-dir", metavar="DIR",
+                     help="write the card's allocator snapshot "
+                          "(torch.cuda.memory_stats) under DIR")
+    out.add_argument("--quiet", action="store_true")
     return p
+
+
+def validate(args) -> None:
+    """The reference's checks (``cuvite_tpu/cli.py:169``) for the flags
+    the port has."""
+    if not args.file and args.generate is None and args.rmat is None:
+        raise SystemExit("Must specify --file, --generate or --rmat")
+    if sum(x is not None for x in (args.file, args.generate, args.rmat)) > 1:
+        raise SystemExit("--file, --generate and --rmat are exclusive")
+    if args.random_edges and args.generate is None:
+        raise SystemExit("--random-edges requires --generate")
+    if args.coloring and args.vertex_ordering:
+        raise SystemExit("Cannot enable both --coloring and --vertex-ordering")
+    if args.one_phase and args.threshold_cycling:
+        raise SystemExit("Cannot combine --one-phase with --threshold-cycling")
+    if args.early_term in (2, 4) and not (0.0 <= args.et_delta <= 1.0):
+        raise SystemExit("--et-delta must be in [0, 1]")
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
+    if args.checkpoint_dir and args.one_phase:
+        raise SystemExit("--checkpoint-dir is incompatible with --one-phase")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from cuvite_tpu_torch.evaluate.modularity import (
-        modularity,
+    validate(args)
+    from cuvite_tpu_torch.evaluate.compare import (
+        compare_communities,
+        load_ground_truth,
         write_communities,
     )
+    from cuvite_tpu_torch.evaluate.modularity import modularity
     from cuvite_tpu_torch.io.generate import generate_rgg, generate_rmat
-    from cuvite_tpu_torch.io.vite import read_vite
+    from cuvite_tpu_torch.io.vite import read_vite, write_vite
     from cuvite_tpu_torch.louvain.driver import louvain_phases
+    from cuvite_tpu_torch.utils.trace import Tracer, rss_high_water_mb
 
     t0 = time.perf_counter()
     if args.file:
         graph = read_vite(args.file, bits64=args.bits64)
         name = args.file
-    elif args.generate is not None:
-        graph = generate_rgg(args.generate, seed=args.seed)
-        name = f"rgg{args.generate}"
-    else:
-        graph = generate_rmat(args.rmat, seed=args.seed)
+    elif args.rmat is not None:
+        graph = generate_rmat(args.rmat, edge_factor=args.edge_factor,
+                              seed=args.seed)
         name = f"rmat{args.rmat}"
-    print(f"Loaded graph: {graph.num_vertices} vertices, "
-          f"{graph.num_edges} directed edges "
-          f"({time.perf_counter() - t0:.2f}s)")
-    res = louvain_phases(graph, threshold=args.threshold,
-                         threshold_cycling=args.threshold_cycling,
-                         one_phase=args.one_phase, verbose=True,
-                         device=args.device, engine=args.engine,
-                         et_mode=args.early_term or 0,
-                         et_delta=args.et_delta,
-                         coloring=args.coloring or 0,
-                         vertex_ordering=args.vertex_ordering or 0,
-                         checkpoint_dir=args.checkpoint_dir,
-                         resume=args.resume)
+    else:
+        graph = generate_rgg(args.generate, seed=args.seed,
+                             random_edge_percent=args.random_edges)
+        name = f"rgg{args.generate}"
+    if not args.quiet:
+        print(f"Loaded graph: {graph.num_vertices} vertices, "
+              f"{graph.num_edges} directed edges "
+              f"({time.perf_counter() - t0:.2f}s)")
+    if args.write_graph:
+        write_vite(args.write_graph, graph, bits64=args.bits64)
+        if not args.quiet:
+            print(f"Wrote graph to {args.write_graph}")
+    if args.just_process:
+        return 0
+
+    # Any of --trace-out / --metrics-out / --profile-dir attaches a flight
+    # recorder; without --trace-out it keeps no emitter (NO_TRACE).
+    recorder = None
+    rec_ctx = contextlib.nullcontext()
+    if args.trace_out or args.metrics_out or args.profile_dir:
+        from cuvite_tpu_torch.obs import (
+            NO_TRACE,
+            FlightRecorder,
+            JsonlTraceSink,
+        )
+
+        sink = JsonlTraceSink(args.trace_out) if args.trace_out else NO_TRACE
+        recorder = FlightRecorder(sink, profile_dir=args.profile_dir)
+        rec_ctx = recorder
+    tracer = Tracer(enabled=args.trace, recorder=recorder)
+    with rec_ctx:
+        res = louvain_phases(graph, threshold=args.threshold,
+                             threshold_cycling=args.threshold_cycling,
+                             one_phase=args.one_phase,
+                             verbose=not args.quiet, device=args.device,
+                             engine=args.engine,
+                             et_mode=args.early_term or 0,
+                             et_delta=args.et_delta,
+                             coloring=args.coloring or 0,
+                             vertex_ordering=args.vertex_ordering or 0,
+                             checkpoint_dir=args.checkpoint_dir,
+                             resume=args.resume, tracer=tracer)
+    if args.trace:
+        print(tracer.report())
+    if args.trace_out and not args.quiet:
+        print(f"Wrote trace to {args.trace_out}")
+
     q = modularity(graph, res.communities)
-    print(f"Final modularity: {q:.6f} ({res.num_communities} communities, "
-          f"{res.total_iterations} iterations, {res.total_seconds:.2f}s)")
+    teps = sum(p.num_edges * p.iterations for p in res.phases) / max(
+        sum(p.seconds for p in res.phases), 1e-9)
+    if not args.quiet:
+        print(f"Final modularity: {q:.6f} "
+              f"({res.num_communities} communities, "
+              f"{res.total_iterations} iterations, "
+              f"{res.total_seconds:.2f}s, TEPS {teps:.3g})")
     if args.output:
         out = name + ".communities"
         write_communities(out, res.communities)
-        print(f"Wrote communities to {out}")
+        if not args.quiet:
+            print(f"Wrote communities to {out}")
+    if args.ground_truth:
+        truth = load_ground_truth(args.ground_truth,
+                                  zero_based=args.gt_zero_based)
+        print(compare_communities(truth, res.communities).report())
+
+    summary = {
+        "graph": name,
+        "nv": graph.num_vertices,
+        "ne": graph.num_edges,
+        "modularity": q,
+        "communities": res.num_communities,
+        "iterations": res.total_iterations,
+        "phases": len(res.phases),
+        "seconds": res.total_seconds,
+        "teps": teps,
+    }
+    if args.json:
+        print(json.dumps(summary))
+    if args.metrics_out:
+        metrics = dict(summary)
+        metrics["stages"] = tracer.breakdown()
+        metrics["rss_mb"] = round(rss_high_water_mb(), 1)
+        if res.convergence:
+            metrics["convergence"] = [pc.to_dict() for pc in res.convergence]
+        metrics["compile_events"] = recorder.compile_events
+        metrics["hbm_peak_by_buffer"] = recorder.ledger.peak_by_buffer
+        metrics["hbm_snapshots"] = recorder.ledger.snapshots
+        with open(args.metrics_out, "w", encoding="utf-8") as f:
+            json.dump(metrics, f, indent=1)
+            f.write("\n")
+        if not args.quiet:
+            print(f"Wrote metrics to {args.metrics_out}")
     return 0
 
 

@@ -7,7 +7,9 @@
   rn = (rc + rt)/2, weighted by the distance.  The points, edges and
   weights are bit-identical to the reference package's for every
   (nv, nshards, seed).  Neighbours are found with scipy's ``cKDTree``, as
-  in the reference.  The ``-e`` extra long-range edges are not ported yet.
+  in the reference.  ``random_edge_percent`` adds the ``-e`` extra
+  long-range edges (port of ``_rgg_extra_edges``, ``:93-177``), also
+  bit-identical.
 - ``generate_rmat`` (port of ``:180-234``): Graph500-style R-MAT (a=0.57,
   b=0.19, c=0.19) with a counter-based SplitMix64 RNG, bit-identical to
   the reference package's for every (scale, edge_factor, seed).
@@ -20,8 +22,8 @@ from scipy.spatial import cKDTree
 
 from cuvite_tpu_torch.core.graph import Graph
 from cuvite_tpu_torch.core.types import Policy, default_policy
-from cuvite_tpu_torch.utils.rng import lcg_stream, scramble_ids, \
-    splitmix64, u01
+from cuvite_tpu_torch.utils.rng import lcg_stream, \
+    minstd0_uniform_real, scramble_ids, splitmix64, u01
 
 
 def rgg_radius(nv: int) -> float:
@@ -48,10 +50,11 @@ def rgg_points(nv: int, nshards: int,
 
 
 def generate_rgg(nv: int, nshards: int = 1, seed: int = 1,
-                 policy: Policy | None = None) -> Graph:
-    """Random geometric graph of ``-n nv`` (no ``-e`` extra edges).  The
-    point count is nv rounded down to a multiple of ``nshards``, as in the
-    reference."""
+                 policy: Policy | None = None, *,
+                 random_edge_percent: int = 0) -> Graph:
+    """Random geometric graph of ``-n nv``, with ``-e
+    random_edge_percent`` extra long-range edges.  The point count is nv
+    rounded down to a multiple of ``nshards``, as in the reference."""
     policy = policy or default_policy()
     n = nv // nshards
     nv_eff = n * nshards
@@ -62,8 +65,74 @@ def generate_rgg(nv: int, nshards: int = 1, seed: int = 1,
     pts = np.stack([x, y], axis=1)
     pairs = cKDTree(pts).query_pairs(r=rn, output_type="ndarray")
     d = np.sqrt(((pts[pairs[:, 0]] - pts[pairs[:, 1]]) ** 2).sum(axis=1))
-    return Graph.from_edges(nv_eff, pairs[:, 0], pairs[:, 1], weights=d,
-                            policy=policy)
+    src, dst, w = pairs[:, 0], pairs[:, 1], d
+    if random_edge_percent > 0:
+        es, ed, wx = _rgg_extra_edges(pts, nshards, n, nv_eff,
+                                      random_edge_percent, pairs, seed)
+        src = np.concatenate([src, es])
+        dst = np.concatenate([dst, ed])
+        w = np.concatenate([w, wx])
+    return Graph.from_edges(nv_eff, src, dst, weights=w, policy=policy)
+
+
+def _rgg_extra_edges(pts, nshards: int, n: int, nv: int, pct: int,
+                     existing: np.ndarray, seed: int) -> tuple:
+    """The ``-e`` edges: about ``pct`` percent of the undirected RGG edge
+    count more, between random endpoint pairs (the reference
+    application's ``distgraph.cpp:652-842``, as the reference package
+    makes it reproducible).
+
+    - Count: nrande = pct * |existing| // 100, split evenly over the
+      shards with the remainder on the last; below one a shard, all on the
+      last shard.
+    - Draws: shard r draws (local i in [0, n), global j in [0, nv)) pairs
+      from its slice [2 offs[r], 2 offs[r+1]) of the Park-Miller stream of
+      ``seed + 1``.
+    - A self pair or a duplicate of an RGG edge or of an earlier extra
+      (undirected) forfeits its draw.
+    - Weight: the distance when the shards of the endpoints are equal or
+      neighbours, else ``minstd0_uniform_real(i * nv + j)`` in [0.01, 1).
+    """
+    nrande = (pct * len(existing)) // 100
+    if nrande <= 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z, np.zeros(0, dtype=np.float64)
+    counts = np.zeros(nshards, dtype=np.int64)
+    if nrande < nshards:
+        counts[-1] = nrande
+    else:
+        counts[:] = nrande // nshards
+        counts[-1] += nrande % nshards
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    total = int(offs[-1])
+    gi_parts, gj_parts = [], []
+    for r in range(nshards):
+        if counts[r] == 0:
+            continue
+        vals = lcg_stream(seed + 1, 2 * total,
+                          lo=2 * int(offs[r]), hi=2 * int(offs[r + 1]))
+        i_loc = np.minimum((vals[0::2] * n).astype(np.int64), n - 1)
+        gi_parts.append(r * n + i_loc)
+        gj_parts.append(np.minimum((vals[1::2] * nv).astype(np.int64),
+                                   nv - 1))
+    g_i = np.concatenate(gi_parts)
+    g_j = np.concatenate(gj_parts)
+    keep = g_i != g_j
+    key = np.minimum(g_i, g_j) * nv + np.maximum(g_i, g_j)
+    ex_key = (np.minimum(existing[:, 0], existing[:, 1]) * nv
+              + np.maximum(existing[:, 0], existing[:, 1]))
+    keep &= ~np.isin(key, ex_key)
+    _, first = np.unique(key, return_index=True)
+    is_first = np.zeros(len(key), dtype=bool)
+    is_first[first] = True
+    keep &= is_first
+    g_i, g_j = g_i[keep], g_j[keep]
+    near = np.abs(g_i // n - g_j // n) <= 1
+    dist = np.sqrt(((pts[g_i] - pts[g_j]) ** 2).sum(axis=1))
+    wfar = minstd0_uniform_real(
+        g_i.astype(np.uint64) * np.uint64(nv) + g_j.astype(np.uint64),
+        0.01, 1.0)
+    return g_i, g_j, np.where(near, dist, wfar)
 
 
 def rmat_edges_numpy(scale: int, ne: int, seed: int, a: float, b: float,

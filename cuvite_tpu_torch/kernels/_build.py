@@ -10,6 +10,10 @@ missing library at once, one ``nvcc`` process per source.
 
 ``-fmad=false`` forbids fused multiply-adds: the gain must round each
 product and difference on its own, as the reference does.
+
+Subscribers in :data:`HOOKS` see every nvcc run and every first load of
+a library in the process (``obs/compile_watch.py`` turns them into the
+flight recorder's ``compile`` events and the bench's guard).
 """
 
 from __future__ import annotations
@@ -39,6 +43,15 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.RLock()
 # nvcc's output (ptxas register and shared-memory report) per built source.
 BUILD_LOG: dict[str, str] = {}
+# Callables given {"module": source name, "dur_s": seconds, "kind":
+# "build" | "load"} for every nvcc run and every first library load.  They
+# are called under _LOCK, so they must not call back into this module.
+HOOKS: list = []
+
+
+def _notify(module: str, dur_s: float, kind: str) -> None:
+    for fn in list(HOOKS):
+        fn({"module": module, "dur_s": dur_s, "kind": kind})
 
 
 def _nvcc() -> str:
@@ -101,6 +114,7 @@ def _build(names) -> float:
                               f"{log}")
             else:
                 os.replace(tmp, out)
+                _notify(name, time.perf_counter() - t0, "build")
     finally:
         for _name, _out, tmp, proc in procs:
             if proc.poll() is None:
@@ -122,7 +136,9 @@ def library(name: str, signature) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build((name,))
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(library_path(name)))
+            _notify(name, time.perf_counter() - t0, "load")
             for fn, (argtypes, restype) in signature.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype

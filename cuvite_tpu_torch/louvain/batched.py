@@ -481,7 +481,8 @@ def execute_prepared(prep: PreparedBatch, *, threshold: float = 1.0e-6,
         torch.cuda.current_stream(prep.device).wait_event(prep.ready)
     with tracer.stage("iterate"):
         br = _execute_fold(prep, threshold=threshold,
-                           max_phases=max_phases, verbose=verbose)
+                           max_phases=max_phases, verbose=verbose,
+                           tracer=tracer)
     if prep.layout is not None:
         n_sub = prep.layout.n_sub
         br.b_pad = prep.rows
@@ -494,8 +495,12 @@ def execute_prepared(prep: PreparedBatch, *, threshold: float = 1.0e-6,
 
 
 def _execute_fold(prep: PreparedBatch, *, threshold: float,
-                  max_phases: int, verbose: bool) -> BatchResult:
-    """The phases of a prepared batch over its folded tenants."""
+                  max_phases: int, verbose: bool, tracer) -> BatchResult:
+    """The phases of a prepared batch over its folded tenants.  Each
+    phase books its live buffers to the tracer's memory ledger and counts
+    ``traversed_edges`` (each active tenant's edges x sweeps, from the
+    host values the phase already read), as the reference does
+    (``batched.py:934-990``)."""
     from cuvite_tpu_torch.louvain.driver import LouvainResult, PhaseStats
 
     t0 = time.perf_counter()
@@ -517,7 +522,11 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
     phase = 0
     while active.any() and phase < max_phases:
         t1 = time.perf_counter()
+        tracer.ledger_phase_begin()
+        tracer.track("slab", slab.src, slab.dst, slab.w)
+        tracer.track("tables", slab.real_mask, consts)
         if phase == 0 and prep.engine == "bucketed":
+            tracer.track("plans", prep.plan)
             eng = "bucketed"
             sweep = _bucketed_phase_body(prep.plan, slab, consts)
         else:
@@ -535,9 +544,11 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
             coalesce.append(ceng)
         phase_wall = time.perf_counter() - t1
         share = phase_wall / max(int(active.sum()), 1)
+        traversed = 0
         for i in np.flatnonzero(active):
             it = int(iters[i])
             tot_iters[i] += it
+            traversed += int(ne_cur[i]) * it
             pc = decode_phase_conv(phase, it, *rows[i])
             pc.gained = bool(gained[i])
             row_conv[i].append(pc)
@@ -549,6 +560,8 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
                 nv_cur[i] = int(nc[i])
                 ne_cur[i] = int(ne2[i])
                 prev_mod[i] = max(float(mod[i]), -1.0)
+        tracer.count("traversed_edges", traversed)
+        tracer.ledger_snapshot(phase)
         active = active & gained & (tot_iters <= MAX_TOTAL_ITERATIONS)
         if verbose:
             print(f"batched phase {phase} ({eng}): active "
@@ -753,12 +766,13 @@ def cluster_many(graphs, *, threshold: float = 1.0e-6,
                  max_phases: int = TERMINATION_PHASE_COUNT,
                  b_pad: int | None = None, slab_class: tuple | None = None,
                  mesh="auto", verbose: bool = False, engine: str = "fused",
-                 bucket_shape=None, device=None) -> BatchResult:
+                 bucket_shape=None, device=None, tracer=None) -> BatchResult:
     """Pack same-class graphs and run them as one batch; edgeless graphs
     are answered inline and take no batch row.  ``results`` covers every
     input in order; ``n_jobs``, ``pack_util`` and ``jobs_per_s`` describe
     the packed batch only."""
     pm = pack_many(graphs, b_pad=b_pad, slab_class=slab_class, mesh=mesh,
-                   engine=engine, bucket_shape=bucket_shape, device=device)
+                   engine=engine, bucket_shape=bucket_shape, device=device,
+                   tracer=tracer)
     return execute_many(pm, threshold=threshold, max_phases=max_phases,
-                        verbose=verbose)
+                        tracer=tracer, verbose=verbose)

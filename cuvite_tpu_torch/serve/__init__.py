@@ -19,10 +19,11 @@ dispatcher (``pipeline.py``), and an open-loop load generator
     python -m cuvite_tpu_torch.serve cluster-many a.vite b.vite ...
     python -m cuvite_tpu_torch.serve daemon --socket /tmp/cuvite.sock
 
-Not ported yet: streaming (the daemon's ``delta`` verb is refused,
-``ROADMAP.md`` queue A item 6), the flight recorder (item 8), the
-concurrency checker's cooperative scheduler (item 9) and the serve
-benches (item 1).
+The serve benches are ``workloads/bench.py`` (``run_serve_bench``,
+``run_mixed_serve_bench``), and ``--trace-out`` writes the flight
+recorder's trace.  Not ported yet: streaming (the daemon's ``delta`` verb
+is refused, ``ROADMAP.md`` queue A item 6) and the concurrency checker's
+cooperative scheduler (item 9).
 """
 
 from cuvite_tpu_torch.serve.admission import (

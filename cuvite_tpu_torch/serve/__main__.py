@@ -24,15 +24,18 @@ card the command exits 2.  On the card the kernels are built and one
 small batch is clustered before the first job is taken, so that no
 kernel build and none of the card's first-use costs (module loading, the
 pinned-memory pool, the upload stream) fall inside a served batch; the
-daemon prints its readiness line after that, with both times.  The
-reference's ``--host-devices`` (virtual CPU devices for its batch axis)
-has no counterpart; its ``--trace-out`` flight recorder is not ported
-yet (``ROADMAP.md`` queue A item 8).
+daemon prints its readiness line after that, with both times.
+``--trace-out FILE.jsonl`` writes the flight recorder's trace of the run
+(the queue's ``pack`` and ``execute`` spans, its admission, shedding and
+per-tenant events, and the ``serve_summary``).  The reference's
+``--host-devices`` (virtual CPU devices for its batch axis) has no
+counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -43,9 +46,7 @@ from cuvite_tpu_torch.core.batch import BATCH_ENGINES
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m cuvite_tpu_torch.serve",
-        description="slab-class batched Louvain serving on one CUDA card",
-        epilog="The flight recorder (the reference CLI's --trace-out) is "
-               "not ported yet (ROADMAP.md queue A item 8).")
+        description="slab-class batched Louvain serving on one CUDA card")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(q):
@@ -66,6 +67,9 @@ def _build_parser() -> argparse.ArgumentParser:
                        help="where batches run: the CUDA card by default "
                             "(no card: exit 2); 'cpu' runs the kernels' "
                             "plain PyTorch versions")
+        q.add_argument("--trace-out", metavar="FILE.jsonl",
+                       help="flight-recorder span/event trace (pack and "
+                            "execute spans, tenant_result events)")
         q.add_argument("--json", action="store_true",
                        help="per-tenant JSON result lines")
         q.add_argument("--wait-slo-ms", type=float, default=None,
@@ -171,7 +175,14 @@ def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     from cuvite_tpu_torch.utils.trace import Tracer
 
-    tracer = Tracer()
+    rec_ctx = contextlib.nullcontext()
+    recorder = None
+    if args.trace_out:
+        from cuvite_tpu_torch.obs import FlightRecorder, JsonlTraceSink
+
+        recorder = FlightRecorder(JsonlTraceSink(args.trace_out))
+        rec_ctx = recorder
+    tracer = Tracer(recorder=recorder)
     try:
         config, faults, make = _make_server(args)
     except ValueError as e:
@@ -196,23 +207,25 @@ def main(argv=None) -> int:
         daemon = ServeDaemon(server, sock_path=args.socket,
                              host=args.host, port=args.port,
                              pipelined=args.pipeline == "on")
-        daemon.start()
-        for sig in (signal.SIGTERM, signal.SIGINT):
-            signal.signal(sig, lambda *_a: daemon.request_drain())
-        # The readiness line tells harnesses (tests, the load generator)
-        # when to connect and where; the card is warm by now.
-        print(json.dumps({"ready": {
-            "socket": args.socket, "port": daemon.port,
-            "b_max": config.b_max, "engine": config.engine,
-            "admission": config.admission is not None,
-            "pipelined": daemon.pipelined,
-            "autotune": config.autotune_b_max,
-            "merge_packing": config.merge_packing,
-            "fault_plan": faults.spec(),
-            "device": str(server.device),
-            "build_s": round(build_s, 3),
-            "warm_s": round(warm_s, 3)}}), flush=True)
-        summary = daemon.serve_forever()
+        with rec_ctx:
+            daemon.start()
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                signal.signal(sig, lambda *_a: daemon.request_drain())
+            # The readiness line tells harnesses (tests, the load
+            # generator) when to connect and where; the card is warm by
+            # now.
+            print(json.dumps({"ready": {
+                "socket": args.socket, "port": daemon.port,
+                "b_max": config.b_max, "engine": config.engine,
+                "admission": config.admission is not None,
+                "pipelined": daemon.pipelined,
+                "autotune": config.autotune_b_max,
+                "merge_packing": config.merge_packing,
+                "fault_plan": faults.spec(),
+                "device": str(server.device),
+                "build_s": round(build_s, 3),
+                "warm_s": round(warm_s, 3)}}), flush=True)
+            summary = daemon.serve_forever()
         print(json.dumps({"serve_summary": summary}), flush=True)
         # Per-job failures are handled per job (isolated, reported);
         # a clean drain is a clean exit.
@@ -220,36 +233,40 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     ids = {}
-    if args.cmd == "demo":
-        from cuvite_tpu_torch.workloads.synth import (
-            many_seed,
-            synthesize_graph,
-        )
+    with rec_ctx:
+        if args.cmd == "demo":
+            from cuvite_tpu_torch.workloads.synth import (
+                many_seed,
+                synthesize_graph,
+            )
 
-        for k in range(args.jobs):
-            g = synthesize_graph(args.edges, seed=many_seed(args.seed, k))
-            ids[server.submit(g)] = f"synth-{k}"
-        finished = server.drain()
-    else:
-        from cuvite_tpu_torch.io.vite import read_vite
+            for k in range(args.jobs):
+                g = synthesize_graph(args.edges,
+                                     seed=many_seed(args.seed, k))
+                ids[server.submit(g)] = f"synth-{k}"
+            finished = server.drain()
+        else:
+            from cuvite_tpu_torch.io.vite import read_vite
 
-        for path in args.files:
-            g = read_vite(path, bits64=args.bits64)
-            ids[server.submit(g)] = path
-        finished = server.drain()
-        if args.output:
-            from cuvite_tpu_torch.evaluate.compare import write_communities
+            for path in args.files:
+                g = read_vite(path, bits64=args.bits64)
+                ids[server.submit(g)] = path
+            finished = server.drain()
+            if args.output:
+                from cuvite_tpu_torch.evaluate.compare import (
+                    write_communities,
+                )
 
-            by_id = dict(finished)
-            for jid, path in ids.items():
-                if jid in by_id:  # failed jobs have no result
-                    write_communities(path + ".communities",
-                                      by_id[jid].communities)
-    wall = time.perf_counter() - t0
-    summary = dict(server.stats.to_dict(), wall_s=round(wall, 3),
-                   wall_jobs_per_s=round(len(finished) / max(wall, 1e-9),
-                                         2))
-    tracer.event("serve_summary", **summary)
+                by_id = dict(finished)
+                for jid, path in ids.items():
+                    if jid in by_id:  # failed jobs have no result
+                        write_communities(path + ".communities",
+                                          by_id[jid].communities)
+        wall = time.perf_counter() - t0
+        summary = dict(server.stats.to_dict(), wall_s=round(wall, 3),
+                       wall_jobs_per_s=round(
+                           len(finished) / max(wall, 1e-9), 2))
+        tracer.event("serve_summary", **summary)
 
     if args.json:
         for jid, res in finished:

@@ -5,6 +5,9 @@
   through a one-word C++11 ``std::seed_seq``, jumped in closed form so a
   slice of the one global stream needs no communication.  The RGG
   generator draws its points from it, bit-identical to the reference.
+- ``minstd0_uniform_real`` (port of ``utils/rng.py:114-146``): the
+  reference application's far-edge weight, a ``uniform_real_distribution``
+  draw from a freshly seeded ``minstd_rand0``, as libstdc++ computes it.
 - Counter-based SplitMix64 (port of ``utils/rng.py:149-183``): every draw
   is a pure function of its index, so the R-MAT generator is bit-identical
   to the reference's.
@@ -95,6 +98,25 @@ def lcg_stream(seed: int, total: int, lo: int = 0,
     if lo == 0:
         out[0] = x0
     return out.astype(np.float64) * (1.0 / float(MLCG))
+
+
+def minstd0_uniform_real(seed32: np.ndarray, lo: float,
+                         hi: float) -> np.ndarray:
+    """libstdc++'s ``uniform_real_distribution<double>(lo, hi)`` drawn from
+    a ``minstd_rand0`` seeded with each element of ``seed32`` (truncated to
+    32 bits): engine state x0 = seed mod M (0 -> 1), two draws
+    d = 16807 x mod M, ``generate_canonical<double, 53>`` with k = 2 and
+    r = M - 1 giving ((d1 - 1) + (d2 - 1) r) / r^2, then
+    (hi - lo) * canon + lo."""
+    x = (np.asarray(seed32, dtype=np.uint64) & np.uint64(0xFFFFFFFF)) \
+        % np.uint64(MLCG)
+    x = np.where(x == 0, np.uint64(1), x).astype(np.int64)
+    d1 = (x * ALCG) % MLCG
+    d2 = (d1 * ALCG) % MLCG
+    r = np.float64(MLCG - 1)
+    canon = ((d1 - 1).astype(np.float64)
+             + (d2 - 1).astype(np.float64) * r) / (r * r)
+    return (hi - lo) * canon + lo
 
 
 _SM_GOLDEN = np.uint64(0x9E3779B97F4A7C15)

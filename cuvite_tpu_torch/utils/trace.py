@@ -3,19 +3,18 @@
 ``NullTracer``).
 
 A :class:`Tracer` accumulates named stage timers (host wall clock) and
-counters.  Its span and event calls -- the serving queue's ``pack`` and
-``execute`` spans and its ``admit``, ``reject``, ``shed``, ``retry``,
-``autotune`` and ``tenant_result`` events -- go to an attached recorder
-and are no-ops without one.  The reference's recorder is its flight
-recorder (``obs/recorder.py``, a JSONL trace behind ``--trace-out``),
-which is not ported yet (``ROADMAP.md`` queue A item 8); any object with
-an ``emitter`` (``begin(name, **attrs)`` -> handle, ``end(handle,
-**attrs)``, ``event(name, **attrs)``) plugs in.
+counters, and is the facade over the flight recorder
+(``obs.FlightRecorder``): attach one and every ``stage()`` window also
+becomes a nested span in the structured trace, ``event()`` /
+``begin_span()`` forward to its emitter, ``set_phase()`` tags the records
+with the running phase, and ``track()`` / ``ledger_*()`` feed its
+device-memory ledger.  Without a recorder those calls are no-ops, so the
+drivers thread them unconditionally.  None of them reads a device value:
+``track`` reads tensor metadata, and the drivers hand counters and events
+host values they already hold.
 
-Not ported: the memory-ledger and phase-tag forwarding of the flight
-recorder (``track``, ``ledger_*``, ``set_phase``, item 8), and
-``dist_stats_report`` and ``ShardDiag`` (multi-shard diagnostics, item
-7).
+Not ported: ``dist_stats_report`` and ``ShardDiag`` (multi-shard
+diagnostics, ``ROADMAP.md`` queue A item 7).
 """
 
 from __future__ import annotations
@@ -46,7 +45,10 @@ class Tracer:
     """
 
     # Stage names the drivers use, in pipeline order: always present in
-    # :meth:`breakdown` (0.0 when the stage never ran).
+    # :meth:`breakdown` (0.0 when the stage never ran).  As in the
+    # reference, coalesce runs nested inside coarsen (coarsen_s contains
+    # coalesce_s, 0.0 on host coarsening), and upload and rebin nested
+    # inside the per-graph driver's plan stage (plan_s contains them).
     CANONICAL_STAGES = ("coarsen", "coalesce", "rebin", "upload",
                         "iterate")
 
@@ -60,8 +62,12 @@ class Tracer:
         self.counters: dict[str, float] = {}
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        if not self.enabled:
+    def stage(self, name: str, into: dict | None = None):
+        """Time a window as stage ``name``.  ``into``: a dict that also
+        accumulates the window's seconds under ``name`` (a driver's
+        ``PhaseStats.stages``), timed by the same clock, with or without
+        an enabled tracer."""
+        if not self.enabled and into is None:
             yield
             return
         em = self.emitter
@@ -73,8 +79,11 @@ class Tracer:
             dt = time.perf_counter() - t0
             if em is not None:
                 em.end(sid, dur_s=dt)
-            self.times[name] = self.times.get(name, 0.0) + dt
-            self.calls[name] = self.calls.get(name, 0) + 1
+            if into is not None:
+                into[name] = into.get(name, 0.0) + dt
+            if self.enabled:
+                self.times[name] = self.times.get(name, 0.0) + dt
+                self.calls[name] = self.calls.get(name, 0) + 1
 
     def count(self, name: str, value: float = 1) -> None:
         if self.enabled:
@@ -97,6 +106,27 @@ class Tracer:
     def end_span(self, handle, **attrs) -> None:
         if self.emitter is not None and handle is not None:
             self.emitter.end(handle, **attrs)
+
+    def set_phase(self, phase) -> None:
+        """Tag subsequent records with the running phase index."""
+        if self.emitter is not None:
+            self.emitter.phase = phase
+
+    def track(self, category: str, *buffers) -> None:
+        """Account device buffers to the memory ledger by category."""
+        if self.recorder is not None:
+            self.recorder.ledger.track(category, *buffers)
+
+    def ledger_phase_begin(self) -> None:
+        if self.recorder is not None:
+            self.recorder.ledger.begin_phase()
+
+    def ledger_snapshot(self, phase=None) -> None:
+        """Snapshot the ledger at a phase boundary and emit it as an
+        ``hbm`` event."""
+        if self.recorder is not None:
+            snap = self.recorder.ledger.snapshot(phase)
+            self.event("hbm", **snap)
 
     def breakdown(self) -> dict:
         """Per-stage seconds, full precision: ``<stage>_s`` for every

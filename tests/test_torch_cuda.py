@@ -737,3 +737,35 @@ def test_pipelined_dispatcher_on_card_matches_cpu(cuda_device):
         if k < 2:
             assert np.array_equal(first[k].communities, solo.communities)
             assert np.array_equal(again[k].communities, solo.communities)
+
+
+@pytest.mark.cuda
+def test_bench_record_on_card(cuda_device):
+    """The per-graph bench on the card at R-MAT 12: a valid record with a
+    checked guard (the warm-up built and loaded every library the timed
+    runs launch), the card's name and its peak allocation, and the Q,
+    phases and iterations of the CPU run; a tracer leaves the labels as
+    they are."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.obs import FlightRecorder
+    from cuvite_tpu_torch.utils.trace import Tracer
+    from cuvite_tpu_torch.workloads.bench import run_bench, validate_record
+
+    g = generate_rmat(12)
+    rec = run_bench(g, repeats=2, budget_s=600, device=cuda_device,
+                    graph_label="rmat12", scale=12)
+    assert validate_record(rec) == []
+    assert rec["compile_guard"] == {"checked": True, "new_compiles": 0}
+    assert rec["platform"] == "cuda"
+    assert rec["device"] == torch.cuda.get_device_name(cuda_device)
+    assert rec["peak_alloc_bytes"] > 0
+    assert {"slab", "tables", "plans"} & set(rec["hbm_peak_by_buffer"])
+    cpu = louvain_phases(g, device="cpu")
+    assert (rec["phases"], rec["iterations"]) == \
+        (len(cpu.phases), cpu.total_iterations)
+    assert abs(rec["modularity"] - round(cpu.modularity, 6)) <= 1e-6
+    with FlightRecorder() as fr:
+        traced = louvain_phases(g, device=cuda_device,
+                                tracer=Tracer(recorder=fr))
+    assert np.array_equal(traced.communities, cpu.communities)

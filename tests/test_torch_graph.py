@@ -1,6 +1,7 @@
 """cuvite_tpu_torch host layer against the JAX package: R-MAT and RGG edges
-and CSR arrays, the Park-Miller stream, Vite I/O, the package's
-independence from JAX, and the card-by-default device rule."""
+and CSR arrays (the RGG ``-e`` extra edges included), the Park-Miller
+stream and the far-edge weight draw, Vite I/O, the package's independence
+from JAX, and the card-by-default device rule."""
 
 import os
 import subprocess
@@ -47,6 +48,34 @@ def test_rgg_matches_jax(nv):
     for name in ("offsets", "tails", "weights"):
         mine, ref = getattr(g, name), getattr(jg, name)
         assert mine.dtype == ref.dtype and np.array_equal(mine, ref), name
+
+
+@pytest.mark.parametrize("nv,pct,nshards,seed", [
+    (4096, 10, 1, 1), (3000, 5, 1, 2), (5000, 7, 3, 1), (2048, 100, 2, 1),
+    (1000, 1, 1, 3)])
+def test_rgg_random_edges_match_jax(nv, pct, nshards, seed):
+    """``-e pct``: the extra long-range edges, their dedup against the RGG
+    edges and one another, and their weights (the distance between near
+    strips, the minstd_rand0 draw between far ones) are the reference's,
+    bit for bit; nv = 5000 over 3 shards drops a remainder vertex."""
+    g = generate_rgg(nv, nshards, seed=seed, random_edge_percent=pct)
+    jg = jax_rgg(nv, nshards=nshards, random_edge_percent=pct, seed=seed)
+    assert g.num_edges > generate_rgg(nv, nshards, seed=seed).num_edges
+    for name in ("offsets", "tails", "weights"):
+        mine, ref = getattr(g, name), getattr(jg, name)
+        assert mine.dtype == ref.dtype and np.array_equal(mine, ref), name
+
+
+def test_minstd0_uniform_real_matches_jax():
+    from cuvite_tpu.utils.rng import minstd0_uniform_real as jax_draw
+    from cuvite_tpu_torch.utils.rng import minstd0_uniform_real
+
+    seeds = np.array([0, 1, 2, 2147483647, 2147483648, 1 << 40,
+                      (1 << 64) - 1, 123456789], dtype=np.uint64)
+    mine, ref = minstd0_uniform_real(seeds, 0.01, 1.0), \
+        jax_draw(seeds, 0.01, 1.0)
+    assert mine.view(np.int64).tolist() == ref.view(np.int64).tolist()
+    assert ((mine >= 0.01) & (mine < 1.0)).all()
 
 
 def test_rgg_points_and_stream_slices_match_jax():
@@ -131,7 +160,14 @@ def test_package_imports_without_jax():
         "       'cuvite_tpu_torch.louvain.batched',\n"
         "       'cuvite_tpu_torch.workloads.synth',\n"
         "       'cuvite_tpu_torch.workloads.golden',\n"
-        "       'cuvite_tpu_torch.evaluate.compare'}\n"
+        "       'cuvite_tpu_torch.evaluate.compare',\n"
+        "       'cuvite_tpu_torch.obs.events',\n"
+        "       'cuvite_tpu_torch.obs.memory',\n"
+        "       'cuvite_tpu_torch.obs.compile_watch',\n"
+        "       'cuvite_tpu_torch.obs.recorder',\n"
+        "       'cuvite_tpu_torch.workloads.registry',\n"
+        "       'cuvite_tpu_torch.workloads.bench',\n"
+        "       'cuvite_tpu_torch.workloads.__main__'}\n"
         "assert new <= set(names), new - set(names)\n"
         "from cuvite_tpu_torch.workloads.golden import load_golden\n"
         "assert 'powerlaw-test/default' in load_golden()['entries']\n"

@@ -322,5 +322,5 @@ def test_cli_demo_and_cluster_many_on_cpu(tmp_path, capsys):
     assert json.loads(out[-1])["summary"]["jobs_done"] == 1
     assert np.array_equal(np.loadtxt(path + ".communities", dtype=np.int64),
                           solo.communities)
-    text = _build_parser().format_help()
-    assert "--trace-out" in text and "not ported" in text
+    assert _build_parser().parse_args(
+        ["demo", "--trace-out", "t.jsonl"]).trace_out == "t.jsonl"
