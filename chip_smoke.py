@@ -161,8 +161,29 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    flight recorder under torch.cuda.set_sync_debug_mode("warn"): labels
    equal to phase 5's and no more synchronizing operations than without
    the tracer.
+24. streaming, card against CPU: StreamSession on R-MAT --check-scale
+   with two churn batches (1% of the pairs each) and a spill batch that
+   doubles the slab class: the slab (src, dst, w, ne, ne_pad, 2m,
+   fingerprint) bit-equal card vs CPU after every apply_delta, and the
+   cold, labels and plp re-clusters identical;
+25. streaming at full width on R-MAT --scale, the launch counts set to 0
+   just before: from_graph, a cold re-cluster, apply_delta of a 1% churn
+   batch under torch.cuda.set_sync_debug_mode("warn") (fails unless it
+   makes exactly one host read), a labels re-cluster (fails if its Q
+   falls below the cold run's golden envelope), then a plp re-cluster on
+   a fresh session with the same delta; walls, frontier_frac, Q, peak
+   allocated bytes;
+26. ``python -m cuvite_tpu_torch.workloads bench --churn-frac 0.01
+   --scale`` --scale in a child on the card: a valid record with a
+   checked guard, phase 1's card and power limit, and its stream block;
+27. the daemon's ``delta`` verb on the card (``--stream-budget-mb 0.25``,
+   one synth 4096 session): an upload, a labels re-cluster equal to an
+   in-process session's, a second tenant that evicts the first, a delta
+   to the evicted tenant refused, a re-upload; SIGTERM: exit 0, pool
+   conservation with 3 admitted and 3 evicted.
    All three kernels printed as one JSON line, with their launches on
-   every path (the bench's among them) and their batched forms' times.
+   every path (the bench's and the stream paths' among them) and their
+   batched forms' times.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2595,6 +2616,263 @@ def run_cli_phase(scale: int, g_rmat, main_res) -> None:
           f"without a tracer; {len(rec.records)} trace records, memory "
           f"peaks {rec.ledger.peak_by_buffer}")
 
+# ---------------------------------------------------------------------------
+# Phases 24-27: streaming.
+
+
+def stream_batch(g, arrs):
+    from cuvite_tpu_torch.stream import DeltaBatch
+
+    return DeltaBatch.from_edits(g.num_vertices, **arrs)
+
+
+def spill_batch(g, sess, seed: int):
+    """Fresh inserts (dyadic weights 1..8) overflowing ``sess``'s padding
+    headroom by ~128 rows: the batch that grows its class."""
+    from cuvite_tpu_torch.stream import DeltaBatch
+
+    rng = np.random.default_rng(seed)
+    n = (sess.ne_pad - sess.ne) // 2 + 64
+    u = rng.integers(0, g.num_vertices, 2 * n)
+    v = rng.integers(0, g.num_vertices, 2 * n)
+    keep = u != v
+    u, v = u[keep][:n], v[keep][:n]
+    return DeltaBatch.from_edits(
+        g.num_vertices, ins_src=u, ins_dst=v,
+        ins_w=rng.integers(1, 9, len(u)).astype(np.float64))
+
+
+def check_stream_card_vs_cpu(scale: int) -> dict:
+    """Phase 24.  Returns the card session's launches."""
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.stream import StreamSession
+    from cuvite_tpu_torch.workloads.synth import churn_batches
+
+    g = generate_rmat(scale)
+    b0, b1 = churn_batches(g, frac=0.01, seed=1, batches=2)
+    zero_kernel_counts()
+    card = StreamSession.from_graph(g, device="cuda")
+    cpu = StreamSession.from_graph(g, device="cpu")
+    check_same_run(f"stream R-MAT {scale} cold", card.recluster(warm="cold"),
+                   cpu.recluster(warm="cold"))
+
+    def same_slab(what):
+        if (card.ne, card.ne_pad, card.tw2, card.fingerprint) != \
+                (cpu.ne, cpu.ne_pad, cpu.tw2, cpu.fingerprint):
+            fail(f"{what}: card (ne, ne_pad, 2m, fingerprint) "
+                 f"{(card.ne, card.ne_pad, card.tw2, card.fingerprint)}, "
+                 f"CPU {(cpu.ne, cpu.ne_pad, cpu.tw2, cpu.fingerprint)}")
+        for f in ("src", "dst", "w"):
+            if not bits_equal(getattr(card, f).cpu(), getattr(cpu, f)):
+                fail(f"{what}: the card's slab {f} differs from the CPU's")
+
+    infos = []
+    for k, arrs in enumerate((b0, b1)):
+        batch = stream_batch(g, arrs)
+        ic, ip = card.apply_delta(batch), cpu.apply_delta(batch)
+        ic.pop("wall_s"), ip.pop("wall_s")
+        if ic != ip:
+            fail(f"stream R-MAT {scale} batch {k}: card {ic}, CPU {ip}")
+        same_slab(f"stream R-MAT {scale} batch {k}")
+        infos.append(ic)
+    ne_pad = card.ne_pad
+    spill = spill_batch(g, card, 5)
+    card.apply_delta(spill)
+    cpu.apply_delta(spill)
+    if card.ne_pad != 2 * ne_pad:
+        fail(f"stream R-MAT {scale}: the spill batch left the class at "
+             f"{card.ne_pad} rows (from {ne_pad})")
+    same_slab(f"stream R-MAT {scale} spill")
+    for arm in ("labels", "plp"):
+        check_same_run(f"stream R-MAT {scale} {arm}",
+                       card.recluster(warm=arm), cpu.recluster(warm=arm))
+    launches = kernel_counts()
+    print(f"  R-MAT {scale}, two churn batches {infos} and a spill of "
+          f"{spill.n_ins} insert rows ({ne_pad} -> {card.ne_pad} rows): "
+          f"slab bit-equal card vs CPU after each apply_delta; cold, "
+          f"labels and plp re-clusters identical; launches {launches}")
+    return launches
+
+
+def run_stream_full(g, scale: int) -> dict:
+    """Phase 25.  Returns the stream path's launches."""
+    import warnings
+
+    import torch
+
+    from cuvite_tpu_torch.stream import StreamSession
+    from cuvite_tpu_torch.workloads.golden import (
+        check_envelope,
+        envelope_from_measurement,
+    )
+    from cuvite_tpu_torch.workloads.synth import churn_batches
+
+    batch = stream_batch(g, churn_batches(g, frac=0.01, seed=1)[0])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    sess, up_s = timed(lambda: StreamSession.from_graph(g))
+    cold, cold_s = timed(lambda: sess.recluster(warm="cold"))
+    # No synchronize inside the window: apply_delta ends in its one host
+    # read, after its last device work, so the host clock covers it.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            info = sess.apply_delta(batch)
+            apply_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    warm, warm_s = timed(lambda: sess.recluster(warm="labels"))
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fresh, fresh_up_s = timed(lambda: StreamSession.from_graph(g))
+    fresh.apply_delta(batch)
+    plp, plp_s = timed(lambda: fresh.recluster(warm="plp"))
+    del fresh
+    if len(sites) != 1:
+        fail(f"stream R-MAT {scale}: apply_delta made {len(sites)} host "
+             f"reads (at {sites}), not 1")
+    env = envelope_from_measurement({
+        "modularity": cold.modularity, "phases": len(cold.phases),
+        "communities": cold.num_communities})
+    # The envelope guards the warm (labels) arm against degradation, so
+    # its Q check is one-sided; the plp arm is a seed the reference
+    # offers for comparison, and its reading is printed.
+    for what, res in (("labels", warm), ("plp", plp)):
+        problems = check_envelope(env, {
+            "modularity": res.modularity, "phases": len(res.phases),
+            "communities": res.num_communities})
+        if what == "labels" and res.modularity < env["q"][0]:
+            fail(f"stream R-MAT {scale}: the labels arm's Q "
+                 f"{res.modularity} left the cold run's envelope "
+                 f"{env['q']}")
+        print(f"  {what} arm against the cold run's envelope {env}: "
+              f"{problems or 'inside'}")
+    print(f"  R-MAT {scale}: {g.num_edges} directed edges in a slab of "
+          f"{sess.ne_pad} rows ({sess.hbm_bytes()} B resident); "
+          f"from_graph {up_s:.3f} s; cold re-cluster {cold_s:.3f} s "
+          f"({len(cold.phases)} phases, {cold.total_iterations} sweeps, Q "
+          f"{cold.modularity:.9f}); apply_delta {apply_s:.4f} s "
+          f"({info['n_ins']} insert and {info['n_del']} delete rows, "
+          f"{info['n_del_hit']} hits, frontier_frac "
+          f"{info['frontier_frac']}, {len(sites)} host read at {sites}); "
+          f"labels re-cluster {warm_s:.3f} s ({len(warm.phases)} phases, "
+          f"{warm.total_iterations} sweeps, Q {warm.modularity:.9f}); "
+          f"peak allocated {peak} B; launches {launches}")
+    print(f"  a fresh session (from_graph {fresh_up_s:.3f} s) with the "
+          f"same delta, plp re-cluster {plp_s:.3f} s ({len(plp.phases)} "
+          f"phases, {plp.total_iterations} sweeps, Q {plp.modularity:.9f})")
+    return launches
+
+
+def run_stream_bench(card: tuple, scale: int) -> dict:
+    """Phase 26.  Returns the timed arms' launches."""
+    what = f"bench --churn-frac 0.01 --scale {scale}"
+    rec, err, _ = bench_child(what, ["--churn-frac", "0.01", "--scale",
+                                     str(scale)], card)
+    print(f"    stream {json.dumps(rec['stream'])}")
+    print(f"    Q {rec['modularity']}, {rec['phases']} phases, "
+          f"{rec['iterations']} iterations")
+    return stderr_json(what, err, "# launches run 1: ")
+
+
+def run_stream_daemon() -> dict:
+    """Phase 27: the daemon's ``delta`` verb on the card, under a budget
+    that holds one synth 4096 session.  Returns the daemon's launches."""
+    import signal
+    import socket
+    import tempfile
+
+    from cuvite_tpu_torch.stream import StreamSession
+    from cuvite_tpu_torch.workloads.synth import synthesize_graph
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(dir=os.path.join(root, "build", "chip_smoke"))
+    sock = os.path.join(tmp, "stream.sock")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cuvite_tpu_torch.serve", "daemon",
+         "--socket", sock, "--stream-budget-mb", "0.25"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root)
+    t0 = {"synth": {"edges": 4096, "seed": 3}}
+    t1 = {"synth": {"edges": 4096, "seed": 4}}
+    script = [
+        dict(t0, op="delta", tenant="t0", ins=[[0, 5, 2.0]],
+             recluster=True),
+        {"op": "delta", "tenant": "t0", "ins": [[1, 6, 4.0]],
+         "del": [[0, 5]], "recluster": True, "warm": "labels",
+         "labels": True},
+        dict(t1, op="delta", tenant="t1", ins=[[2, 7]], recluster=True),
+        {"op": "delta", "tenant": "t0", "ins": [[3, 7]]},
+        dict(t0, op="delta", tenant="t0", recluster=True, warm="plp"),
+        {"op": "stats"},
+    ]
+    try:
+        line = proc.stdout.readline()
+        if not line:
+            fail(f"stream daemon died before its readiness line: "
+                 f"{proc.stderr.read()[-2000:]}")
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        conn.connect(sock)
+        conn.settimeout(300.0)
+        lines = conn.makefile("r", encoding="utf-8")
+        t_s = time.perf_counter()
+        replies = []
+        for req in script:
+            conn.sendall((json.dumps(req) + "\n").encode())
+            replies.append(json.loads(lines.readline()))
+        served = time.perf_counter() - t_s
+        proc.send_signal(signal.SIGTERM)
+        summary = json.loads(lines.readline())["serve_summary"]
+        conn.close()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if rc != 0:
+        fail(f"stream daemon exited {rc}: {proc.stderr.read()[-2000:]}")
+    if [r["ok"] for r in replies] != [True, True, True, False, True, True] \
+            or replies[3].get("resident") is not False:
+        fail(f"stream daemon replies {replies}")
+    # The same edits on an in-process session on the card.
+    g = synthesize_graph(4096, seed=3)
+    sess = StreamSession.from_graph(g)
+    sess.apply_delta(stream_batch(g, dict(ins_src=[0], ins_dst=[5],
+                                          ins_w=[2.0])))
+    sess.recluster(warm="cold")
+    sess.apply_delta(stream_batch(g, dict(
+        ins_src=[1], ins_dst=[6], ins_w=[4.0], del_src=[0], del_dst=[5])))
+    direct = sess.recluster(warm="labels")
+    if replies[1]["recluster"]["labels"] != direct.communities.tolist():
+        fail("stream daemon: the labels arm's labels differ from an "
+             "in-process session's")
+    pool = summary.get("stream", {})
+    cons = pool.get("conservation", {})
+    if not cons.get("ok") or (pool["admitted"], pool["evicted"],
+                              pool["resident"]) != (3, 3, 0):
+        fail(f"stream daemon: pool {pool}")
+    launches = replies[-1]["kernels"]
+    print(f"  5 deltas in {served:.3f} s (two tenants, budget "
+          f"{pool['budget_bytes']} B, one session {sess.hbm_bytes()} B): "
+          f"replies ok "
+          f"{[r['ok'] for r in replies[:5]]}, t0 evicted by t1 and "
+          f"uploaded again; the labels arm's labels equal an in-process "
+          f"session's; SIGTERM: exit 0, pool {pool}; launches {launches}")
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2844,8 +3122,24 @@ def main() -> int:
     print("[22] the bench on the card, through its command line")
     paths.update(run_bench_phase(card, args.scale, main_res, paths))
     print("[23] the command line and the flight recorder on the card")
-    run_cli_phase(args.scale, generate_rmat(args.scale), main_res)
+    g_rmat = generate_rmat(args.scale)
+    run_cli_phase(args.scale, g_rmat, main_res)
     print(f"  phases 22-23 took {time.perf_counter() - t22:.1f} s")
+
+    t24 = time.perf_counter()
+    print(f"[24] streaming: R-MAT {args.check_scale} card against CPU")
+    paths[f"stream R-MAT {args.check_scale}, card vs CPU"] = \
+        check_stream_card_vs_cpu(args.check_scale)
+    print(f"[25] streaming at full width: R-MAT {args.scale}")
+    paths[f"stream R-MAT {args.scale}"] = run_stream_full(g_rmat,
+                                                          args.scale)
+    del g_rmat
+    print("[26] the churn bench on the card, through its command line")
+    paths[f"bench --churn-frac 0.01 --scale {args.scale}, timed arms"] = \
+        run_stream_bench(card, args.scale)
+    print("[27] the daemon's delta verb on the card")
+    paths["daemon delta verb"] = run_stream_daemon()
+    print(f"  phases 24-27 took {time.perf_counter() - t24:.1f} s")
 
     kernels[0]["batched"] = batched_rows
     kernels[1]["batched"] = batched_heavy

@@ -40,7 +40,9 @@ no counterpart: the batched engine runs a packed batch as the fold of its
 sub-rows (``louvain/batched.py``), where ``batched_renumber`` over the
 sub-rows gives each its own dense ranks.
 
-Not ported yet: ``grow_slab`` (streaming).
+``grow_slab`` (reference ``:278``) lifts a canonical slab to a larger
+class when a streaming insert batch overflows its padding headroom
+(``stream/session.py``).
 """
 
 from __future__ import annotations
@@ -133,6 +135,23 @@ def shrink_slab(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
     s = src[:new_ne_pad]
     s = torch.where(s >= new_nv_pad, new_nv_pad, s).to(src.dtype)
     return s, dst[:new_ne_pad].clone(), w[:new_ne_pad].clone()
+
+
+def grow_slab(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
+              nv_pad: int, new_nv_pad: int, new_ne_pad: int) -> tuple:
+    """Lift a canonical slab to a larger class, the spill twin of
+    :func:`shrink_slab`: padding sentinels rewritten from ``nv_pad`` to
+    ``new_nv_pad`` and the rows extended with padding to ``new_ne_pad``.
+    Real rows keep their prefix order, so the grown slab is still
+    canonical."""
+    cur_ne_pad = src.shape[0]
+    if new_nv_pad < nv_pad or new_ne_pad < cur_ne_pad:
+        raise ValueError("grow_slab grows classes; use shrink_slab to drop")
+    pad_n = new_ne_pad - cur_ne_pad
+    s = torch.where(src >= nv_pad, new_nv_pad, src).to(src.dtype)
+    s = torch.cat([s, s.new_full((pad_n,), new_nv_pad)])
+    return (s, torch.cat([dst, dst.new_zeros(pad_n)]),
+            torch.cat([w, w.new_zeros(pad_n)]))
 
 
 def maybe_shrink_to_class(src: torch.Tensor, dst: torch.Tensor,

@@ -293,6 +293,22 @@ class PhaseRunner:
         return past.cpu().numpy(), prev_mod, iters
 
 
+def warm_start_phase(sweep, comm0: torch.Tensor, threshold: float,
+                     active0: torch.Tensor, *,
+                     real_mask: torch.Tensor) -> tuple:
+    """One ET mode-1 phase from the caller's labels ``comm0`` and active
+    set ``active0`` instead of the identity and every real vertex: the
+    streaming warm start (reference ``driver.py:400``, the semantics of
+    its ``_run_phase_loop_et``).  ``sweep`` as ``loop.phase_loop`` takes
+    it (``louvain/fused.fused_sweep``).  Targets are masked by the active
+    set from the first sweep, and vertices freeze from the third; a warm
+    assignment whose first sweep gains less than ``threshold`` comes back
+    unchanged, so a re-cluster after a no-op delta keeps its labels bit
+    for bit.  Returns (labels, Q, sweeps, PhaseConvergence)."""
+    return phase_loop(sweep, comm0, threshold, et_mode=1,
+                      real_mask=real_mask, active0=active0)
+
+
 def _runner_slab(runner: PhaseRunner):
     """The resident (src, dst, w) of a sort-engine runner, else None: the
     bucketed engine keeps no slab on the device, and none is uploaded just

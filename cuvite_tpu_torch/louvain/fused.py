@@ -54,6 +54,21 @@ class FusedResult:
     iterations: int          # sweeps of every phase run, gaining or not
 
 
+def fused_sweep(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                vdeg: torch.Tensor, constant):
+    """The sort-engine sweep over a resident slab with the caller's
+    weighted degrees and 1/(2m) (reference ``_fused_step_call``), as the
+    ``sweep(comm, active)`` of ``loop.phase_loop``, which masks the
+    targets by ``active`` itself."""
+    consts = TenantConstants.of(constant, src.device)
+
+    def sweep(comm, _active):
+        out = louvain_step_local(src, dst, w, comm, vdeg, consts)
+        return out.target, out.modularity[0]
+
+    return sweep
+
+
 def fused_phase(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                 constant: float, threshold: float, *, nv_pad: int) -> tuple:
     """One phase on a resident slab (reference ``fused_phase``): its
@@ -62,13 +77,8 @@ def fused_phase(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     (past, Q, sweeps, PhaseConvergence)."""
     vdeg = device_weighted_degrees(src, w, nv_pad=nv_pad)
     comm0 = torch.arange(nv_pad, dtype=torch.int32, device=src.device)
-    consts = TenantConstants.of(constant, src.device)
-
-    def sweep(comm, _active):
-        out = louvain_step_local(src, dst, w, comm, vdeg, consts)
-        return out.target, out.modularity[0]
-
-    return phase_loop(sweep, comm0, threshold)
+    return phase_loop(fused_sweep(src, dst, w, vdeg, constant), comm0,
+                      threshold)
 
 
 def _relabel(src, dst, w, past, nv_pad: int) -> tuple:

@@ -24,6 +24,7 @@ from cuvite_tpu_torch.obs.convergence import decode_phase_conv
 def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
                et_mode: int = 0, et_delta: float = 0.25,
                real_mask: torch.Tensor | None = None,
+               active0: torch.Tensor | None = None,
                host_et: bool = False) -> tuple:
     """One phase (louvain.cpp:471-588): sweep from ``comm0`` until the gain
     drops below ``threshold``.  The sweep that gains too little is rolled
@@ -38,9 +39,11 @@ def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
     2/4 decay its probability by (1 - et_delta) whenever its assignment
     did not change and freeze it at P_CUTOFF; modes 3/4 stop the phase
     once ET_CUTOFF of the ``real_mask`` vertices are frozen, tested before
-    the threshold.  ``host_et``: make those float decisions as the
-    reference's host loop (the class schedules) does, in Python floats,
-    instead of as its device loop, in float32.
+    the threshold.  ``active0``: the movable vertices of the first sweep
+    (default ``real_mask``), the caller's active set of a warm start
+    (``driver.warm_start_phase``).  ``host_et``: make those float
+    decisions as the reference's host loop (the class schedules) does,
+    in Python floats, instead of as its device loop, in float32.
 
     Returns (past, Q of past, sweeps, PhaseConvergence)."""
     lower = -1.0
@@ -51,7 +54,7 @@ def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
     active = p_act = None
     et_stop = et_mode in (3, 4)
     if et_mode:
-        active = real_mask
+        active = real_mask if active0 is None else active0
         nv_real = int(real_mask.sum())
         if host_et:
             cutoff = ET_CUTOFF * nv_real

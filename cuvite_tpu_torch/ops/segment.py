@@ -164,35 +164,40 @@ def coalesced_runs(src: torch.Tensor, ckey: torch.Tensor, w: torch.Tensor,
     return src_c[0], ckey_c[0], w_c[0], int(n[0])
 
 
-def compact_batched(tenant: torch.Tensor, src: torch.Tensor,
+def compact_batched(keep: torch.Tensor, src_f: torch.Tensor,
                     ckey: torch.Tensor, w: torch.Tensor, *, n_tenants: int,
                     ne_pad: int, nv_pad: int) -> tuple:
-    """Rows given in (tenant, src, ckey) order, each tenant's compacted
-    into the prefix of its own row of [n_tenants, ne_pad] arrays, padding
-    (src == nv_pad, ckey == 0, w == 0) after.  Returns (src_c, ckey_c,
-    w_c, n) with ``n`` the [n_tenants] int64 row counts on the device.
+    """The rows of a folded slab sorted by (tenant, src, ckey) where
+    ``keep`` holds, each tenant's compacted into the prefix of its own row
+    of [n_tenants, ne_pad] arrays, padding (src == nv_pad, ckey == 0,
+    w == 0) after.  ``src_f`` [n_tenants * ne_pad] is the folded source
+    b * nv_pad + src, ascending.  Returns (src_c, ckey_c, w_c, n) with
+    ``n`` the [n_tenants] int64 row counts on the device.
 
-    The reference emits with a cumsum and a scatter whose dropped rows all
-    aim at one out-of-range slot (``:249-258``); here tenant b's rows are
-    [bounds[b], bounds[b + 1]) of the input (one ``searchsorted`` of the
-    sorted tenant ids) and row i of tenant b goes to flat slot
-    b * ne_pad + i - bounds[b], one ``index_copy_`` per array."""
-    dev = src.device
-    t = tenant.long().contiguous()
-    ids = torch.arange(n_tenants + 1, device=dev)
-    bounds = torch.searchsorted(t, ids)
-    lin = torch.arange(t.numel(), device=dev) \
-        + (ids[:-1] * ne_pad - bounds[:-1])[t]
+    No step reads a count on the host (the reference's cumsum emission,
+    ``:249-258``, never does either): ``torch.nonzero_static`` lists the
+    kept rows in order into a buffer of fixed length, tenant b's start
+    row (one ``searchsorted`` of the sorted sources) splits them by
+    tenant, and output slot (b, r) gathers tenant b's r-th kept row."""
+    dev = src_f.device
     size = n_tenants * ne_pad
-    src_c = torch.full((size,), nv_pad, dtype=torch.int32, device=dev)
-    ckey_c = torch.zeros(size, dtype=torch.int32, device=dev)
-    w_c = torch.zeros(size, dtype=w.dtype, device=dev)
-    src_c.index_copy_(0, lin, src.to(torch.int32))
-    ckey_c.index_copy_(0, lin, ckey.to(torch.int32))
-    w_c.index_copy_(0, lin, w)
-    shape = (n_tenants, ne_pad)
-    return (src_c.view(shape), ckey_c.view(shape), w_c.view(shape),
-            bounds[1:] - bounds[:-1])
+    last = max(size - 1, 0)
+    rows = torch.nonzero_static(keep, size=size, fill_value=size)[:, 0]
+    starts = torch.searchsorted(
+        src_f, torch.arange(n_tenants + 1, device=dev) * nv_pad)
+    before = torch.searchsorted(rows, starts)   # kept rows before each
+    n = before[1:] - before[:-1]
+    r = torch.arange(ne_pad, device=dev)
+    take = rows[(before[:-1, None] + r).clamp_(max=last)].clamp_(max=last)
+    del rows
+    pad = r >= n[:, None]
+    # In-place steps: these arrays are slab-sized.
+    src_c = src_f[take]
+    src_c -= torch.arange(n_tenants, device=dev)[:, None] * nv_pad
+    src_c = src_c.masked_fill_(pad, nv_pad).to(torch.int32)
+    ckey_c = ckey[take].masked_fill_(pad, 0).to(torch.int32)
+    w_c = w[take].masked_fill_(pad, 0.0)
+    return src_c, ckey_c, w_c, n
 
 
 def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
@@ -207,7 +212,8 @@ def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
     power of two), padding rows src == nv_pad and w == 0.
 
     ``engine='sort'``: one stable sort of the folded key
-    ((b * nv_pad + src) << kbits) | ckey and the run sums.
+    ((b * nv_pad + src) << kbits) | ckey, the run sums and an emission
+    with no host read (:func:`compact_batched`).
     ``engine='dense'``: the ``seg_coalesce`` pipeline on the card (rows
     bucketed by (tenant, src) and deduplicated by dst, no host sync) or
     its dense twin on the CPU, ``grid`` a power of two above every real
@@ -240,9 +246,5 @@ def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
     run_w, _ = run_totals(w_s, run_starts(src_s, ckey_s))
     last = torch.ones_like(src_s, dtype=torch.bool)
     last[:-1] = (src_s[1:] != src_s[:-1]) | (ckey_s[1:] != ckey_s[:-1])
-    idx = torch.nonzero(last & (src_s < folded)).squeeze(1)
-    rows = src_s[idx]
-    tenant = rows // nv_pad
-    return compact_batched(tenant, rows - tenant * nv_pad, ckey_s[idx],
-                           run_w[idx], n_tenants=b, ne_pad=ne_pad,
-                           nv_pad=nv_pad)
+    return compact_batched(last & (src_s < folded), src_s, ckey_s, run_w,
+                           n_tenants=b, ne_pad=ne_pad, nv_pad=nv_pad)

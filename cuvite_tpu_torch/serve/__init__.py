@@ -19,11 +19,14 @@ dispatcher (``pipeline.py``), and an open-loop load generator
     python -m cuvite_tpu_torch.serve cluster-many a.vite b.vite ...
     python -m cuvite_tpu_torch.serve daemon --socket /tmp/cuvite.sock
 
+Streaming: ``StreamPool`` keeps per-tenant resident slabs
+(``stream.StreamSession``) under a device byte budget, behind the
+daemon's ``delta`` verb (``daemon --stream-budget-mb``).
+
 The serve benches are ``workloads/bench.py`` (``run_serve_bench``,
 ``run_mixed_serve_bench``), and ``--trace-out`` writes the flight
-recorder's trace.  Not ported yet: streaming (the daemon's ``delta`` verb
-is refused, ``ROADMAP.md`` queue A item 6) and the concurrency checker's
-cooperative scheduler (item 9).
+recorder's trace.  Not ported yet: the concurrency checker's cooperative
+scheduler (``ROADMAP.md`` queue A item 9).
 """
 
 from cuvite_tpu_torch.serve.admission import (
@@ -42,11 +45,12 @@ from cuvite_tpu_torch.serve.queue import (
     PackedBatch,
     ServeConfig,
     ServeStats,
+    StreamPool,
 )
 
 __all__ = [
     "AdmissionConfig", "AdmissionController", "AdmissionReject",
     "AutotuneConfig", "BmaxAutotuner", "FaultPlan", "InjectedFault",
     "Job", "LouvainServer", "PackedBatch", "PipelinedDispatcher",
-    "ServeConfig", "ServeDaemon", "ServeStats",
+    "ServeConfig", "ServeDaemon", "ServeStats", "StreamPool",
 ]

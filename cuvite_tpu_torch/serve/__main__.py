@@ -16,8 +16,9 @@ pack to ``--b-max`` with a ``--linger-ms`` deadline, and per-tenant
 results stream out as JSON lines, followed by one summary line.  The
 daemon adds socket intake (``serve/daemon.py`` documents the wire
 protocol), admission control (``--wait-slo-ms``), deadline shedding,
-fault injection (``--fault-plan`` / ``CUVITE_FAULT_PLAN``) and a graceful
-drain on SIGTERM/SIGINT, after which the process exits 0.
+fault injection (``--fault-plan`` / ``CUVITE_FAULT_PLAN``), the streaming
+``delta`` verb (per-tenant resident slabs under ``--stream-budget-mb``)
+and a graceful drain on SIGTERM/SIGINT, after which the process exits 0.
 
 Batches run on the CUDA card unless ``--device cpu`` is given; without a
 card the command exits 2.  On the card the kernels are built and one
@@ -129,6 +130,10 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="TCP port for intake (0 = ephemeral; mutually "
                          "exclusive with --socket)")
     dm.add_argument("--host", default="127.0.0.1")
+    dm.add_argument("--stream-budget-mb", type=float, default=256.0,
+                    help="device byte budget for resident StreamSessions "
+                         "(the `delta` verb's per-tenant live slabs; "
+                         "LRU-evicted past the budget)")
     return p
 
 
@@ -147,7 +152,9 @@ def _make_server(args):
         admission=admission, max_retries=args.max_retries,
         retry_base_s=args.retry_base_ms / 1e3,
         autotune_b_max=bool(getattr(args, "autotune_b_max", False)),
-        merge_packing=bool(getattr(args, "merge_packing", False)))
+        merge_packing=bool(getattr(args, "merge_packing", False)),
+        stream_budget_bytes=int(
+            getattr(args, "stream_budget_mb", 256.0) * (1 << 20)))
     return config, faults, LouvainServer
 
 

@@ -9,8 +9,9 @@ of ``cuvite_tpu/serve/daemon.py``).
     count, the conservation ledger and, beyond the reference's reply,
     ``kernels``: each CUDA kernel's launch count, which the CLI zeroes
     before its readiness line; all zero on the CPU), ``drain`` (graceful shutdown,
-    the same path as SIGTERM), ``delta`` (refused: streaming is not
-    ported yet, ``ROADMAP.md`` queue A item 6).
+    the same path as SIGTERM), ``delta`` (streaming: edit the tenant's
+    resident slab and optionally re-cluster it warm, answered on the
+    reader thread).
   * **Dispatcher**: the two-stage pipeline by default
     (``serve/pipeline.py``: a packer thread packs and uploads batch k+1
     while an executor thread runs batch k); ``pipelined=False`` keeps one
@@ -18,9 +19,10 @@ of ``cuvite_tpu/serve/daemon.py``).
     under the daemon lock.
   * **Graceful drain**: ``request_drain()`` closes intake, flushes every
     queued bin (expired jobs still shed, poison jobs still isolate),
-    emits the final ServeStats as a ``serve_summary``, notifies clients
-    and lets ``serve_forever`` return.  Submits after the drain began get
-    ``{"ok": false, "draining": true}``.
+    evicts every resident stream session, emits the final ServeStats
+    with the stream pool's ledger as a ``serve_summary``, notifies
+    clients and lets ``serve_forever`` return.  Submits and deltas after
+    the drain began get ``{"ok": false, "draining": true}``.
 
 Wire protocol (one JSON object per line, both directions)::
 
@@ -33,8 +35,13 @@ Wire protocol (one JSON object per line, both directions)::
         "phases": 2, "iterations": 11}}
     <- {"failed": {"job_id": "job-3", "error": "..."}}
     <- {"shed": {"job_id": "job-4", "late_s": 0.12}}
-    -> {"op": "delta", "tenant": "t0", ...}
-    <- {"ok": false, "error": "delta: streaming is not ported yet ..."}
+    -> {"op": "delta", "tenant": "t0", "synth": {"edges": 4096,
+        "seed": 7}, "ins": [[0, 9, 2.0]], "del": [[1, 2]],
+        "recluster": true, "warm": "labels"}
+    <- {"ok": true, "tenant": "t0", "resident": false, "delta": {"n_ins":
+        2, "n_del": 2, "n_del_hit": 2, "ne": 8190, "frontier_frac": 0.1},
+        "recluster": {"warm": "cold", "q": 0.7, "communities": 12,
+        "phases": 3, "iterations": 20}}
 
 Graph specs: inline ``graph`` (nv/src/dst/optional w), ``file`` (a Vite
 binary path readable by the daemon), or ``synth`` (the deterministic
@@ -313,13 +320,90 @@ class ServeDaemon:
         return {"ok": False, "error": f"unknown op {op!r}"}
 
     def _handle_delta(self, req: dict, client: _Client) -> dict:
-        """The streaming verb.  Streaming (resident per-tenant slabs and
-        their deltas) is not ported yet: every delta is refused with one
-        response line, and the daemon keeps serving."""
-        return {"ok": False,
-                "error": "delta: streaming is not ported yet "
-                         "(ROADMAP.md queue A item 6, stream/); submit "
-                         "the updated graph instead"}
+        """The streaming verb (reference ``daemon.py:344-420``): edit the
+        tenant's RESIDENT slab and optionally re-cluster it warm,
+        answering on the reader thread (synchronous -- a delta is one
+        tenant's own slab, there is no batch to join; exactly one
+        response line per request).  First contact must carry a graph
+        spec (the one full upload); later deltas find the session
+        resident in the StreamPool and pay only the delta -- unless the
+        LRU budget evicted it, in which case the client is told to
+        upload again.  The session's tensors are made and used on this
+        thread's current stream, never on the packer's side stream."""
+        if self._drain_req.is_set():
+            return {"ok": False, "draining": True,
+                    "error": "daemon is draining; not accepting deltas"}
+        tenant = req.get("tenant")
+        if not tenant:
+            return {"ok": False, "error": "delta needs a tenant"}
+        tenant = str(tenant)
+        graph = None
+        if any(k in req for k in ("graph", "file", "synth")):
+            try:
+                graph = _decode_graph(req)
+            except Exception as e:  # noqa: BLE001 — protocol boundary
+                return {"ok": False, "error": f"bad graph spec: {e!r}"}
+        ins = req.get("ins") or []
+        dels = req.get("del") or []
+        try:
+            with self.lock:
+                # Same recheck as submit: a delta that sees drain_req
+                # here must not touch (or admit to) the pool the drain
+                # epilogue is about to clear.
+                if self._drain_req.is_set():
+                    return {"ok": False, "draining": True,
+                            "error": "daemon is draining; "
+                                     "not accepting deltas"}
+                streams = self.server.streams
+                sess = streams.get(tenant)
+                resident = sess is not None
+                if sess is None:
+                    if graph is None:
+                        return {"ok": False, "resident": False,
+                                "error": f"tenant {tenant!r} has no "
+                                         "resident session (first "
+                                         "contact, or evicted); include "
+                                         "a graph/file/synth spec to "
+                                         "(re-)upload"}
+                    sess = streams.admit(tenant, graph)
+                out = {"ok": True, "tenant": tenant, "resident": resident}
+                if ins or dels:
+                    from cuvite_tpu_torch.stream.delta import DeltaBatch
+
+                    batch = DeltaBatch.from_edits(
+                        sess.nv,
+                        ins_src=[e[0] for e in ins],
+                        ins_dst=[e[1] for e in ins],
+                        ins_w=[(e[2] if len(e) > 2 else 1.0)
+                               for e in ins],
+                        del_src=[e[0] for e in dels],
+                        del_dst=[e[1] for e in dels])
+                    info = sess.apply_delta(batch)
+                    # A spill may have grown the slab class: re-read
+                    # the ledger and let LRU eviction re-balance.
+                    streams.reledger(tenant)
+                    out["delta"] = {k: info[k] for k in
+                                    ("n_ins", "n_del", "n_del_hit", "ne",
+                                     "frontier_frac")}
+                if req.get("recluster"):
+                    warm = str(req.get("warm", "labels"))
+                    if warm == "labels" and sess.labels() is None:
+                        # A fresh (or re-uploaded) session has no prior
+                        # labels: its first recluster is cold, and the
+                        # reply says so.
+                        warm = "cold"
+                    res = sess.recluster(warm=warm)
+                    rc = {"warm": warm,
+                          "q": round(float(res.modularity), 6),
+                          "communities": int(res.num_communities),
+                          "phases": len(res.phases),
+                          "iterations": int(res.total_iterations)}
+                    if req.get("labels"):
+                        rc["labels"] = [int(x) for x in res.communities]
+                    out["recluster"] = rc
+                return out
+        except Exception as e:  # noqa: BLE001 — protocol boundary
+            return {"ok": False, "error": repr(e)}
 
     def _handle_submit(self, req: dict, client: _Client) -> dict:
         if self._drain_req.is_set():
@@ -438,8 +522,15 @@ class ServeDaemon:
         dispatcher thread): emit the serve_summary, notify clients,
         unblock serve_forever."""
         server = self.server
+        # Resident tenant slabs do not outlive the service: evict all
+        # (freeing device memory, one `evict` event each) BEFORE the
+        # summary, so its stream block shows the final ledger.
+        server.streams.clear()
         summary = dict(server.stats.to_dict(),
-                       conservation=server.conservation())
+                       conservation=server.conservation(),
+                       stream=dict(server.streams.to_dict(),
+                                   conservation=server.streams
+                                   .conservation()))
         server.tracer.event("serve_summary", **summary)
         self.summary = summary
         for client in list(self._clients.values()):

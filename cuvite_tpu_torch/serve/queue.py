@@ -40,11 +40,15 @@ Observability: a ``pack`` span (class, jobs, B, trigger, layout) and an
 ``admit``/``reject``/``shed``/``retry``/``autotune`` events, through the
 tracer's recorder seam (``utils/trace.py``).
 
-Not ported: streaming (the reference's ``StreamPool`` of resident
-per-tenant sessions and its byte budget, ``ROADMAP.md`` queue A item 6),
-and the batch-axis mesh (the batched driver runs on one device).  This
-module runs no device code; the batched driver (``louvain/batched.py``)
-places each batch on ``ServeConfig.device``.
+Streaming: :class:`StreamPool` keeps per-tenant resident
+``stream.StreamSession`` slabs behind the daemon's ``delta`` verb, LRU-
+evicted under ``ServeConfig.stream_budget_bytes``
+(``LouvainServer.streams``).
+
+Not ported: the batch-axis mesh (the batched driver runs on one device).
+This module runs no device code; the batched driver
+(``louvain/batched.py``) places each batch on ``ServeConfig.device``,
+and the pool's sessions live there too.
 """
 
 from __future__ import annotations
@@ -140,6 +144,11 @@ class ServeConfig:
     # bit-identical to solo runs (the fence construction); poison
     # isolation splits a merged batch per job at its OWN class.
     merge_packing: bool = False
+    # Tenant slab residency budget: total device bytes the StreamPool
+    # may keep resident across per-tenant StreamSessions before LRU
+    # eviction kicks in.  A returning tenant whose session survived pays
+    # only its delta; an evicted one re-uploads.
+    stream_budget_bytes: int = 256 << 20
 
     def __post_init__(self) -> None:
         # Config-time validation: a bad knob must refuse HERE, not deep
@@ -169,6 +178,9 @@ class ServeConfig:
                 "autotune_b_max needs admission control: the tuner "
                 "reads the admission SLO and the measured per-class "
                 "service curve (serve/admission.py)")
+        if self.stream_budget_bytes < 1:
+            raise ValueError("stream_budget_bytes must be >= 1, got "
+                             f"{self.stream_budget_bytes}")
         # Round up to a ladder rung (full bins then pack with zero
         # padding), capped at the ladder top — loudly: a silently
         # clamped b_max=1000 serving 64-row batches would mislead
@@ -486,6 +498,169 @@ class ServeStats:
         return out
 
 
+class StreamPool:
+    """Per-tenant resident :class:`~cuvite_tpu_torch.stream.StreamSession`
+    registry under a device byte budget (reference ``queue.py:509-670``).
+
+    The pool is the serving side of streaming: a tenant's first
+    ``delta`` builds a session (the full slab upload, through the
+    injectable ``factory``); later deltas find it resident and pay only
+    the delta.  Residency is LRU under ``budget_bytes`` of session
+    ``hbm_bytes()``: admitting or growing a session evicts the least
+    recently USED others until the ledger fits (the session being
+    touched is never evicted -- a tenant cannot be evicted by its own
+    request).  One session larger than the whole budget is admitted
+    alone (and evicts everyone else): refusing it would make the budget
+    a hard per-tenant cap, which is the admission controller's job, not
+    the pool's.
+
+    Conservation: every admitted session is resident or evicted exactly
+    once -- ``admitted == resident + evicted`` -- and ``bytes_resident``
+    is exactly the sum of the resident sessions' ledger bytes.  All state
+    lives under one ``sync.RLock`` (the daemon's reader threads race its
+    drain path).  ``device``: where the default factory places sessions
+    (None: the card).
+    """
+
+    def __init__(self, budget_bytes: int, tracer=None, *, factory=None,
+                 device=None):
+        if tracer is None:
+            from cuvite_tpu_torch.utils.trace import NullTracer
+
+            tracer = NullTracer()
+        self.tracer = tracer
+        self.budget_bytes = int(budget_bytes)
+        if self.budget_bytes < 1:
+            raise ValueError("stream budget must be >= 1 byte")
+        self._factory = factory
+        self.device = device
+        self.lock = sync.RLock("stream-pool")
+        self._sessions: dict = {}   # guarded by self.lock: tenant -> session
+        self._order: list = []      # guarded by self.lock: LRU, oldest first
+        self._bytes: dict = {}      # guarded by self.lock: tenant -> bytes
+        self.bytes_resident: int = 0  # guarded by self.lock
+        self.admitted: int = 0      # guarded by self.lock
+        self.evicted: int = 0       # guarded by self.lock
+
+    def _make_session(self, graph):
+        """Build a session OUTSIDE the lock (the slab upload is the
+        expensive part)."""
+        if self._factory is not None:
+            return self._factory(graph, tracer=self.tracer)
+        from cuvite_tpu_torch.stream.session import StreamSession
+
+        return StreamSession.from_graph(graph, tracer=self.tracer,
+                                        device=self.device)
+
+    def _touch(self, tenant: str) -> None:
+        # Callers hold self.lock already; the RLock re-entry keeps the
+        # discipline lexical at zero contention cost.
+        with self.lock:
+            if tenant in self._order:
+                self._order.remove(tenant)
+            self._order.append(tenant)
+
+    def _evict_to_fit(self, keep: str) -> None:
+        # Caller holds self.lock.  Oldest-first, never ``keep``.
+        while self.bytes_resident > self.budget_bytes:
+            victim = next((t for t in self._order if t != keep), None)
+            if victim is None:
+                break
+            self._evict_locked(victim, reason="budget")
+
+    def _evict_locked(self, tenant: str, *, reason: str) -> None:
+        # Callers hold self.lock already (RLock re-entry, as _touch).
+        with self.lock:
+            sess = self._sessions.pop(tenant)
+            nb = self._bytes.pop(tenant)
+            self._order.remove(tenant)
+            self.bytes_resident -= nb
+            self.evicted += 1
+        drop = getattr(sess, "drop", None)
+        if drop is not None:
+            drop()  # release device buffers eagerly (stubs may omit)
+        self.tracer.event("evict", tenant=tenant, bytes=nb,
+                          reason=reason,
+                          bytes_resident=self.bytes_resident,
+                          resident=len(self._sessions))
+
+    def get(self, tenant: str):
+        """The tenant's resident session (LRU-touched), or None."""
+        with self.lock:
+            sess = self._sessions.get(tenant)
+            if sess is not None:
+                self._touch(tenant)
+            return sess
+
+    def admit(self, tenant: str, graph):
+        """Build and admit a session for ``tenant`` (replacing any
+        resident one), evicting LRU others to fit the budget.  Returns
+        the session."""
+        sess = self._make_session(graph)
+        with self.lock:
+            if tenant in self._sessions:
+                self._evict_locked(tenant, reason="replace")
+            nb = int(sess.hbm_bytes())
+            self._sessions[tenant] = sess
+            self._bytes[tenant] = nb
+            self._order.append(tenant)
+            self.bytes_resident += nb
+            self.admitted += 1
+            self._evict_to_fit(keep=tenant)
+        self.tracer.event("stream_admit", tenant=tenant, bytes=nb)
+        return sess
+
+    def reledger(self, tenant: str) -> None:
+        """Re-read a resident session's ``hbm_bytes()`` after an op that
+        may have grown its slab class (a delta spill), then re-run
+        eviction.  No-op for unknown tenants (evicted mid-op)."""
+        with self.lock:
+            sess = self._sessions.get(tenant)
+            if sess is None:
+                return
+            nb = int(sess.hbm_bytes())
+            self.bytes_resident += nb - self._bytes[tenant]
+            self._bytes[tenant] = nb
+            self._evict_to_fit(keep=tenant)
+
+    def evict(self, tenant: str) -> bool:
+        """Explicit eviction (daemon shutdown / operator verb)."""
+        with self.lock:
+            if tenant not in self._sessions:
+                return False
+            self._evict_locked(tenant, reason="explicit")
+            return True
+
+    def clear(self) -> None:
+        with self.lock:
+            for t in list(self._order):
+                self._evict_locked(t, reason="shutdown")
+
+    def conservation(self) -> dict:
+        """Session and byte accounting: every admitted session is
+        resident or evicted exactly once, and the byte ledger is the sum
+        of the residents'."""
+        with self.lock:
+            s = dict(admitted=self.admitted, evicted=self.evicted,
+                     resident=len(self._sessions),
+                     bytes_resident=self.bytes_resident)
+            s["ok"] = (s["admitted"] == s["resident"] + s["evicted"]
+                       and s["bytes_resident"]
+                       == sum(self._bytes.values())
+                       and set(self._order) == set(self._sessions))
+        return s
+
+    def to_dict(self) -> dict:
+        with self.lock:
+            return {
+                "resident": len(self._sessions),
+                "admitted": self.admitted,
+                "evicted": self.evicted,
+                "bytes_resident": self.bytes_resident,
+                "budget_bytes": self.budget_bytes,
+            }
+
+
 class LouvainServer:
     """Synchronous serving core: ``submit()`` enqueues, ``step()`` runs
     every due batch and returns finished ``(job_id, LouvainResult)``
@@ -499,14 +674,16 @@ class LouvainServer:
     without sleeping), ``faults`` (a FaultPlan; empty = no injection),
     ``runner`` (the batch executor, signature of
     ``louvain.batched.cluster_many`` — chaos tests swap in a stub so
-    hundreds of conservation-invariant jobs cost milliseconds).
+    hundreds of conservation-invariant jobs cost milliseconds),
+    ``stream_factory`` (the :class:`StreamPool`'s session factory).
 
     Without a runner, batches run on ``config.device`` (None: the card;
     constructing the server raises when there is none).
     """
 
     def __init__(self, config: ServeConfig | None = None, tracer=None,
-                 clock=None, *, sleep=None, faults=None, runner=None):
+                 clock=None, *, sleep=None, faults=None, runner=None,
+                 stream_factory=None):
         self.config = config or ServeConfig()
         if tracer is None:
             from cuvite_tpu_torch.utils.trace import NullTracer
@@ -568,6 +745,13 @@ class LouvainServer:
         self._shapes: dict = {}    # guarded by self.stats.lock
         self._b_max: dict = {}     # guarded by self.stats.lock
         self._ids = itertools.count()
+        # Tenant slab residency: per-tenant resident StreamSessions
+        # behind the daemon's `delta` verb, LRU-evicted under the byte
+        # budget, on the server's device.
+        self.streams = StreamPool(self.config.stream_budget_bytes,
+                                  tracer=self.tracer,
+                                  factory=stream_factory,
+                                  device=self.config.device)
 
     # -- intake -------------------------------------------------------------
 

@@ -1,9 +1,11 @@
 """Workloads CLI (port of ``cuvite_tpu/workloads/__main__.py``).
 
     python -m cuvite_tpu_torch.workloads synth --edges 1e6 [--many K]
+    python -m cuvite_tpu_torch.workloads synth --edges 1e6 --churn 0.01
     python -m cuvite_tpu_torch.workloads bench --graph rmat --scale 20
     python -m cuvite_tpu_torch.workloads bench --batch 64 --batch-edges 4096
     python -m cuvite_tpu_torch.workloads bench --serve-rate 200
+    python -m cuvite_tpu_torch.workloads bench --churn-frac 0.01
     python -m cuvite_tpu_torch.workloads verify-golden \\
         --dataset powerlaw-test --file g.vite [--update-golden]
 
@@ -11,9 +13,12 @@
 exactly one JSON line on stdout (progress on stderr), or none with exit
 code 3 (a build or load inside the guarded run) or 4 (an invalid
 record).  Every command runs on the CUDA card unless given ``--device
-cpu``.  ``fetch`` and ``convert`` (the dataset catalogue and the format
-converters) and ``synth --churn`` (streaming) are not ported yet and are
-refused with exit code 2 (``ROADMAP.md`` queue A items 9 and 6).
+cpu``.  ``synth --churn FRAC`` also writes the deterministic churn stream
+against the graph it wrote (``<out>.churn.npz`` and its provenance), the
+input of ``bench --churn-frac``'s warm-start arms.  ``fetch`` and
+``convert`` (the dataset catalogue and the format converters) are not
+ported yet and are refused with exit code 2 (``ROADMAP.md`` queue A item
+9).
 """
 
 from __future__ import annotations
@@ -53,8 +58,22 @@ def _cmd_synth(args) -> int:
             "graphs": [m["path"] for m in payload["graphs"]]}))
         return 0
     payload = synthesize(out, edges=int(args.edges), seed=args.seed, **kw)
-    print(json.dumps({"out": out, "result": payload["result"],
-                      "sha256": payload["sha256"]}))
+    line = {"out": out, "result": payload["result"],
+            "sha256": payload["sha256"]}
+    if args.churn:
+        # The churn indexes the REALIZED edge set: the file just written,
+        # read back.
+        from cuvite_tpu_torch.io.vite import read_vite
+        from cuvite_tpu_torch.workloads.synth import write_churn
+
+        graph = read_vite(out, bits64=args.bits64)
+        churn = write_churn(out, graph, frac=args.churn,
+                            seed=args.churn_seed, batches=args.churn_batches)
+        line["churn"] = {"npz": out + ".churn.npz",
+                         "sha256": churn["sha256"],
+                         "frac": churn["churn_frac"],
+                         "batches": churn["batches"]}
+    print(json.dumps(line))
     return 0
 
 
@@ -111,7 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--no-truth", action="store_true",
                    help="skip the ground-truth file (large graphs)")
     s.add_argument("--churn", type=float, metavar="FRAC", default=0.0,
-                   help="the churn stream: not ported yet (refused)")
+                   help="also emit a deterministic insert/delete churn "
+                        "stream (<out>.churn.npz + provenance) deleting "
+                        "FRAC of the undirected pairs per batch (the "
+                        "streaming warm-start bench)")
+    s.add_argument("--churn-batches", type=int, default=1)
+    s.add_argument("--churn-seed", type=int, default=1)
     s.add_argument("--many", type=int, metavar="K", default=0,
                    help="emit K graphs <out>_<k>.vite on distinct "
                         "splitmix64 streams with one set-level "
@@ -152,10 +176,6 @@ def main(argv=None) -> int:
         return 2
     args = build_parser().parse_args(argv)
     if args.cmd == "synth":
-        if args.churn:
-            print("# synth --churn: the churn streams are not ported yet "
-                  "(ROADMAP.md queue A item 6)", file=sys.stderr)
-            return 2
         return _cmd_synth(args)
     return _cmd_verify_golden(args)
 

@@ -6,6 +6,8 @@ runs, one JSON record per run, under the reference's record schema.
     python -m cuvite_tpu_torch.workloads bench --batch 64 --batch-edges 4096
     python -m cuvite_tpu_torch.workloads bench --serve-rate 200 \\
         --batch-edges 1024 --serve-b-max 8 [--device cpu]
+    python -m cuvite_tpu_torch.workloads bench --churn-frac 0.01 \\
+        --scale 20 [--warm-start labels|plp|cold]
 
 One JSON line goes to stdout; progress goes to stderr.  The schema
 (``validate_record``, ``BENCH_SCHEMA_VERSION`` and its block validators)
@@ -43,18 +45,16 @@ What differs from the reference:
 - ``compile_guard`` and ``compile_events`` keep their names and shape;
   their events are kernel builds and library loads
   (``obs/compile_watch.py``).
-- Dropped: ``--host-devices`` (it only gives XLA virtual CPU devices),
-  the XLA compile cache, and the streaming churn bench
-  (``run_churn_bench``, ``--churn-frac``/``--warm-start``), which waits
-  for streaming (``ROADMAP.md`` queue A item 6); ``--churn-frac`` is
-  refused by name.
+- Dropped: ``--host-devices`` (it only gives XLA virtual CPU devices)
+  and the XLA compile cache.
 - ``warm_subrow_rungs`` takes the queue's engine: the port runs a merged
   batch on the queue's engine, where the reference always runs its
   sub-row program.
 
 Env knobs as in the reference: BENCH_SCALE, BENCH_EF, BENCH_GRAPH,
 BENCH_ENGINE, BENCH_REPEATS, BENCH_TIME_BUDGET, BENCH_BATCH,
-BENCH_BATCH_ENGINE, BENCH_SERVE_RATE.  Flags override them.
+BENCH_BATCH_ENGINE, BENCH_SERVE_RATE, BENCH_CHURN_FRAC.  Flags override
+them.
 """
 
 from __future__ import annotations
@@ -1165,6 +1165,128 @@ def run_mixed_serve_bench(
     return rec
 
 
+def run_churn_bench(
+    *,
+    churn_frac: float,
+    scale: int,
+    edge_factor: int = 16,
+    warm: str = "labels",
+    seed: int = 1,
+    device=None,
+    budget_s: float = 420.0,
+    t_start: float | None = None,
+) -> dict:
+    """Streaming warm-start bench: ONE deterministic churn batch
+    (``churn_frac`` of the undirected pairs deleted, as many inserted;
+    ``workloads/synth.churn_batches``) against an R-MAT ``scale`` graph,
+    measured two ways on one resident session:
+
+    * cold -- the session re-clusters the pre-churn slab from scratch
+      (``warm='cold'``: identity seed, every vertex active), the full
+      re-run a deployment without streaming pays per update;
+    * delta -- the session ingests the batch (``apply_delta``) and
+      re-clusters with ``warm`` seeding (previous labels and the delta
+      frontier, or the PLP prepass).
+
+    The warm-up runs both arms end to end on a throwaway session first;
+    the timed arms then run under the guard (no kernel build or library
+    load may fall inside them).  The record carries the ``stream`` block
+    (cold_wall_s, delta_wall_s, speedup, frontier_frac); its Q is the
+    delta arm's, the number the golden envelope judges.
+    """
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.obs import NO_TRACE, CompileWatcher, \
+        FlightRecorder
+    from cuvite_tpu_torch.stream import DeltaBatch, StreamSession
+    from cuvite_tpu_torch.utils.trace import Tracer, rss_high_water_mb
+    from cuvite_tpu_torch.workloads.synth import churn_batches
+
+    t_start = _T_PROC if t_start is None else t_start
+    if not 0.0 < churn_frac < 1.0:
+        raise ValueError(
+            f"--churn-frac must be in (0, 1), got {churn_frac}")
+    if warm not in STREAM_WARM_MODES:
+        raise ValueError(f"--warm-start must be one of "
+                         f"{STREAM_WARM_MODES}, got {warm!r}")
+    card = _Card(device)
+
+    t0 = time.perf_counter()
+    graph = generate_rmat(scale, edge_factor=edge_factor, seed=seed)
+    print(f"# graph: rmat scale={scale} nv={graph.num_vertices} "
+          f"ne={graph.num_edges} gen={time.perf_counter()-t0:.1f}s",
+          file=sys.stderr)
+    batch = DeltaBatch.from_edits(
+        graph.num_vertices,
+        **churn_batches(graph, frac=churn_frac, seed=seed)[0])
+
+    frec = FlightRecorder(NO_TRACE, watch_compiles=False)
+    with CompileWatcher(on_event=frec._on_compile):
+        wsess = StreamSession.from_graph(graph, device=card.dev)
+        wsess.recluster(warm="cold")
+        wsess.apply_delta(batch)
+        wsess.recluster(warm=warm)
+        del wsess
+    elapsed = time.perf_counter() - t_start
+    if elapsed > budget_s:
+        raise RuntimeError(
+            f"churn bench warm-up alone spent {elapsed:.0f}s of the "
+            f"{budget_s:.0f}s budget; shrink --scale")
+
+    tr = Tracer(recorder=frec)
+    sess = StreamSession.from_graph(graph, tracer=tr, device=card.dev)
+    card.reset_peak()
+    before = _launches()
+    with CompileWatcher(on_event=frec._on_compile) as watch:
+        t1 = time.perf_counter()
+        res_cold = sess.recluster(warm="cold")
+        cold_wall = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        info = sess.apply_delta(batch)
+        res_warm = sess.recluster(warm=warm)
+        delta_wall = time.perf_counter() - t1
+    if watch.compiles:
+        raise BenchCompileGuardError(watch.compiles)
+    print(f"# launches run 1: {json.dumps(_since(before))}",
+          file=sys.stderr)
+
+    teps, _clustering_s = _one_teps(res_cold, cold_wall)
+    speedup = cold_wall / max(delta_wall, 1e-9)
+    print(f"# stream: cold={cold_wall:.2f}s delta={delta_wall:.2f}s "
+          f"speedup={speedup:.1f}x frontier={info['frontier_frac']:.4f} "
+          f"Q_cold={res_cold.modularity:.5f} "
+          f"Q_warm={res_warm.modularity:.5f}", file=sys.stderr)
+    return {
+        "metric": "louvain_teps_per_chip",
+        "value": round(teps, 1),
+        "unit": "traversed_edges/sec",
+        "vs_baseline": round(teps / BASELINE_EDGES_PER_SEC_PER_CHIP, 4),
+        **card.fields,
+        "graph": f"rmat{scale}",
+        "scale": int(scale),
+        # The DELTA arm's quality: a warm start that converged somewhere
+        # worse must not hide behind the cold run's Q.
+        "modularity": round(float(res_warm.modularity), 6),
+        "phases": len(res_warm.phases),
+        "iterations": int(res_warm.total_iterations),
+        "rss_mb": round(rss_high_water_mb(), 1),
+        "peak_alloc_bytes": card.peak(),
+        "compile_guard": {"checked": True, "new_compiles": 0},
+        "engine": "fused",
+        **_telemetry(frec, tr, res_warm.convergence),
+        "stream": {
+            "cold_wall_s": round(cold_wall, 4),
+            "delta_wall_s": round(delta_wall, 4),
+            "speedup": round(speedup, 3),
+            "frontier_frac": round(float(info["frontier_frac"]), 5),
+            "warm": warm,
+            "churn_frac": float(churn_frac),
+            "n_ins": int(info["n_ins"]),
+            "n_del": int(info["n_del"]),
+            "modularity_cold": round(float(res_cold.modularity), 6),
+        },
+    }
+
+
 def _build_parser() -> argparse.ArgumentParser:
     env = os.environ
     p = argparse.ArgumentParser(
@@ -1235,9 +1357,23 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--serve-autotune", action="store_true",
                    help="measured-service b_max autotuning (needs "
                         "admission on)")
-    p.add_argument("--churn-frac", type=float, metavar="FRAC", default=None,
-                   help="the streaming churn bench: not ported yet "
-                        "(refused)")
+    c = p.add_argument_group("streaming churn bench")
+    c.add_argument("--churn-frac", type=float, metavar="FRAC",
+                   default=float(env["BENCH_CHURN_FRAC"])
+                   if "BENCH_CHURN_FRAC" in env else None,
+                   help="one deterministic churn batch (FRAC of the "
+                        "undirected pairs deleted + as many inserted) "
+                        "against an rmat --scale graph: cold full "
+                        "re-cluster vs apply_delta + warm-start "
+                        "re-cluster on a resident session; the record "
+                        "carries the `stream` block (cold_wall_s, "
+                        "delta_wall_s, speedup, frontier_frac)")
+    c.add_argument("--warm-start", default="labels",
+                   choices=list(STREAM_WARM_MODES),
+                   help="delta-arm seeding: 'labels' (previous run's "
+                        "labels + delta frontier), 'plp' (the "
+                        "label-propagation prepass), or 'cold' "
+                        "(identity, the null arm)")
     return p
 
 
@@ -1258,10 +1394,14 @@ def _emit(rec: dict, out: str | None) -> int:
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     if args.churn_frac is not None:
-        print("# --churn-frac: the streaming churn bench (run_churn_bench) "
-              "is not ported yet; it waits for streaming, ROADMAP.md queue "
-              "A item 6 (A6)", file=sys.stderr)
-        return 2
+        if args.batch is not None or args.serve_rate is not None:
+            print("# --churn-frac, --batch and --serve-rate are "
+                  "different benches; pick one", file=sys.stderr)
+            return 2
+        if args.file:
+            print("# --churn-frac generates its own rmat graph: --file "
+                  "does not apply (use --scale)", file=sys.stderr)
+            return 2
     if args.serve_rate is not None and args.batch is not None:
         print("# --serve-rate and --batch are different benches; pick one",
               file=sys.stderr)
@@ -1287,7 +1427,14 @@ def main(argv=None) -> int:
         print(f"# {e}", file=sys.stderr)
         return 2
     try:
-        if args.serve_rate is not None:
+        if args.churn_frac is not None:
+            rec = run_churn_bench(
+                churn_frac=args.churn_frac,
+                scale=args.scale if args.scale is not None else (
+                    18 if dev.type == "cpu" else 20),
+                edge_factor=args.edge_factor, warm=args.warm_start,
+                device=dev, budget_s=args.budget)
+        elif args.serve_rate is not None:
             rec = run_serve_bench(
                 rate=args.serve_rate, b_max=args.serve_b_max,
                 edges=args.batch_edges, n_jobs=args.batch_jobs,

@@ -22,8 +22,12 @@ each row's records in tail order), the ground truth (LFR ``vertex
 community``, 1-based) to ``<out>.truth`` and the provenance, with the
 file's sha256, to ``<out>.provenance.json``.  The reference streams the
 file through its converter in chunks of bounded memory; the port builds
-it in memory, which holds the same bytes, and has no converter.  The churn
-streams (``:258-370``) go with streaming.
+it in memory, which holds the same bytes, and has no converter.
+
+:func:`churn_batches` (``:258-370``) draws the deterministic insert/delete
+stream of the streaming bench against a base graph; :func:`write_churn`
+writes it beside a Vite file as ``<out>.churn.npz`` with its provenance,
+and :func:`load_churn` reads it back.
 """
 
 from __future__ import annotations
@@ -55,6 +59,12 @@ _T_PICK = 0x06 << 56
 _T_INTRA = 0x07 << 56
 _T_INTER = 0x08 << 56
 _T_MANY = 0x09 << 56
+# Churn streams: delete ranks, insert endpoints, insert weights -- distinct
+# tags so a churn stream never collides with the base synthesis draws of
+# the same seed.
+_T_CHURN_DEL = 0x0A << 56
+_T_CHURN_INS = 0x0B << 56
+_T_CHURN_W = 0x0C << 56
 _STRIDE = 0x9E3779B97F4A7C15
 _MASK64 = (1 << 64) - 1
 
@@ -252,6 +262,120 @@ def synthesize_graph(edges: int, seed: int = 1, profile: str = "powerlaw",
     nv, draws, bounds, _sizes = _layout(spec.edges, spec, seed)
     src, dst = _draw_edges(nv, draws, bounds, spec, DEFAULT_CHUNK_EDGES)
     return Graph.from_edges(nv, src, dst, symmetrize=True)
+
+
+def churn_batches(graph, *, frac: float, seed: int = 1,
+                  batches: int = 1) -> list:
+    """Deterministic insert/delete churn stream against a base graph:
+    the offline workload of the streaming warm-start bench.
+
+    Each batch deletes ``frac`` of the base graph's undirected pairs and
+    inserts as many fresh hash-drawn pairs with small dyadic integer
+    weights (1..8, inside the exactness domain of the device coalesce,
+    so a delta and a rebuild stay bit-equal).  Every draw is a splitmix64
+    hash of (seed, index) on churn-only stream tags: the batch list is a
+    pure function of (graph, frac, seed, batches).  Deletes are sampled
+    without replacement ACROSS batches (rank order of one hash stream
+    over the base pairs), so batch k's deletes still exist when it is
+    applied; inserts may touch any pair, including one another's --
+    duplicate inserts coalesce by weight sum, exactly like the rebuild
+    oracle.
+
+    Returns a list of ``batches`` dicts with int64/f64 numpy arrays
+    ``{ins_src, ins_dst, ins_w, del_src, del_dst}`` (one undirected
+    record per pair; ``stream.DeltaBatch.from_edits`` symmetrizes).
+    """
+    frac = float(frac)
+    batches = int(batches)
+    if not 0.0 < frac < 1.0:
+        raise ValueError("--churn fraction must be in (0, 1)")
+    if batches < 1:
+        raise ValueError("churn needs at least one batch")
+    nv = graph.num_vertices
+    deg = np.diff(graph.offsets)
+    src_all = np.repeat(np.arange(nv, dtype=np.int64), deg)
+    dst_all = np.asarray(graph.tails, dtype=np.int64)
+    canon = src_all <= dst_all  # one record per undirected pair
+    psrc, pdst = src_all[canon], dst_all[canon]
+    n_pairs = len(psrc)
+    n_churn = max(1, int(round(frac * n_pairs)))
+    if batches * n_churn > n_pairs:
+        raise ValueError(
+            f"churn of {batches} x {n_churn} pairs exceeds the base "
+            f"graph's {n_pairs} undirected pairs; lower --churn or "
+            "--churn-batches")
+    pidx = np.arange(n_pairs, dtype=np.int64)
+    rank = np.argsort(splitmix64(_stream_base(_T_CHURN_DEL, seed)
+                                 + pidx.astype(np.uint64)),
+                      kind="stable")
+    out = []
+    for b in range(batches):
+        dsel = rank[b * n_churn:(b + 1) * n_churn]
+        # Fresh endpoints: oversample, drop self-draws, keep the first
+        # n_churn -- deterministic in the draw index.
+        need, have, lo = n_churn, [], 0
+        while need > 0:
+            gidx = np.arange(lo, lo + 2 * need + 4, dtype=np.int64) \
+                + np.int64(b) * np.int64(8 * (n_churn + 1))
+            hu = splitmix64(_stream_base(_T_CHURN_INS, seed)
+                            + (2 * gidx).astype(np.uint64))
+            hv = splitmix64(_stream_base(_T_CHURN_INS, seed)
+                            + (2 * gidx + 1).astype(np.uint64))
+            iu = (hu % np.uint64(nv)).astype(np.int64)
+            iv = (hv % np.uint64(nv)).astype(np.int64)
+            keep = iu != iv
+            have.append(np.stack([iu[keep], iv[keep],
+                                  gidx[keep]], axis=1))
+            need = n_churn - sum(len(h) for h in have)
+            lo += len(gidx)
+        ins = np.concatenate(have)[:n_churn]
+        hw = splitmix64(_stream_base(_T_CHURN_W, seed)
+                        + ins[:, 2].astype(np.uint64))
+        ins_w = 1.0 + (hw % np.uint64(8)).astype(np.float64)
+        out.append({
+            "ins_src": ins[:, 0].copy(), "ins_dst": ins[:, 1].copy(),
+            "ins_w": ins_w,
+            "del_src": psrc[dsel].copy(), "del_dst": pdst[dsel].copy(),
+        })
+    return out
+
+
+def write_churn(out_path: str, graph, *, frac: float, seed: int = 1,
+                batches: int = 1) -> dict:
+    """Materialize :func:`churn_batches` next to a synthesized Vite file:
+    ``<out>.churn.npz`` holds the batch arrays
+    (``{ins_src,ins_dst,ins_w,del_src,del_dst}_<k>``);
+    ``<out>.churn.provenance.json`` records the churn seed and fraction
+    and the npz sha256, so the warm-start bench is reproducible
+    offline."""
+    bs = churn_batches(graph, frac=frac, seed=seed, batches=batches)
+    npz_path = out_path + ".churn.npz"
+    arrays = {}
+    for k, b in enumerate(bs):
+        for key, arr in b.items():
+            arrays[f"{key}_{k}"] = arr
+    np.savez(npz_path, **arrays)
+    payload = {
+        "source": "churn",
+        "base": out_path,
+        "churn_seed": int(seed),
+        "churn_frac": float(frac),
+        "batches": int(batches),
+        "pairs_deleted_each": int(len(bs[0]["del_src"])),
+        "pairs_inserted_each": int(len(bs[0]["ins_src"])),
+        "sha256": _sha256_file(npz_path),
+        "created": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+    }
+    write_provenance(out_path + ".churn", payload)
+    return payload
+
+
+def load_churn(out_path: str) -> list:
+    """Read ``<out>.churn.npz`` back into the churn_batches shape."""
+    keys = ("ins_src", "ins_dst", "ins_w", "del_src", "del_dst")
+    with np.load(out_path + ".churn.npz") as z:
+        n = max(int(name.rsplit("_", 1)[1]) for name in z.files) + 1
+        return [{k: z[f"{k}_{b}"] for k in keys} for b in range(n)]
 
 
 def synthesize_many(out_prefix: str, count: int, edges: int, seed: int = 1,

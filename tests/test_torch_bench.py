@@ -158,6 +158,46 @@ def test_validate_record_rejects_malformed(case, serve_record):
         assert any(word in p for p in validate(rec)), (case, validate)
 
 
+@pytest.mark.parametrize("warm", ["labels", "plp", "cold"])
+def test_run_churn_bench_matches_reference(warm):
+    """The streaming churn bench at R-MAT 8: a record valid under both
+    validators, with the reference record's Q, phases, iterations and
+    stream block but its walls."""
+    ref = ref_bench.run_churn_bench(churn_frac=0.02, scale=8, warm=warm,
+                                    platform="cpu",
+                                    t_start=time.perf_counter())
+    mine = bench.run_churn_bench(churn_frac=0.02, scale=8, warm=warm,
+                                 device="cpu", t_start=time.perf_counter())
+    _both_valid(mine)
+    assert set(ref) <= set(mine)
+    assert mine["compile_guard"] == {"checked": True, "new_compiles": 0}
+    assert (mine["graph"], mine["engine"], mine["platform"]) == \
+        ("rmat8", "fused", "cpu")
+    assert (mine["phases"], mine["iterations"]) == \
+        (ref["phases"], ref["iterations"])
+    assert abs(mine["modularity"] - ref["modularity"]) <= 1e-6
+    walls = ("cold_wall_s", "delta_wall_s", "speedup")
+    assert {k: v for k, v in mine["stream"].items() if k not in walls} == \
+        {k: v for k, v in ref["stream"].items() if k not in walls}
+    assert mine["stream"]["warm"] == warm
+
+
+def test_churn_bench_command_prints_one_json_line(capsys, monkeypatch):
+    # The budget counts from the process start; this worker's started long
+    # ago, so start it now, as a fresh command's would.
+    monkeypatch.setattr(bench, "_T_PROC", time.perf_counter())
+    assert bench.main(["--churn-frac", "0.01", "--scale", "7",
+                       "--warm-start", "plp", "--device", "cpu"]) == 0
+    captured = capsys.readouterr()
+    lines = captured.out.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    _both_valid(rec)
+    assert rec["graph"] == "rmat7" and rec["stream"]["warm"] == "plp"
+    assert '# launches run 1: {"row_argmax": 0, "heavy_bincount": 0, ' \
+        '"seg_coalesce": 0}' in captured.err
+
+
 def test_guard_trips_on_a_build_inside_the_first_timed_run(monkeypatch):
     """A graph factory whose second call arms a build: the first timed
     run's phase set-up then fires a build event through _build.py's
@@ -199,7 +239,8 @@ def test_main_emits_no_json_on_guard_trip(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,word", [
-    (["--churn-frac", "0.01"], "A6"),
+    (["--churn-frac", "0.01", "--batch", "2"], "different benches"),
+    (["--churn-frac", "0.01", "--file", "g.vite"], "does not apply"),
     (["--batch", "2", "--serve-rate", "5"], "different benches"),
     (["--batch", "2", "--scale", "8"], "do not apply"),
 ])
@@ -232,9 +273,7 @@ def test_bench_command_prints_one_json_line(tmp_path):
     assert json.loads((tmp_path / "rec.json").read_text()) == rec
 
 
-@pytest.mark.parametrize("argv", [["fetch", "x"], ["convert", "a"],
-                                  ["synth", "--edges", "1e3", "--churn",
-                                   "0.1"]])
+@pytest.mark.parametrize("argv", [["fetch", "x"], ["convert", "a"]])
 def test_workloads_cli_refuses_unported(argv, capsys):
     from cuvite_tpu_torch.workloads.__main__ import main
 

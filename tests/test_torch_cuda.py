@@ -769,3 +769,61 @@ def test_bench_record_on_card(cuda_device):
         traced = louvain_phases(g, device=cuda_device,
                                 tracer=Tracer(recorder=fr))
     assert np.array_equal(traced.communities, cpu.communities)
+
+
+@pytest.mark.cuda
+def test_stream_delta_on_card_matches_cpu(cuda_device):
+    """apply_delta_slab, delta_frontier and grow_slab on the card, bit-equal
+    to the CPU for an R-MAT 12 slab and one churn batch."""
+    from cuvite_tpu_torch.coarsen.device import grow_slab
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.stream import (
+        DeltaBatch,
+        apply_delta_slab,
+        delta_frontier,
+    )
+    from cuvite_tpu_torch.stream.session import canonical_slab
+    from cuvite_tpu_torch.workloads.synth import churn_batches
+
+    g = generate_rmat(12)
+    nv_pad, ne_pad, src, dst, w = canonical_slab(g)
+    batch = DeltaBatch.from_edits(g.num_vertices,
+                                  **churn_batches(g, frac=0.01)[0])
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        t = [torch.from_numpy(a).to(dev)
+             for a in (src, dst, w, *batch.padded()[:5])]
+        res = apply_delta_slab(*t, g.num_edges, nv_pad=nv_pad)
+        fr = delta_frontier(res[0], res[1], t[3], t[4], t[6], t[7],
+                            nv_pad=nv_pad)
+        grown = grow_slab(*res[:3], nv_pad=nv_pad, new_nv_pad=nv_pad,
+                          new_ne_pad=2 * ne_pad)
+        outs.append([x.cpu() for x in (*res, *fr, *grown)])
+    assert outs[0][5].item() == batch.n_del     # every churn delete hits
+    for a, b in zip(*outs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_stream_session_on_card_matches_cpu(cuda_device):
+    """A session on R-MAT 10: cold, one churn delta, the labels and plp
+    arms; the card gives the CPU's labels, delta facts and 2m."""
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.stream import DeltaBatch, StreamSession
+    from cuvite_tpu_torch.workloads.synth import churn_batches
+
+    g = generate_rmat(10)
+    batch = DeltaBatch.from_edits(g.num_vertices,
+                                  **churn_batches(g, frac=0.02)[0])
+    runs = []
+    for dev in ("cpu", cuda_device):
+        s = StreamSession.from_graph(g, device=dev)
+        cold = s.recluster(warm="cold")
+        info = s.apply_delta(batch)
+        info.pop("wall_s")
+        warm = s.recluster(warm="labels")
+        plp = s.recluster(warm="plp")
+        runs.append((cold.communities.tolist(), info,
+                     warm.communities.tolist(), plp.communities.tolist(),
+                     s.tw2, s.fingerprint))
+    assert runs[0] == runs[1]

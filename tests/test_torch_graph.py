@@ -167,7 +167,9 @@ def test_package_imports_without_jax():
         "       'cuvite_tpu_torch.obs.recorder',\n"
         "       'cuvite_tpu_torch.workloads.registry',\n"
         "       'cuvite_tpu_torch.workloads.bench',\n"
-        "       'cuvite_tpu_torch.workloads.__main__'}\n"
+        "       'cuvite_tpu_torch.workloads.__main__',\n"
+        "       'cuvite_tpu_torch.stream.delta',\n"
+        "       'cuvite_tpu_torch.stream.session'}\n"
         "assert new <= set(names), new - set(names)\n"
         "from cuvite_tpu_torch.workloads.golden import load_golden\n"
         "assert 'powerlaw-test/default' in load_golden()['entries']\n"
@@ -175,7 +177,7 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 41
+    assert int(out.stdout.strip()) >= 44
 
 
 def test_louvain_phases_without_cuda_raises(monkeypatch):

@@ -1,6 +1,8 @@
 """cuvite_tpu_torch's serving daemon on the CPU: the socket protocol held
-against the reference daemon's, refusals, the drain, pipelined results
-equal to serial ones, and the CLI end to end.
+against the reference daemon's, refusals, the ``delta`` verb beside the
+batch path, the drain, pipelined results equal to serial ones, and the
+CLI end to end (the ``delta`` verb against the reference daemon's is in
+tests/test_torch_stream.py).
 
 In-process daemons run a stub runner over a unix socket, so the protocol
 and threading machinery is tested in milliseconds; the reference daemon
@@ -114,7 +116,7 @@ def stop(d):
 
 
 # The request lines of the protocol comparison, and the replies each
-# gets: every verb but ``delta`` answers as the reference does.
+# gets, as the reference answers them.
 SESSION = [
     {"op": "explode"},
     {"op": "submit"},
@@ -143,10 +145,6 @@ def _session(pkg, path):
         for k in ("busy_s", "jobs_per_s", "pack_s", "device_s",
                   "wait_p50_ms", "wait_p95_ms"):
             m.get("serve_summary", {}).pop(k, None)
-        # The reference's stream-session ledger: streaming is not
-        # ported, and the port's summary has no such block.
-        if pkg is jserve:
-            m.get("serve_summary", {}).pop("stream", None)
     return replies, sorted(json.dumps(m, sort_keys=True) for m in rest)
 
 
@@ -165,15 +163,70 @@ def test_protocol_replies_match_reference(tmp_path):
     assert sum("labels" in m["result"] for m in results) == 1
 
 
-def test_delta_refused_and_daemon_keeps_serving(tmp_path):
-    d = start_daemon(pserve, tmp_path / "d.sock")
+class _StreamStub:
+    """Daemon-facing session stub (tests/test_stream.py's): a real
+    DeltaBatch in, canned numbers out."""
+
+    def __init__(self, graph):
+        self.nv = graph.num_vertices
+        self.ne = graph.num_edges
+        self._labels = None
+
+    def hbm_bytes(self):
+        return 1000
+
+    def labels(self):
+        return self._labels
+
+    def apply_delta(self, batch):
+        self.ne += batch.n_ins
+        return {"n_ins": batch.n_ins, "n_del": batch.n_del,
+                "n_del_hit": 0, "ne": self.ne, "frontier_frac": 0.25,
+                "wall_s": 0.0}
+
+    def recluster(self, warm="labels", **kw):
+        self._labels = np.zeros(self.nv, dtype=np.int64)
+        return types.SimpleNamespace(
+            modularity=0.5, num_communities=2, phases=[1],
+            total_iterations=3, communities=self._labels)
+
+
+def test_delta_verb_and_daemon_keeps_serving(tmp_path):
+    """The ``delta`` verb beside the batch path: first contact without a
+    graph is refused, an upload admits the tenant, a bare delta finds it
+    resident, a warm recluster without labels runs cold and says so; the
+    daemon keeps serving jobs, and its drain clears the pool into the
+    summary's ``stream`` block."""
+    srv = pserve.LouvainServer(
+        pserve.ServeConfig(b_max=2, linger_s=0.01, engine="fused",
+                           stream_budget_bytes=1500),
+        runner=stub_runner,
+        stream_factory=lambda graph, tracer=None: _StreamStub(graph))
+    d = pserve.ServeDaemon(srv, sock_path=str(tmp_path / "d.sock"),
+                           poll_s=0.005)
+    d.start()
     c = DaemonClient(str(tmp_path / "d.sock"))
+    gspec = {"nv": 8, "src": [0, 1, 2, 3], "dst": [1, 2, 3, 4]}
     try:
-        r = c.call({"op": "delta", "tenant": "t0",
-                    "synth": {"edges": 256, "seed": 7},
-                    "ins": [[0, 9, 2.0]], "recluster": True})
-        assert r["ok"] is False and "streaming" in r["error"]
-        assert "ROADMAP" in r["error"]
+        r = c.call({"op": "delta", "tenant": "t0", "ins": [[0, 1]]})
+        assert not r["ok"] and r["resident"] is False
+        assert "upload" in r["error"]
+        r = c.call({"op": "delta", "tenant": "t0", "graph": gspec,
+                    "ins": [[0, 5], [1, 6, 2.0]], "del": [[0, 1]]})
+        assert r["ok"] and r["resident"] is False
+        assert r["delta"] == {"n_ins": 4, "n_del": 2, "n_del_hit": 0,
+                              "ne": 12, "frontier_frac": 0.25}
+        r = c.call({"op": "delta", "tenant": "t0", "ins": [[2, 7]],
+                    "recluster": True, "warm": "labels"})
+        assert r["ok"] and r["resident"] is True
+        assert r["recluster"]["warm"] == "cold"
+        r = c.call({"op": "delta", "tenant": "t0", "recluster": True,
+                    "labels": True})
+        assert r["recluster"]["warm"] == "labels"
+        assert r["recluster"]["labels"] == [0] * 8
+        # A second tenant over the 1500-byte budget evicts the first.
+        assert c.call({"op": "delta", "tenant": "t1", "graph": gspec})["ok"]
+        assert srv.streams.to_dict()["evicted"] == 1
         assert c.call(graph_req(3))["ok"]
         assert "result" in c.recv()
         st = c.call({"op": "stats"})
@@ -186,7 +239,12 @@ def test_delta_refused_and_daemon_keeps_serving(tmp_path):
     finally:
         c.close()
     summary = stop(d)
-    assert summary["conservation"]["ok"] and "stream" not in summary
+    assert summary["conservation"]["ok"]
+    assert summary["stream"] == {
+        "resident": 0, "admitted": 2, "evicted": 2, "bytes_resident": 0,
+        "budget_bytes": 1500,
+        "conservation": {"admitted": 2, "evicted": 2, "resident": 0,
+                         "bytes_resident": 0, "ok": True}}
 
 
 def test_submit_refused_while_draining(tmp_path):
