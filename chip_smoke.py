@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--scale 20] [--check-scale 14]
                           [--rgg-nv 4194304] [--rgg-check-nv 65536]
                           [--fused-check-scale 12] [--fused-shrink 4096]
-                          [--schedule-scale 20]
+                          [--schedule-scale 20] [--mesh-shards 4]
+                          [--mesh-replicated-scale 20]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -181,9 +182,35 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    in-process session's, a second tenant that evicts the first, a delta
    to the evicted tenant refused, a re-upload; SIGTERM: exit 0, pool
    conservation with 3 admitted and 3 evicted.
-   All three kernels printed as one JSON line, with their launches on
-   every path (the bench's and the stream paths' among them) and their
-   batched forms' times.
+28. the row kernel's size form (``row_argmax_sized``, the sparse
+   exchange's) against its twin at every DEFAULT_BUCKETS width, with and
+   without the row degrees: dyadic weights, padding slots, no-candidate
+   rows (sentinel best and size) and a zero-gain tie won by the smaller
+   id with its own size -- bit-equal, best_size included; phase 5's
+   launches (the non-size forms; 229 row / 14 heavy at R-MAT 20) with no
+   size-form launch; then the size form timed at the sparse phase-0
+   shapes of R-MAT --scale on --mesh-shards shards of one card, every
+   class of every shard a sweep, at the identity and the converged
+   assignment, bit-equal to its twin there, beside the twin and its
+   bound;
+29. louvain_phases on R-MAT --check-scale, --mesh-shards shards on one
+   card, both exchanges: labels, phases and iterations identical to the
+   same mesh on the CPU and to one shard on the card, Q to 1e-9;
+30. full width: R-MAT --scale on --mesh-shards shards of one card under
+   the sparse exchange and (at --mesh-replicated-scale) the replicated
+   one, the launch counts set to 0 just before each and read just
+   after: per phase nv, ne, iterations, Q, seconds and the exchange
+   (ghosts per shard, block, budget, the bytes a shard sends a sweep);
+   fails if Q is more than 1e-6 from the host f64 modularity, if the
+   labels differ from one shard's, or if the sparse run never launched
+   the size form; every shard sat on one H100, so no NVLink transfer is
+   measured;
+31. a per-peer budget of 1 on R-MAT --check-scale, --mesh-shards shards
+   on the card: the runner's sweeps overflow, the driver re-runs the
+   phase with a grown budget, and the labels equal one shard's.
+   All four kernels (the size form as its own entry) printed as one JSON
+   line, with their launches on every path (the bench's, the stream and
+   the mesh paths' among them) and their batched forms' times.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2874,6 +2901,339 @@ def run_stream_daemon() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-31: the sharded engine on a mesh of shards on one card.
+
+# The R-MAT 20 bucketed path's launches before the size form existed
+# (PR 8's and PR 9's smoke runs): the non-size row and heavy kernels.
+MAIN_PATH_LAUNCHES_20 = {"row_argmax": 229, "heavy_bincount": 14}
+# Bytes of one real row of the size form: verts and degree, vdeg,
+# self_loop and cdeg_v, four 4-byte outputs.
+SIZED_ROW_BYTES = 4 + 4 + 12 + 16
+
+
+def sized_row_case(width: int, seed: int, dev):
+    """Rows of the size form over 3,000 owned vertices and 1,000 ghosts,
+    each with a community from a pool of ~width/2 ids and that
+    community's degree and size (a quarter of them singletons): row
+    degrees random in [1, width], padding slots past them (the row's own
+    vertex, weight 0), dyadic weights; rows 0-3 reach only their own
+    community (no candidate); the last row is a zero-gain tie between
+    communities 5 and 3 (zero-weight edges, degree equal to ax), which 3
+    must win with its own size.  Returns (tensors, constant, degrees)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nv, n_ext = 3000, 4000
+    n_rows = max(64, min(2048, (1 << 20) // width))
+    pool = max(width // 2, 16)
+    comm = rng.integers(16, pool + 16, n_ext).astype(np.int32)
+    cdeg_tab = (rng.integers(1, 256, pool + 16) / 8.0).astype(np.float32)
+    size_tab = np.where(rng.random(pool + 16) < 0.25, 1,
+                        rng.integers(2, 99, pool + 16)).astype(np.int32)
+    verts = rng.choice(nv, n_rows, replace=False).astype(np.int32)
+    deg = rng.integers(1, width + 1, n_rows)
+    dst = rng.integers(0, n_ext, (n_rows, width)).astype(np.int32)
+    w = (rng.integers(0, 32, (n_rows, width)) / 16.0).astype(np.float32)
+    # The tie row: vertex t in community 15 (degree 10, vdeg 4: ax = 6),
+    # zero-weight edges to ghosts 3000-3005 in communities 5, 3, 9.
+    t = verts[-1]
+    comm[t] = 15
+    comm[3000:3006] = [5, 3, 9, 5, 3, 9]
+    cdeg_tab[[3, 5, 9, 15]] = [6.0, 6.0, 100.0, 10.0]
+    size_tab[[3, 5]] = [7, 1]
+    deg[-1] = 6
+    dst[-1, :6] = np.arange(3000, 3006)
+    w[-1] = 0.0
+    # No-candidate rows, among the pool's communities (ids >= 16).
+    same = np.nonzero(comm == comm[verts[0]])[0]
+    for r in range(4):
+        comm[verts[r]] = comm[verts[0]]
+        dst[r] = rng.choice(same, width)
+        deg[r] = width
+    vdeg = (rng.integers(1, 64, nv) / 4.0).astype(np.float32)
+    vdeg[t] = 4.0
+    sl = (rng.integers(0, 3, nv) / 2.0).astype(np.float32)
+    sl[t] = 0.0
+    slot = np.arange(width)[None, :]
+    dst = np.where(slot < deg[:, None], dst, verts[:, None]).astype(np.int32)
+    w[slot >= deg[:, None]] = 0.0
+    cdeg_ext, csize_ext = cdeg_tab[comm], size_tab[comm]
+    arrs = (dst, w, verts, comm, cdeg_ext, csize_ext,
+            np.ascontiguousarray(cdeg_ext[:nv]), vdeg, sl)
+    return ([torch.from_numpy(a).to(dev) for a in arrs],
+            float(np.float32(1.0 / 64.0)),
+            torch.from_numpy(deg.astype(np.int32)).to(dev))
+
+
+def check_sized_rows(dev, main_launches: dict, scale: int) -> None:
+    """Phase 28's checks: the size form against its twin at every width,
+    and the non-size form's main-path launches unchanged."""
+    from cuvite_tpu_torch.kernels.row_argmax import (
+        row_argmax_sized,
+        row_argmax_sized_plain,
+    )
+    from cuvite_tpu_torch.louvain.bucketed import DEFAULT_BUCKETS
+
+    names = ("best_c", "best_gain", "counter0", "best_size")
+    for width in DEFAULT_BUCKETS:
+        args, const, deg = sized_row_case(width, 28 + width, dev)
+        cpu = [a.cpu() for a in args]
+        for d in (None, deg):
+            got = row_argmax_sized(*args, const, d)
+            ref = row_argmax_sized_plain(*cpu, const,
+                                         None if d is None else d.cpu())
+            for name, g, r in zip(names, got, ref):
+                if not bits_equal(g, r):
+                    fail(f"row_argmax_sized width {width} (degrees "
+                         f"{d is not None}): {name} differs from the twin")
+        if (got[0][:4].cpu() != 2**31 - 1).any() or \
+                (got[3][:4].cpu() != 2**31 - 1).any():
+            fail(f"row_argmax_sized width {width}: a no-candidate row "
+                 "found a candidate or a size")
+        if (int(got[0][-1]), float(got[1][-1]), int(got[3][-1])) != \
+                (3, 0.0, 7):
+            fail(f"row_argmax_sized width {width} zero-gain tie: got "
+                 f"{int(got[0][-1])} at {float(got[1][-1])} size "
+                 f"{int(got[3][-1])}, want 3 at 0 size 7")
+        print(f"  row_argmax_sized width {width:5d}: {args[0].shape[0]} "
+              "rows bit-equal to the twin with and without degrees, "
+              "best_size included; no-candidate rows sentinel; zero-gain "
+              "tie to 3 with its size")
+    print(f"  the non-size form on the R-MAT {scale} main path (phase 5): "
+          f"{main_launches}")
+    if main_launches.get("row_argmax_sized"):
+        fail("the size form launched on the single-shard main path")
+    if scale == 20 and any(main_launches[k] != v
+                           for k, v in MAIN_PATH_LAUNCHES_20.items()):
+        fail(f"R-MAT 20 main-path launches {main_launches} changed from "
+             f"{MAIN_PATH_LAUNCHES_20}")
+
+
+def time_sized_rows(g, nshards: int) -> dict:
+    """The size form at the phase-0 shapes of the sparse mesh path of
+    ``g`` on one card: one sweep's launches over every class of every
+    shard (with the records they read), at the identity assignment and
+    at the converged phase-0 assignment, beside the twin and the bound."""
+    import torch
+
+    from cuvite_tpu_torch.comm.exchange import sparse_env
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.kernels.row_argmax import (
+        attached_vertex_table,
+        row_argmax_sized,
+        row_argmax_sized_plain,
+        slot_table,
+    )
+    from cuvite_tpu_torch.louvain.driver import MeshPhaseRunner
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    run = MeshPhaseRunner(DistGraph.build(g, nshards),
+                          make_mesh(devices=[dev] * nshards),
+                          exchange="sparse")
+    mp = run.plan
+    print(f"  phase-0 sparse plan of {nshards} shards built and placed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    _, _, iters = run.run(1.0e-6)
+    slots = real_rows = 0
+    for p in mp.plans:
+        for verts, _, _, row_deg in p.buckets:
+            real_rows += verts.numel()
+            slots += int(row_deg.sum())
+    out = {"launches_per_sweep": sum(len(p.buckets) for p in mp.plans),
+           "real_rows": real_rows, "real_slots": slots}
+    err = 0.0
+    c = run.constant
+    for label, comms in (("identity", run.comm0),
+                         ("converged", run.labels_dev)):
+        envs = sparse_env(comms, run.vdeg, mp.send_idx, mp.ghost_sel,
+                          mp.mesh, budget=mp.budget)
+        cases = []
+        for s, (p, e) in enumerate(zip(mp.plans, envs)):
+            tabs = (e.comm_ext, e.cdeg_ext, e.csize_ext, e.cdeg_v,
+                    run.vdeg[s], mp.self_loops[s])
+            cases.append((p, tabs))
+
+        def sweep(fn, cases=cases):
+            outs = []
+            for p, tabs in cases:
+                extra = ()
+                if fn is row_argmax_sized:
+                    extra = (attached_vertex_table(
+                        tabs[0][:tabs[4].numel()], tabs[3], tabs[4],
+                        tabs[5]), slot_table(*tabs[:3]))
+                outs += [fn(d, w, v, *tabs, c, dg, *extra)
+                         for v, d, w, dg in p.buckets]
+            return outs
+
+        got = sweep(row_argmax_sized)
+        ref = sweep(row_argmax_sized_plain)
+        for a, b in zip(got, ref):
+            for x, y in zip(a, b):
+                if not bits_equal(x, y):
+                    fail(f"row_argmax_sized at the sparse phase-0 shapes "
+                         f"({label}) differs from its twin")
+                err = max(err, max_abs_err([x], [y]))
+        out[f"ms_{label}"] = time_ms(lambda: sweep(row_argmax_sized), 10)
+        out[f"plain_ms_{label}"] = time_ms(
+            lambda: sweep(row_argmax_sized_plain), 3)
+    n_tab = sum(min(slots, run.dg.nv_pad + gc) for gc in run.ghost_counts)
+    out["bytes"] = slots * 8 + real_rows * SIZED_ROW_BYTES + 12 * min(
+        slots, n_tab)
+    out["ops"] = 8 * slots
+    out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"])
+    out["max_abs_err"] = err
+    out["converged_after_sweeps"] = iters
+    return out
+
+
+class ExchangeLog:
+    """A tracer stand-in that keeps the driver's per-phase ``exchange``
+    events (mode, shards, budget, plan stats) and ignores the rest."""
+
+    def __init__(self):
+        from cuvite_tpu_torch.utils.trace import NullTracer
+
+        self._null = NullTracer()
+        self.events = []
+
+    def event(self, name, **attrs):
+        if name == "exchange":
+            self.events.append(attrs)
+
+    def __getattr__(self, name):
+        return getattr(self._null, name)
+
+
+def check_mesh_card_vs_cpu(scale: int, nshards: int) -> dict:
+    """Phase 29: the mesh on one card against the same mesh on the CPU
+    and against one shard on the card."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    g = generate_rmat(scale)
+    one = louvain_phases(g, device="cuda")
+    paths = {}
+    for exchange in ("replicated", "sparse"):
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        rg = louvain_phases(g, mesh=make_mesh(
+            devices=[torch.device("cuda", 0)] * nshards), exchange=exchange)
+        card_s = time.perf_counter() - t0
+        paths[f"mesh {nshards} shards R-MAT {scale} {exchange}, card vs "
+              "CPU"] = kernel_counts()
+        t0 = time.perf_counter()
+        rc = louvain_phases(g, nshards=nshards, device="cpu",
+                            exchange=exchange)
+        cpu_s = time.perf_counter() - t0
+        check_same_run(f"R-MAT {scale} {nshards} shards {exchange}", rg, rc)
+        check_same_run(f"R-MAT {scale} {nshards} shards {exchange} vs one "
+                       "shard", rg, one)
+        print(f"  R-MAT {scale}, {nshards} shards on one card, {exchange}: "
+              f"{len(rg.phases)} phases, {rg.total_iterations} sweeps, Q "
+              f"{rg.modularity:.9f}; equal to the CPU mesh and to one "
+              f"shard ({card_s:.2f} s card, {cpu_s:.2f} s CPU)")
+    return paths
+
+
+def run_mesh_full(g, scale: int, nshards: int, exchange: str,
+                  main_res) -> tuple:
+    """Phase 30: one full-width mesh run on one card, launch counts zeroed
+    just before and read just after.  Returns (launches, wall s)."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * nshards)
+    log = ExchangeLog()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = louvain_phases(g, mesh=mesh, exchange=exchange, tracer=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    for p, ev in zip(res.phases, log.events):
+        st = " ".join(f"{k} {v:.3f}" for k, v in p.stages.items())
+        plan = ev["plan"] or {}
+        budget = ev["budget"] or 0
+        route = 5 * nshards * budget * 4   # fwd key/deg/size, reply x2
+        print(f"  phase {p.phase}: nv {p.num_vertices} ne {p.num_edges} "
+              f"iterations {p.iterations} Q {p.modularity:.9f} seconds "
+              f"{p.seconds:.3f} ({st}); exchange {ev['mode']}"
+              + (f", ghosts per shard {plan['ghosts_per_shard']}, block "
+                 f"{plan['block']}, ghost_pad {plan['ghost_pad']}, budget "
+                 f"{budget}, bytes a sweep per shard: ghost pull "
+                 f"{plan['ghost_bytes']} + owner route {route}"
+                 if plan else ""))
+    print(f"  R-MAT {scale}, {nshards} shards on one card, {exchange}: "
+          f"{wall:.3f} s, {res.total_iterations} sweeps, launches "
+          f"{launches}, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B, exchange_stats "
+          f"{res.exchange_stats}")
+    q_host = modularity(g, res.communities)
+    if abs(q_host - res.modularity) > 1e-6:
+        fail(f"{exchange} mesh: reported Q {res.modularity} vs host f64 "
+             f"{q_host}")
+    if main_res is not None and not np.array_equal(res.communities,
+                                                   main_res.communities):
+        fail(f"{exchange} mesh: labels differ from one shard's (phase 5)")
+    if launches["row_argmax_sized" if exchange == "sparse"
+                else "row_argmax"] == 0:
+        fail(f"{exchange} mesh: the row kernel's form never launched")
+    if exchange == "sparse" and launches["row_argmax"]:
+        fail("sparse mesh: the non-size row kernel launched")
+    return launches, wall
+
+
+def check_budget_retry(scale: int, nshards: int) -> dict:
+    """Phase 31: a per-peer budget of 1 on the card overflows, the phase
+    is re-run with a grown budget, and the labels are one shard's."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.louvain.driver import MeshPhaseRunner
+
+    g = generate_rmat(scale)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * nshards)
+    r = MeshPhaseRunner(DistGraph.build(g, nshards), mesh,
+                        exchange="sparse", budget=1)
+    comm, seen = r.comm0, 0
+    for _ in range(4):
+        res = r.step(comm)
+        seen += bool(res.overflow)
+        comm = res.targets
+    if not seen:
+        fail("budget 1 never overflowed")
+    log = ExchangeLog()
+    zero_kernel_counts()
+    rt = louvain_phases(g, mesh=mesh, exchange="sparse", exchange_budget=1,
+                        tracer=log)
+    launches = kernel_counts()
+    budgets = [e["budget"] for e in log.events]
+    one = louvain_phases(g, device="cuda")
+    check_same_run(f"R-MAT {scale} budget 1 vs one shard", rt, one)
+    if budgets[0] <= 1:
+        fail(f"budget 1: the phase was not re-run with a larger budget "
+             f"({budgets})")
+    print(f"  R-MAT {scale}, {nshards} shards, exchange_budget 1: "
+          f"{seen} of 4 sweeps overflowed in the runner; the driver's "
+          f"budgets by phase {budgets}; labels, phases and sweeps equal to "
+          "one shard's")
+    return {f"mesh budget-1 retry R-MAT {scale}": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -2891,6 +3251,11 @@ def main() -> int:
                     help="FUSED_SHRINK_EDGES of the fused card-vs-CPU runs")
     ap.add_argument("--schedule-scale", type=int, default=20,
                     help="R-MAT scale of the ET and coloring runs")
+    ap.add_argument("--mesh-shards", type=int, default=4,
+                    help="vertex shards of the mesh runs, all on the card")
+    ap.add_argument("--mesh-replicated-scale", type=int, default=None,
+                    help="R-MAT scale of phase 30's replicated run "
+                         "(default --scale)")
     args = ap.parse_args()
 
     # The run uses one card: show torch only that one, so the device count
@@ -3133,13 +3498,79 @@ def main() -> int:
     print(f"[25] streaming at full width: R-MAT {args.scale}")
     paths[f"stream R-MAT {args.scale}"] = run_stream_full(g_rmat,
                                                           args.scale)
-    del g_rmat
     print("[26] the churn bench on the card, through its command line")
     paths[f"bench --churn-frac 0.01 --scale {args.scale}, timed arms"] = \
         run_stream_bench(card, args.scale)
     print("[27] the daemon's delta verb on the card")
     paths["daemon delta verb"] = run_stream_daemon()
     print(f"  phases 24-27 took {time.perf_counter() - t24:.1f} s")
+
+    S = args.mesh_shards
+    print("[28] the row kernel's size form against its twin, every width")
+    t28 = time.perf_counter()
+    check_sized_rows(dev, paths[f"bucketed R-MAT {args.scale}"], args.scale)
+    sized = time_sized_rows(g_rmat, S)
+    print(f"  size form at the sparse {S}-shard phase-0 shapes: "
+          f"{sized['launches_per_sweep']} launches a sweep, "
+          f"{sized['real_rows']} rows, {sized['real_slots']} slots; "
+          f"identity {sized['ms_identity']:.4f} ms (twin "
+          f"{sized['plain_ms_identity']:.4f} ms), converged "
+          f"{sized['ms_converged']:.4f} ms (twin "
+          f"{sized['plain_ms_converged']:.4f} ms), bound "
+          f"{sized['bound_ms']:.4f} ms by {sized['bound_by']}")
+    print(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
+
+    print(f"[29] R-MAT {args.check_scale} on {S} shards of one card: card "
+          "against CPU and one shard")
+    t29 = time.perf_counter()
+    paths.update(check_mesh_card_vs_cpu(args.check_scale, S))
+    print(f"  phase 29 took {time.perf_counter() - t29:.1f} s")
+
+    print(f"[30] full width: R-MAT {args.scale} on {S} shards of one card, "
+          "sparse and replicated")
+    t30 = time.perf_counter()
+    mesh_launches, mesh_s = run_mesh_full(g_rmat, args.scale, S, "sparse",
+                                          main_res)
+    paths[f"mesh {S} shards R-MAT {args.scale} sparse"] = mesh_launches
+    rep_scale = args.mesh_replicated_scale or args.scale
+    g_rep, ref_rep = g_rmat, main_res
+    if rep_scale != args.scale:
+        from cuvite_tpu_torch import louvain_phases
+
+        g_rep = generate_rmat(rep_scale)
+        ref_rep = louvain_phases(g_rep)
+    paths[f"mesh {S} shards R-MAT {rep_scale} replicated"], rep_s = \
+        run_mesh_full(g_rep, rep_scale, S, "replicated", ref_rep)
+    del g_rmat, g_rep
+    print(f"  R-MAT {args.scale} walls: one shard {bucketed_s:.3f} s "
+          f"(phase 5), {S} shards sparse {mesh_s:.3f} s; R-MAT {rep_scale} "
+          f"{S} shards replicated {rep_s:.3f} s")
+    print(f"  phase 30 took {time.perf_counter() - t30:.1f} s")
+
+    print(f"[31] a per-peer budget of 1 on the card: R-MAT "
+          f"{args.check_scale}, {S} shards")
+    t31 = time.perf_counter()
+    paths.update(check_budget_retry(args.check_scale, S))
+    print(f"  phase 31 took {time.perf_counter() - t31:.1f} s")
+
+    kernels.append({
+        "name": "row_argmax_sized", "route": "cuda",
+        "source": "cuvite_tpu_torch/kernels/csrc/row_argmax.cu",
+        "replaces": "cuvite_tpu/kernels/row_argmax.py:166",
+        "tpu_function": "cuvite_tpu/kernels/row_argmax.py:"
+                        "row_argmax_pallas(szT=...)",
+        "launches": mesh_launches["row_argmax_sized"],
+        "max_abs_err": sized["max_abs_err"],
+        "ms_unit": f"one sparse phase-0 sweep of {S} shards on one card: "
+                   "the records and every class launch",
+        "ms": sized["ms_identity"], "ms_converged": sized["ms_converged"],
+        "plain_ms": sized["plain_ms_identity"],
+        "plain_ms_converged": sized["plain_ms_converged"],
+        "bound_ms": sized["bound_ms"], "bound_by": sized["bound_by"],
+        "bytes": sized["bytes"], "ops": sized["ops"],
+        "real_rows": sized["real_rows"], "real_slots": sized["real_slots"],
+        "launches_per_sweep": sized["launches_per_sweep"],
+        "library_ms": None})
 
     kernels[0]["batched"] = batched_rows
     kernels[1]["batched"] = batched_heavy

@@ -25,9 +25,14 @@ dispatcher and the socket daemon; ``python -m cuvite_tpu_torch.serve
 demo|cluster-many|daemon``, with ``--device cpu`` for the CPU).
 The flight recorder (``obs/``) rides on the drivers' ``tracer=``, and
 ``python -m cuvite_tpu_torch.workloads bench`` prints the reference's
-bench record (``workloads/bench.py``).  Not ported yet: multi-GPU, the
-``szT`` size channel, streaming (the daemon's ``delta`` verb) and the
-concurrency checker's scheduler.
+bench record (``workloads/bench.py``).  ``stream/`` re-clusters graphs
+that change between requests (the daemon's ``delta`` verb).
+``louvain_phases(graph, nshards=S)`` (or ``mesh=comm.mesh.make_mesh(...)``)
+runs S vertex shards from one process, on S cards or several shards to a
+card, under the replicated or the sparse ghost exchange (``comm/``); the
+sparse one runs the row kernel's size form.  Not ported yet: the
+two-level exchange, multi-process meshes, the color and ET schedules on
+a mesh, and the concurrency checker's scheduler.
 
 The package imports torch and numpy only; it never imports JAX or
 ``cuvite_tpu``.

@@ -26,11 +26,19 @@ the flight recorder's JSONL trace, ``--metrics-out`` its metrics file,
 
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels'
 plain PyTorch versions instead, and the reference's ``--platform`` has no
-other counterpart.  Not ported yet: the multi-device and multi-host flags
-(``--shards``, ``--mesh``, ``--exchange``, ``--balanced``,
-``--dist-ingest``, ``--distributed`` with its coordinator and process
-flags, ``--dist-stats``, ``--diag-prefix``), which wait for multi-GPU
-(``ROADMAP.md`` queue A item 7).
+other counterpart.
+
+    python -m cuvite_tpu_torch.cli --rmat 20 --shards 4 --exchange sparse -b
+    python -m cuvite_tpu_torch.cli --rmat 20 --shards 4 --device cuda:0
+
+``--shards N`` runs a vertex mesh of N shards in this one process: on the
+first N cards, or all on ``--device`` when it is given (``--device
+cuda:0`` puts four shards on one card, ``--device cpu`` on the CPU);
+``--balanced``/``-b`` cuts edge-balanced ranges, ``--exchange`` picks the
+community exchange and ``--dist-stats`` prints the partition's edge
+distribution.  Refused by name, not ported yet (``ROADMAP.md`` A7):
+``--mesh`` (the two-level exchange), ``--dist-ingest`` and
+``--distributed`` (multi-process), and ``--diag-prefix``.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cuvite_tpu_torch",
-        description="Louvain community detection on one CUDA device")
+        description="Louvain community detection on CUDA devices")
     src = p.add_argument_group("input")
     src.add_argument("--file", "-f", help="Vite binary graph file")
     src.add_argument("--bits64", action="store_true",
@@ -81,6 +89,23 @@ def build_parser() -> argparse.ArgumentParser:
                      help="distance-1 coloring with NC max colors")
     run.add_argument("--vertex-ordering", "-d", type=int, metavar="NC",
                      help="color-based vertex ordering with NC max colors")
+    run.add_argument("--shards", type=int, default=1,
+                     help="vertex shards of the mesh (one process drives "
+                          "them all; on the first N cards, or all on "
+                          "--device when given)")
+    run.add_argument("--balanced", "-b", action="store_true",
+                     help="edge-balanced partition")
+    run.add_argument("--exchange", default="auto",
+                     choices=["auto", "replicated", "sparse"],
+                     help="community exchange of a mesh: 'sparse' = "
+                          "per-phase ghost routing, O(owned + ghosts) a "
+                          "sweep; 'replicated' = all_gather of the whole "
+                          "community vector; 'auto' picks by graph size "
+                          "per phase")
+    for flag in ("--mesh", "--dist-ingest", "--distributed",
+                 "--diag-prefix"):
+        run.add_argument(flag, nargs="?", const=True, default=None,
+                         help=argparse.SUPPRESS)
     run.add_argument("--checkpoint-dir", metavar="DIR",
                      help="save the state after each phase")
     run.add_argument("--resume", action="store_true",
@@ -98,6 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="load or generate (and write) the graph only")
     out.add_argument("--json", action="store_true",
                      help="emit a machine-readable summary line")
+    out.add_argument("--dist-stats", action="store_true",
+                     help="print the partition's edge distribution")
     out.add_argument("--trace", action="store_true",
                      help="print the stage-time breakdown, counters, TEPS "
                           "and RSS high-water")
@@ -117,7 +144,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def validate(args) -> None:
     """The reference's checks (``cuvite_tpu/cli.py:169``) for the flags
-    the port has."""
+    the port has, and the refusal of those it has not."""
+    for flag in ("mesh", "dist_ingest", "distributed", "diag_prefix"):
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
+                             "cuvite_tpu_torch yet (ROADMAP.md A7)")
+    if args.shards < 1:
+        raise SystemExit("--shards must be >= 1")
+    if args.shards > 1 and (args.early_term or args.coloring
+                            or args.vertex_ordering or args.checkpoint_dir):
+        raise SystemExit("--early-term, --coloring, --vertex-ordering and "
+                         "--checkpoint-dir are not ported to --shards > 1 "
+                         "yet (ROADMAP.md A7)")
     if not args.file and args.generate is None and args.rmat is None:
         raise SystemExit("Must specify --file, --generate or --rmat")
     if sum(x is not None for x in (args.file, args.generate, args.rmat)) > 1:
@@ -199,7 +237,10 @@ def main(argv=None) -> int:
                              coloring=args.coloring or 0,
                              vertex_ordering=args.vertex_ordering or 0,
                              checkpoint_dir=args.checkpoint_dir,
-                             resume=args.resume, tracer=tracer)
+                             resume=args.resume, tracer=tracer,
+                             nshards=args.shards, balanced=args.balanced,
+                             exchange=args.exchange,
+                             dist_stats=args.dist_stats)
     if args.trace:
         print(tracer.report())
     if args.trace_out and not args.quiet:

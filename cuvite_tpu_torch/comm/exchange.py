@@ -1,0 +1,314 @@
+"""The sparse ghost exchange of a vertex mesh (port of
+``cuvite_tpu/comm/exchange.py:57-164,217-496,534-564``).
+
+The counterpart of the reference application's three-part protocol
+(exchangeVertexReqs, fillRemoteCommunities, updateRemoteCommunities):
+
+- :class:`ExchangePlan` (host numpy, copied from the reference): once a
+  phase, the ghosts of every shard -- the vertices its edges reach on
+  other shards -- and a static all_to_all layout: shard t sends
+  ``send_idx[t, s, :]`` of its owned values to shard s each sweep, and
+  shard s reads its ghosts out of the received ``[S, B]`` block through
+  ``ghost_sel[s]``.  :meth:`ExchangePlan.remap_dst` rewrites a shard's
+  edge tails into its extended-local space ``[0, nv_pad + G)``: owned ->
+  local index, ghost -> nv_pad + its rank in the sorted ghost list.
+- :func:`sparse_env`: once a sweep, every shard's community degree and
+  size, kept by the community's owner.  Each shard groups its owned
+  vertices by community, sums the self-owned ones locally and routes the
+  (community, partial degree, partial size) of remote-owned ones to the
+  owner through a per-peer budget of ``budget`` entries; owners add and
+  reply with the totals over the transposed routing; the totals are
+  attached to the owned vertices and pulled, with the communities, to
+  the ghosts.  More remote communities of one owner than the budget
+  raise ``overflow``: that sweep is invalid and the driver re-runs the
+  phase with a larger budget.
+- :func:`sparse_modularity`: Q with each community's degree counted once,
+  by its owner.
+
+Values per shard are lists indexed by shard (``comm/collectives.py``).
+Degrees are summed in f64 and rounded once to f32 for the kernels
+(``cdeg_ext``/``cdeg_v``); ``deg_local`` stays f64 for Q.  The reference
+sums in f32 (or double-single pairs).  The ghost pull moves its three
+channels in one all_to_all, floats by their bits, as the reference does.
+On the exactness domain the values are the reference's bit for bit.
+
+Not ported: the grouped plan and the two-level env (``build_grouped``,
+``twolevel_env``), per-host ingest (``local_only`` plans), and the frozen
+``info`` assignment of vertex ordering on a mesh (``ROADMAP.md`` A7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cuvite_tpu_torch.comm.collectives import all_to_all, psum
+from cuvite_tpu_torch.core.types import next_pow2
+
+SENTINEL = int(np.iinfo(np.int32).max)
+
+
+@dataclasses.dataclass
+class ExchangePlan:
+    """Phase-static ghost routing of a multi-shard DistGraph (S shards,
+    B per-pair block, G padded ghost-table length).
+
+    ``send_idx[t, s, b]``: local index at shard t of the b-th value t
+    sends to s each sweep (``nv_pad`` marks padding).  ``ghost_sel[s, g]``:
+    flat index into shard s's received [S, B] block (peer-major) of ghost
+    g.  ``ghost_ids[s]``: the sorted padded-global ids of s's ghosts."""
+
+    nshards: int
+    nv_pad: int
+    block: int                 # B
+    ghost_pad: int             # G
+    send_idx: np.ndarray       # [S, S, B] int32
+    ghost_sel: np.ndarray      # [S, G] int32
+    ghost_ids: list            # list[np.ndarray] per shard
+    max_ghosts: int
+
+    @staticmethod
+    def build(dg) -> "ExchangePlan":
+        """The plan of ``dg``, whose every shard is on this host."""
+        S, nvp = dg.nshards, dg.nv_pad
+        ghost_ids = []
+        for s in range(S):
+            sh = dg.shards[s]
+            real = np.asarray(sh.src) < nvp
+            d = np.asarray(sh.dst)[real].astype(np.int64)
+            owned = (d >= s * nvp) & (d < (s + 1) * nvp)
+            ghost_ids.append(np.unique(d[~owned]))
+        bounds = [np.searchsorted(g, np.arange(S + 1) * nvp)
+                  for g in ghost_ids]
+        max_g = max((len(g) for g in ghost_ids), default=0)
+        G = next_pow2(max(max_g, 1))
+        B = 1
+        for s in range(S):
+            if len(ghost_ids[s]):
+                B = max(B, int(np.max(np.diff(bounds[s]))))
+        B = next_pow2(B)
+        # One vectorized pass per shard over its ghost list: owner =
+        # id // nv_pad, rank = position within the owner's group.
+        send_idx = np.full((S, S, B), nvp, dtype=np.int32)
+        ghost_sel = np.zeros((S, G), dtype=np.int32)
+        for s in range(S):
+            gids, bnd = ghost_ids[s], bounds[s]
+            if not len(gids):
+                continue
+            owner = gids // nvp
+            rank = np.arange(len(gids), dtype=np.int64) - bnd[owner]
+            ghost_sel[s, : len(gids)] = (owner * B + rank).astype(np.int32)
+            send_idx[owner, s, rank] = (gids - owner * nvp).astype(np.int32)
+        return ExchangePlan(
+            nshards=S, nv_pad=nvp, block=B, ghost_pad=G,
+            send_idx=send_idx, ghost_sel=ghost_sel, ghost_ids=ghost_ids,
+            max_ghosts=max_g)
+
+    def stats(self) -> dict:
+        """Plan-shape digest (the reference's ``exchange`` event and
+        ``LouvainResult.exchange_stats``): ``ghost_bytes`` is the
+        three-channel ghost pull of 4-byte values sent per shard and
+        sweep."""
+        return {
+            "mode": "sparse",
+            "nshards": self.nshards,
+            "block": self.block,
+            "ghost_pad": self.ghost_pad,
+            "max_ghosts": self.max_ghosts,
+            "ghosts_per_shard": [len(g) for g in self.ghost_ids],
+            "ghost_bytes": 3 * self.nshards * self.block * 4,
+        }
+
+    def remap_dst(self, s: int, src: np.ndarray,
+                  dst: np.ndarray) -> np.ndarray:
+        """Shard s's padded-global dst ids in its extended-local space
+        [0, nv_pad + ghost_pad); padding edges map to 0."""
+        nvp = self.nv_pad
+        d = dst.astype(np.int64)
+        out = np.zeros(len(d), dtype=np.int64)
+        real = src < nvp
+        owned = real & (d >= s * nvp) & (d < (s + 1) * nvp)
+        out[owned] = d[owned] - s * nvp
+        ghost = real & ~owned
+        out[ghost] = nvp + np.searchsorted(self.ghost_ids[s], d[ghost])
+        return out
+
+    def to_mesh(self, mesh) -> tuple:
+        """(send_idx, ghost_sel) as per-shard int64 tensors on their
+        devices: shard t's [S, B] send rows and [G] ghost selection."""
+        return ([torch.from_numpy(self.send_idx[t].astype(np.int64)).to(d)
+                 for t, d in enumerate(mesh.devices)],
+                [torch.from_numpy(self.ghost_sel[t].astype(np.int64)).to(d)
+                 for t, d in enumerate(mesh.devices)])
+
+
+class SparseEnv(NamedTuple):
+    """One shard's community state of a sweep under the sparse exchange."""
+
+    comm_ext: torch.Tensor    # [nv_pad + G] int32 community, owned + ghost
+    cdeg_ext: torch.Tensor    # [nv_pad + G] f32 degree of that community
+    csize_ext: torch.Tensor   # [nv_pad + G] int32 size of that community
+    cdeg_v: torch.Tensor      # [nv_pad] f32 owned slice of cdeg_ext
+    csize_v: torch.Tensor     # [nv_pad] int32 owned slice of csize_ext
+    deg_local: torch.Tensor   # [nv_pad] f64 degree of the OWNED communities
+    overflow: torch.Tensor    # 0-dim bool: the budget overflowed
+
+
+def _pull_ghosts(channels: list, send_idx: list, ghost_sel: list,
+                 mesh) -> list:
+    """One all_to_all over the ghost routing for every channel (the
+    reference's ``_pull_ghosts``, ``_pull_ghosts2`` and ``_pull_ghosts3``):
+    each channel is a per-shard list of [nv_pad] 32-bit values; every
+    shard sends the requested owned values of all channels as one
+    [S, C, B] block (floats by their bits) and appends its ghosts' values
+    to its own.  Returns the [nv_pad + G] extended channels."""
+    dts = [ch[0].dtype for ch in channels]
+    sent = []
+    for s, idx in enumerate(send_idx):
+        vals = [ch[s].view(torch.int32) for ch in channels]
+        i = idx.clamp(max=vals[0].shape[0] - 1)
+        sent.append(torch.stack([v[i] for v in vals], dim=1))
+    recv = all_to_all(sent, mesh)
+    return [[torch.cat([ch[s], recv[s][:, k].reshape(-1)[ghost_sel[s]]
+                        .view(dt)])
+             for s in range(mesh.size)]
+            for k, (ch, dt) in enumerate(zip(channels, dts))]
+
+
+class _Grouping(NamedTuple):
+    uk: torch.Tensor         # [nv_pad] sorted distinct communities, sentinel
+    run_id: torch.Tensor     # [nv_pad] run of each sorted vertex
+    order: torch.Tensor      # [nv_pad] vertex of each sorted position
+    is_self: torch.Tensor    # [nv_pad] uk owned by this shard
+    is_remote: torch.Tensor  # [nv_pad] uk owned by another shard
+    slot: torch.Tensor       # [nv_pad] owner * budget + rank
+    ok: torch.Tensor         # [nv_pad] remote and within the budget
+    overflow: torch.Tensor   # 0-dim bool
+
+
+def _group_by_community(vec: torch.Tensor, nv_pad: int, S: int, budget: int,
+                        base: int) -> _Grouping:
+    """Sort-group one shard's owned community vector: the distinct
+    communities in order, each vertex's run, and the owner route of the
+    remote ones (slot in the per-peer block, within the budget or not)."""
+    dev = vec.device
+    ck, order = torch.sort(vec, stable=True)
+    lead = torch.ones(nv_pad, dtype=torch.bool, device=dev)
+    lead[1:] = ck[1:] != ck[:-1]
+    run_id = torch.cumsum(lead, 0) - 1
+    uk = torch.full((nv_pad,), SENTINEL, dtype=vec.dtype, device=dev)
+    uk[run_id] = ck
+    valid = uk != SENTINEL
+    is_self = valid & (uk >= base) & (uk < base + nv_pad)
+    is_remote = valid & ~is_self
+    # uk is sorted, so each owner's communities are contiguous; the rank
+    # within the owner's group is the slot in its per-peer block.
+    bnd = torch.searchsorted(
+        uk, torch.arange(S + 1, device=dev, dtype=vec.dtype) * nv_pad)
+    o_j = (uk // nv_pad).clamp(0, S - 1).long()
+    rank = torch.arange(nv_pad, device=dev) - bnd[o_j]
+    slot = o_j * budget + rank
+    ok = is_remote & (rank < budget)
+    overflow = (is_remote & (rank >= budget)).any()
+    return _Grouping(uk, run_id, order, is_self, is_remote, slot, ok,
+                     overflow)
+
+
+def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
+               mesh, *, budget: int) -> list:
+    """Every shard's :class:`SparseEnv` for the sweep of ``comms``.
+
+    ``comms`` [nv_pad] int32 and ``vdegs`` [nv_pad] f32 per shard are the
+    owned slices; ``send_idx``/``ghost_sel`` the plan's per-shard tensors
+    (:meth:`ExchangePlan.to_mesh`)."""
+    S = mesh.size
+    nv_pad = comms[0].shape[0]
+    oob = S * budget
+    groups, deg_local, size_local, fwd = [], [], [], []
+    for s, (comm, vdeg) in enumerate(zip(comms, vdegs)):
+        dev = comm.device
+        base = s * nv_pad
+        gr = _group_by_community(comm, nv_pad, S, budget, base)
+        groups.append(gr)
+        pdeg = torch.zeros(nv_pad, dtype=torch.float64, device=dev)
+        pdeg.index_add_(0, gr.run_id, vdeg[gr.order].double())
+        psize = torch.zeros(nv_pad, dtype=torch.int32, device=dev)
+        psize.index_add_(0, gr.run_id,
+                         torch.ones(nv_pad, dtype=torch.int32, device=dev))
+        # Self-owned communities: accumulated here, no communication.
+        self_idx = torch.where(gr.is_self, gr.uk.long() - base, nv_pad)
+        dl = torch.zeros(nv_pad + 1, dtype=torch.float64, device=dev)
+        dl.index_add_(0, self_idx, torch.where(gr.is_self, pdeg, 0.0))
+        sl = torch.zeros(nv_pad + 1, dtype=torch.int32, device=dev)
+        sl.index_add_(0, self_idx, torch.where(gr.is_self, psize, 0))
+        deg_local.append(dl)
+        size_local.append(sl)
+        # Remote-owned: (key, partial degree, partial size) to the owner,
+        # slots past the budget dropped.
+        sslot = torch.where(gr.ok, gr.slot, oob)
+        key = torch.full((oob + 1,), SENTINEL, dtype=torch.int32, device=dev)
+        key[sslot] = gr.uk
+        sdeg = torch.zeros(oob + 1, dtype=torch.float64, device=dev)
+        sdeg[sslot] = pdeg
+        ssize = torch.zeros(oob + 1, dtype=torch.int32, device=dev)
+        ssize[sslot] = psize
+        fwd.append((key[:oob].view(S, budget), sdeg[:oob].view(S, budget),
+                    ssize[:oob].view(S, budget)))
+    recv_key = all_to_all([f[0] for f in fwd], mesh)
+    recv_deg = all_to_all([f[1] for f in fwd], mesh)
+    recv_size = all_to_all([f[2] for f in fwd], mesh)
+
+    # Owners add the partials they received (sentinel keys drop) and reply
+    # with the totals over the transposed routing.
+    rep_deg, rep_size, lks = [], [], []
+    for s in range(S):
+        base = s * nv_pad
+        lk = recv_key[s].reshape(-1).long() - base
+        lk_in = torch.where((lk >= 0) & (lk < nv_pad), lk, nv_pad)
+        deg_local[s].index_add_(0, lk_in, recv_deg[s].reshape(-1))
+        size_local[s].index_add_(0, lk_in, recv_size[s].reshape(-1))
+        deg_local[s] = deg_local[s][:nv_pad]
+        size_local[s] = size_local[s][:nv_pad]
+        lk_safe = lk.clamp(0, nv_pad - 1)
+        rep_deg.append(deg_local[s][lk_safe].view(S, budget))
+        rep_size.append(size_local[s][lk_safe].view(S, budget))
+    back_deg = all_to_all(rep_deg, mesh)
+    back_size = all_to_all(rep_size, mesh)
+
+    cdeg_v, csize_v = [], []
+    for s, gr in enumerate(groups):
+        base = s * nv_pad
+        flat_slot = gr.slot.clamp(0, oob - 1)
+        self_safe = (gr.uk.long() - base).clamp(0, nv_pad - 1)
+        deg_at_uk = torch.where(gr.is_self, deg_local[s][self_safe],
+                                back_deg[s].reshape(-1)[flat_slot])
+        size_at_uk = torch.where(gr.is_self, size_local[s][self_safe],
+                                 back_size[s].reshape(-1)[flat_slot])
+        # Attach the totals to the owned vertices (invert the sort).
+        cd = torch.empty(nv_pad, dtype=torch.float32, device=gr.uk.device)
+        cd[gr.order] = deg_at_uk[gr.run_id].float()
+        cs = torch.empty(nv_pad, dtype=torch.int32, device=gr.uk.device)
+        cs[gr.order] = size_at_uk[gr.run_id]
+        cdeg_v.append(cd)
+        csize_v.append(cs)
+
+    comm_ext, csize_ext, cdeg_ext = _pull_ghosts(
+        [comms, csize_v, cdeg_v], send_idx, ghost_sel, mesh)
+    return [SparseEnv(comm_ext=comm_ext[s], cdeg_ext=cdeg_ext[s],
+                      csize_ext=csize_ext[s], cdeg_v=cdeg_v[s],
+                      csize_v=csize_v[s], deg_local=deg_local[s],
+                      overflow=groups[s].overflow)
+            for s in range(S)]
+
+
+def sparse_modularity(counter0: list, deg_local: list, constant: float,
+                      mesh) -> torch.Tensor:
+    """Q = e*c - a^2*c^2 in f64, the a^2 term from each shard's OWNED
+    community degrees so that every community counts once.  Returns the
+    0-dim f64 Q on shard 0's device."""
+    le = psum([c.double().sum() for c in counter0], mesh)[0]
+    la2 = psum([d.double().square().sum() for d in deg_local], mesh)[0]
+    return le * constant - la2 * constant * constant

@@ -1,12 +1,12 @@
-"""Single-shard padded graph layout (port of ``cuvite_tpu/core/distgraph.py``).
+"""Padded graph layout, one shard or many (port of
+``cuvite_tpu/core/distgraph.py:26-72,141-257,298-327``).
 
-The port runs on one GPU, so only the single-shard case of the reference
-``DistGraph.build`` is kept: the padded vertex space is ``[0, nv_pad)``
-with ``nv_pad`` a power of two, original ids map to themselves, and
-padding vertices sit at the tail.  The reference's ``min_nv_pad`` and
-``min_ne_pad`` floors (few compiled shapes across coarse phases) have no
-use in eager torch and are not kept; padding vertices are isolated and
-never move, so labels do not depend on them.
+One shard: the padded vertex space is ``[0, nv_pad)`` with ``nv_pad`` a
+power of two, original ids map to themselves, and padding vertices sit
+at the tail.  The reference's ``min_nv_pad`` and ``min_ne_pad`` floors
+(few compiled shapes across coarse phases) have no use in eager torch and
+are not applied to one shard; padding vertices are isolated and never
+move, so labels do not depend on them.
 
 The host slab is the CSR itself (the reference's ``pad_edges=False``
 layout): ``src`` is the expanded row, ``dst``/``w`` alias
@@ -17,8 +17,18 @@ its plan from it and never uploads it; the sort engine uploads it once
 :meth:`DistGraph.from_device_slab` wraps it with a :class:`SlabMeta` and
 no host CSR.  Either slab keeps the reference's contract -- src
 ascending, padding rows (if any) ``src == nv_pad``, ``dst == 0``,
-``w == 0`` -- and its length is the real edge count.  No multi-GPU
-sharding yet.
+``w == 0`` -- and its length is the real edge count.
+
+Several shards (``nshards > 1``, the vertex mesh of ``comm/mesh.py``):
+the reference's layout array for array -- contiguous vertex ranges
+(:func:`uniform_parts`, or edge-balanced :func:`balanced_parts`, the
+``-b`` flag), each shard owning ``[s * nv_pad, (s + 1) * nv_pad)`` of the
+padded id space with its padding at the tail, and one edge slab per
+shard (:class:`Shard`: local src, padded-global dst, w) padded to a
+common ``ne_pad``, padding rows ``src == nv_pad``.  ``min_nv_pad`` and
+``min_ne_pad`` are kept there for parity with the reference's builds.
+A multi-shard graph lives on the host; the sharded engines upload its
+slabs or plans shard by shard.
 """
 
 from __future__ import annotations
@@ -30,6 +40,48 @@ import torch
 
 from cuvite_tpu_torch.core.graph import Graph
 from cuvite_tpu_torch.core.types import Policy, next_pow2
+
+
+def uniform_parts(num_vertices: int, nshards: int) -> np.ndarray:
+    """Contiguous near-equal vertex ranges: ``parts[nshards + 1]``."""
+    chunk = num_vertices // nshards
+    rem = num_vertices % nshards
+    sizes = np.full(nshards, chunk, dtype=np.int64)
+    sizes[:rem] += 1
+    parts = np.zeros(nshards + 1, dtype=np.int64)
+    np.cumsum(sizes, out=parts[1:])
+    return parts
+
+
+def balanced_parts_from_offsets(offsets, nv: int, ne: int,
+                                nshards: int) -> np.ndarray:
+    """Edge-balanced contiguous ranges from a CSR offset array: each
+    shard owns about ne / nshards edges."""
+    targets = (np.arange(1, nshards, dtype=np.int64) * ne) // nshards
+    cuts = np.searchsorted(offsets[1:], targets, side="left") + 1
+    parts = np.concatenate([[0], np.clip(cuts, 0, nv), [nv]]).astype(np.int64)
+    # Monotone even where a shard would be empty.
+    np.maximum.accumulate(parts, out=parts)
+    return parts
+
+
+def balanced_parts(graph: Graph, nshards: int) -> np.ndarray:
+    """Edge-balanced contiguous ranges of ``graph`` (the reference
+    application's ``-b``)."""
+    return balanced_parts_from_offsets(
+        graph.offsets, graph.num_vertices, graph.num_edges, nshards)
+
+
+@dataclasses.dataclass
+class Shard:
+    """One shard's padded edge slab and its owned original-id range."""
+
+    base: int         # first owned original vertex id
+    bound: int        # one past the last owned original vertex id
+    src: np.ndarray   # [ne_pad] LOCAL source index; padding = nv_pad
+    dst: np.ndarray   # [ne_pad] padded-global tail id; padding = 0
+    w: np.ndarray     # [ne_pad] weight; padding = 0
+    n_real_edges: int
 
 
 @dataclasses.dataclass
@@ -51,19 +103,41 @@ class SlabMeta:
 
 @dataclasses.dataclass
 class DistGraph:
-    """One shard: the graph, its padded vertex count and its edge slab."""
+    """The graph, its padded vertex count per shard and its edge slabs.
+    One shard keeps its slab in ``src``/``dst``/``w``; several keep one
+    :class:`Shard` each in ``shards`` (``src``/``dst``/``w`` None)."""
 
     graph: Graph | SlabMeta  # host CSR, or SlabMeta for a device slab
-    nv_pad: int
-    src: np.ndarray | torch.Tensor   # [ne] source index (CSR row expanded)
-    dst: np.ndarray | torch.Tensor   # [ne] tail vertex id
-    w: np.ndarray | torch.Tensor     # [ne] weight
-    old_to_pad: np.ndarray   # [nv] original id -> padded id (identity)
-    pad_to_old: np.ndarray   # [nv_pad] padded id -> original id, or -1
+    nv_pad: int              # owned padded vertices per shard
+    src: np.ndarray | torch.Tensor | None  # [ne] source index (one shard)
+    dst: np.ndarray | torch.Tensor | None  # [ne] tail vertex id
+    w: np.ndarray | torch.Tensor | None    # [ne] weight
+    old_to_pad: np.ndarray   # [nv] original id -> padded id
+    pad_to_old: np.ndarray   # [nshards * nv_pad] padded id -> original, -1
     device_resident: bool = False    # src/dst/w are tensors on the card
+    nshards: int = 1
+    parts: np.ndarray | None = None  # [nshards + 1] original-id ranges
+    ne_pad: int = 0                  # edge slots per shard (several)
+    shards: list = dataclasses.field(default_factory=list)
+
+    @property
+    def total_padded_vertices(self) -> int:
+        return self.nshards * self.nv_pad
+
+    def owner_of_padded(self, v: int) -> int:
+        return v // self.nv_pad
 
     @staticmethod
-    def build(graph: Graph) -> "DistGraph":
+    def build(graph: Graph, nshards: int = 1, balanced: bool = False,
+              pad_pow2: bool = True, min_nv_pad: int = 1,
+              min_ne_pad: int = 1) -> "DistGraph":
+        """One shard: the CSR layout of the module note (the other
+        arguments do not apply).  Several: the reference's padded slabs
+        (``min_nv_pad``/``min_ne_pad`` floor the padded sizes,
+        ``pad_pow2`` rounds them up to powers of two)."""
+        if nshards > 1:
+            return _build_sharded(graph, nshards, balanced, pad_pow2,
+                                  min_nv_pad, min_ne_pad)
         nv = graph.num_vertices
         nv_pad = next_pow2(max(nv, 1))
         vdt = graph.policy.vertex_dtype
@@ -78,6 +152,7 @@ class DistGraph:
             w=graph.weights,
             old_to_pad=old_to_pad,
             pad_to_old=pad_to_old,
+            parts=np.asarray([0, nv], dtype=np.int64),
         )
 
     @staticmethod
@@ -98,7 +173,8 @@ class DistGraph:
         pad_to_old[:num_vertices] = old_to_pad
         return DistGraph(graph=meta, nv_pad=nv_pad, src=src, dst=dst, w=w,
                          old_to_pad=old_to_pad, pad_to_old=pad_to_old,
-                         device_resident=True)
+                         device_resident=True,
+                         parts=np.asarray([0, num_vertices], dtype=np.int64))
 
     def device_slab(self, device) -> tuple:
         """(src, dst, w) as int32/int32/float32 tensors on ``device``: the
@@ -109,6 +185,14 @@ class DistGraph:
                      for a, dt in ((self.src, torch.int32),
                                    (self.dst, torch.int32),
                                    (self.w, torch.float32)))
+
+    def stacked_edges(self) -> tuple:
+        """(src, dst, w) of every shard concatenated shard-major,
+        [nshards * ne_pad] each (one shard: its slab as it is)."""
+        if self.nshards == 1:
+            return self.src, self.dst, self.w
+        return tuple(np.concatenate([getattr(sh, f) for sh in self.shards])
+                     for f in ("src", "dst", "w"))
 
     def padded_weighted_degrees(self) -> np.ndarray | torch.Tensor:
         """Weighted degree in the padded id space (padding vertices get 0).
@@ -121,10 +205,55 @@ class DistGraph:
 
             return device_weighted_degrees(self.src, self.w,
                                            nv_pad=self.nv_pad)
-        out = np.zeros(self.nv_pad, dtype=np.float64)
+        out = np.zeros(self.total_padded_vertices, dtype=np.float64)
         out[self.old_to_pad] = self.graph.weighted_degrees().astype(np.float64)
         return out.astype(self.graph.policy.weight_dtype)
 
     def vertex_mask(self) -> np.ndarray:
         """Boolean mask over the padded id space marking real vertices."""
         return self.pad_to_old >= 0
+
+
+def _build_sharded(graph: Graph, nshards: int, balanced: bool,
+                   pad_pow2: bool, min_nv_pad: int,
+                   min_ne_pad: int) -> DistGraph:
+    """The reference's multi-shard ``DistGraph.build``, array for array."""
+    nv = graph.num_vertices
+    parts = (balanced_parts(graph, nshards) if balanced
+             else uniform_parts(nv, nshards))
+    owned = np.diff(parts)
+    nv_pad = max(int(owned.max()) if len(owned) else 1, min_nv_pad)
+    if pad_pow2:
+        nv_pad = next_pow2(max(nv_pad, 1))
+    old_to_pad = np.empty(nv, dtype=np.int64)
+    pad_to_old = np.full(nshards * nv_pad, -1, dtype=np.int64)
+    for s in range(nshards):
+        lo, hi = int(parts[s]), int(parts[s + 1])
+        old_to_pad[lo:hi] = s * nv_pad + np.arange(hi - lo)
+        pad_to_old[s * nv_pad: s * nv_pad + (hi - lo)] = np.arange(lo, hi)
+    counts = [int(graph.offsets[parts[s + 1]] - graph.offsets[parts[s]])
+              for s in range(nshards)]
+    ne_pad = max(max(counts) if counts else 1, 1, min_ne_pad)
+    if pad_pow2:
+        ne_pad = next_pow2(ne_pad)
+    vdt = graph.policy.vertex_dtype
+    wdt = graph.policy.weight_dtype
+    sources = graph.sources().astype(np.int64)
+    shards = []
+    for s in range(nshards):
+        e0 = int(graph.offsets[parts[s]])
+        e1 = int(graph.offsets[parts[s + 1]])
+        n = e1 - e0
+        src_l = np.full(ne_pad, nv_pad, dtype=vdt)
+        dst_g = np.zeros(ne_pad, dtype=vdt)
+        w = np.zeros(ne_pad, dtype=wdt)
+        src_l[:n] = (old_to_pad[sources[e0:e1]] - s * nv_pad).astype(vdt)
+        dst_g[:n] = old_to_pad[graph.tails[e0:e1].astype(np.int64)].astype(
+            vdt)
+        w[:n] = graph.weights[e0:e1]
+        shards.append(Shard(base=int(parts[s]), bound=int(parts[s + 1]),
+                            src=src_l, dst=dst_g, w=w, n_real_edges=n))
+    return DistGraph(graph=graph, nv_pad=nv_pad, src=None, dst=None, w=None,
+                     old_to_pad=old_to_pad, pad_to_old=pad_to_old,
+                     nshards=nshards, parts=parts, ne_pad=ne_pad,
+                     shards=shards)

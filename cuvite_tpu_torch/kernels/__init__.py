@@ -2,18 +2,23 @@
 
 Each wrapper counts the launches of its kernel in its ``launches``
 attribute (a launch on a CUDA tensor, never a twin call);
-:func:`launch_counts` reads the three counts and
+:func:`launch_counts` reads the counts (the row kernel's size form,
+``row_argmax_sized``, has its own) and
 :func:`zero_launch_counts` resets them.
 """
 
 
 def _wrappers() -> dict:
     from cuvite_tpu_torch.kernels.heavy_bincount import heavy_argmax
-    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
+    from cuvite_tpu_torch.kernels.row_argmax import (
+        row_argmax,
+        row_argmax_sized,
+    )
     from cuvite_tpu_torch.kernels.seg_coalesce import seg_coalesce
 
     return {"row_argmax": row_argmax, "heavy_bincount": heavy_argmax,
-            "seg_coalesce": seg_coalesce}
+            "seg_coalesce": seg_coalesce,
+            "row_argmax_sized": row_argmax_sized}
 
 
 def launch_counts() -> dict:

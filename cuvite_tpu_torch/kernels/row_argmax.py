@@ -11,9 +11,18 @@ sentinel and -inf when no community is a candidate.
 The port keeps rows row-major ``[N, D]`` and gathers ``comm[dst]`` and
 ``comm_deg[c]`` inside the function: callers pass the bucket's ``dst``/``w``
 matrices and its vertex ids, not pre-gathered community matrices.  The
-reference's transposed ``[D, N]`` layout, 128-lane padding and the ``szT``
-size channel of the sparse multi-device exchange are not carried over (no
-multi-GPU yet).
+reference's transposed ``[D, N]`` layout and 128-lane padding are not
+carried over.
+
+The size form, :func:`row_argmax_sized` (the reference's ``szT``
+channel, ``row_argmax_pallas(..., szT=...)``), serves the sparse ghost
+exchange of a vertex mesh, where a shard holds no community-indexed
+table: a slot's ``dst`` is an extended-local index (owned vertex or
+ghost) into the env's ``comm_ext``/``cdeg_ext``/``csize_ext`` -- the
+community and the degree and size attached to it -- the row's own
+community degree is the env's ``cdeg_v``, and a fourth output
+``best_size`` [N] int32 is the size carried by the winning slot (the
+sentinel with no candidate).  It has its own launch count.
 
 An optional per-row degree ``deg`` [N] int32 stops each row at its
 degree: the kernel never reads the slots past it, and the twin treats them
@@ -55,6 +64,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {
     "cv_row_argmax": ([_P, _P, _P, _P, _L, _I, _P, _I, _P, _I, _I, _P, _P,
                        _P, _P], _I),
+    "cv_row_argmax_sized": ([_P, _P, _P, _P, _L, _I, _P, _I, _P, _I, _I, _P,
+                             _P, _P, _P, _P, _P], _I),
 }
 
 
@@ -89,12 +100,31 @@ def vertex_table(comm, comm_deg, vdeg, self_loop):
     """[nv, 4] int32 records of the vertices, as the kernels gather them:
     comm[v], comm_deg[comm[v]], vdeg[v] and self_loop[v], the floats by
     their bits."""
+    return attached_vertex_table(comm, torch.index_select(comm_deg, 0, comm),
+                                 vdeg, self_loop)
+
+
+def attached_vertex_table(comm, cdeg_v, vdeg, self_loop):
+    """:func:`vertex_table` with the community degree attached to each
+    vertex already (the size form's: the env's ``cdeg_v``)."""
     out = torch.empty((comm.numel(), 4), dtype=torch.int32,
                       device=comm.device)
     out[:, 0] = comm
-    out[:, 1] = torch.index_select(comm_deg, 0, comm).view(torch.int32)
+    out[:, 1] = cdeg_v.view(torch.int32)
     out[:, 2] = vdeg.view(torch.int32)
     out[:, 3] = self_loop.view(torch.int32)
+    return out
+
+
+def slot_table(comm_ext, cdeg_ext, csize_ext):
+    """[n_ext, 4] int32 records of the owned and ghost vertices, as the
+    size form gathers them per slot: comm_ext, cdeg_ext (its bits),
+    csize_ext, 0."""
+    out = torch.zeros((comm_ext.numel(), 4), dtype=torch.int32,
+                      device=comm_ext.device)
+    out[:, 0] = comm_ext
+    out[:, 1] = cdeg_ext.view(torch.int32)
+    out[:, 2] = csize_ext
     return out
 
 
@@ -207,31 +237,143 @@ def row_argmax_plain(dst, w, verts, comm, comm_deg, vdeg, self_loop,
 def _rows_plain(dst, w, verts, comm, comm_deg, vdeg, self_loop, consts,
                 shift, deg):
     v = verts.clamp(max=comm.numel() - 1).long()
-    cst = consts[v >> shift][:, None]
     curr = comm[v]
-    vd = vdeg[v]
-    ax = comm_deg[curr.long()] - vd
     c = comm[dst.long()]
+    return _argmax_rows(c, w, comm_deg[c.long()], None, curr, vdeg[v],
+                        comm_deg[curr.long()] - vdeg[v], self_loop[v],
+                        consts[v >> shift][:, None], deg)
+
+
+def _argmax_rows(c, w, ay, sz, curr, vd, ax, sl, cst, deg):
+    """The twins' row computation from per-slot communities ``c``, their
+    degrees ``ay`` and (size form) sizes ``sz``: the per-row sort of the
+    reference's ``_row_argmax_sorted``; ``best_size`` the min over the
+    winner's slots (``bucketed.py:721-725``)."""
     if deg is not None:   # slots past the degree are padding slots
-        pad = torch.arange(dst.shape[1], device=dst.device) >= deg[:, None]
+        pad = torch.arange(c.shape[1], device=c.device) >= deg[:, None]
         c = torch.where(pad, curr[:, None], c)
         w = torch.where(pad, 0.0, w)
     is_cc = c == curr[:, None]
     counter0 = torch.where(is_cc, w, 0.0).sum(dim=1)
-    eix = counter0 - self_loop[v]
+    eix = counter0 - sl
     c_s, order = torch.sort(c, dim=1, stable=True)
-    w_s = w.gather(1, order)
+    w_s, ay_s = w.gather(1, order), ay.gather(1, order)
     leader = torch.ones_like(c_s, dtype=torch.bool)
     leader[:, 1:] = c_s[:, 1:] != c_s[:, :-1]
     run = leader.long().cumsum(dim=1) - 1
     wagg = torch.zeros_like(w_s).scatter_add_(1, run, w_s).gather(1, run)
     valid = leader & (c_s != curr[:, None])
-    ay = comm_deg[c_s.long()]
     # Operand order of the reference: 2*(wagg-eix) - ((2*vdeg)*(ay-ax))*c.
     gain = 2.0 * (wagg - eix[:, None]) \
-        - 2.0 * vd[:, None] * (ay - ax[:, None]) * cst
+        - 2.0 * vd[:, None] * (ay_s - ax[:, None]) * cst
     gain = torch.where(valid, gain, float("-inf"))
     best_gain = gain.max(dim=1).values
     at_best = valid & (gain == best_gain[:, None])
     best_c = torch.where(at_best, c_s, SENTINEL).min(dim=1).values
-    return best_c.to(torch.int32), best_gain, counter0
+    out = (best_c.to(torch.int32), best_gain, counter0)
+    if sz is None:
+        return out
+    best_size = torch.where(c_s == best_c[:, None], sz.gather(1, order),
+                            SENTINEL).min(dim=1).values
+    return out + (best_size.to(torch.int32),)
+
+
+def row_argmax_sized(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
+                     vdeg, self_loop, constant, deg=None, vinfo=None,
+                     sinfo=None):
+    """Best move of every bucket row under the sparse exchange (the size
+    form, module note).
+
+    dst [N, D] int32 extended-local slot indices (padding: the row's own
+    vertex); w, verts, deg and constant as in :func:`row_argmax`, verts
+    local ids < nv; comm_ext [n_ext] int32 community of every owned
+    (the first nv) and ghost vertex; cdeg_ext [n_ext] f32 and csize_ext
+    [n_ext] int32 the degree and size of that community; cdeg_v, vdeg,
+    self_loop [nv] f32.  ``vinfo``/``sinfo``: the
+    :func:`attached_vertex_table` and :func:`slot_table` when the caller
+    has them.  Returns (best_c, best_gain, counter0, best_size [N]
+    int32)."""
+    nv = vdeg.numel()
+    consts = tenant_constants(constant, dst.device)
+    shift = _validate(dst, w, verts, comm_ext[:nv], cdeg_v, vdeg, self_loop,
+                      consts, deg)
+    for name, t, dt in (("comm_ext", comm_ext, torch.int32),
+                        ("cdeg_ext", cdeg_ext, torch.float32),
+                        ("csize_ext", csize_ext, torch.int32),
+                        ("cdeg_v", cdeg_v, torch.float32)):
+        if t.device != dst.device or t.dtype != dt or t.dim() != 1 \
+                or not t.is_contiguous():
+            raise ValueError(f"row_argmax_sized: {name} must be a "
+                             f"contiguous 1-d {dt} tensor on {dst.device}")
+    n_ext = comm_ext.numel()
+    if not (cdeg_ext.numel() == csize_ext.numel() == n_ext >= nv
+            and cdeg_v.numel() == nv):
+        raise ValueError("row_argmax_sized: comm_ext/cdeg_ext/csize_ext "
+                         "must be one length >= nv, cdeg_v of length nv")
+    if dst.device.type == "cpu":
+        return row_argmax_sized_plain(dst, w, verts, comm_ext, cdeg_ext,
+                                      csize_ext, cdeg_v, vdeg, self_loop,
+                                      consts, deg)
+    if dst.device.type != "cuda":
+        raise ValueError(f"row_argmax_sized: no kernel for device "
+                         f"{dst.device}")
+    if vinfo is None:
+        vinfo = attached_vertex_table(comm_ext[:nv], cdeg_v, vdeg, self_loop)
+    if sinfo is None:
+        sinfo = slot_table(comm_ext, cdeg_ext, csize_ext)
+    for name, t, rows in (("vinfo", vinfo, nv), ("sinfo", sinfo, n_ext)):
+        if (t.device != dst.device or t.dtype != torch.int32
+                or t.shape != (rows, 4) or not t.is_contiguous()):
+            raise ValueError(f"row_argmax_sized: {name} must be the "
+                             f"contiguous [{rows}, 4] int32 records on the "
+                             "rows' device")
+    n, width = dst.shape
+    best_c = torch.empty(n, dtype=torch.int32, device=dst.device)
+    best_gain = torch.empty(n, dtype=torch.float32, device=dst.device)
+    counter0 = torch.empty(n, dtype=torch.float32, device=dst.device)
+    best_size = torch.empty(n, dtype=torch.int32, device=dst.device)
+    lib = _build.library("row_argmax", _SIGNATURE)
+    err = lib.cv_row_argmax_sized(
+        dst.data_ptr(), w.data_ptr(), verts.data_ptr(),
+        None if deg is None else deg.data_ptr(), n, width,
+        vinfo.data_ptr(), nv, consts.data_ptr(), shift, SENTINEL,
+        sinfo.data_ptr(), best_c.data_ptr(), best_gain.data_ptr(),
+        counter0.data_ptr(), best_size.data_ptr(),
+        torch.cuda.current_stream(dst.device).cuda_stream)
+    _build.check(err, "row_argmax_sized")
+    row_argmax_sized.launches += 1
+    return best_c, best_gain, counter0, best_size
+
+
+row_argmax_sized.launches = 0
+
+
+def row_argmax_sized_plain(dst, w, verts, comm_ext, cdeg_ext, csize_ext,
+                           cdeg_v, vdeg, self_loop, constant, deg=None):
+    """Plain PyTorch twin of :func:`row_argmax_sized`: the per-row sort of
+    :func:`row_argmax_plain` with the per-slot degree and size read
+    through ``dst``."""
+    n, width = dst.shape
+    nv = vdeg.numel()
+    consts = tenant_constants(constant, dst.device)
+    shift = tenant_shift(consts, nv, "row_argmax_sized_plain")
+    chunk = max(ROW_ELEMS_CHUNK // width, 1)
+    outs = [_rows_sized_plain(dst[i:i + chunk], w[i:i + chunk],
+                              verts[i:i + chunk], comm_ext, cdeg_ext,
+                              csize_ext, cdeg_v, vdeg, self_loop, consts,
+                              shift,
+                              None if deg is None else deg[i:i + chunk])
+            for i in range(0, n, chunk)]
+    if not outs:
+        e = dst.new_empty(0)
+        return e, w.new_empty(0), w.new_empty(0), e
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _rows_sized_plain(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
+                      vdeg, self_loop, consts, shift, deg):
+    v = verts.clamp(max=vdeg.numel() - 1).long()
+    d = dst.long()
+    return _argmax_rows(comm_ext[d], w, cdeg_ext[d], csize_ext[d],
+                        comm_ext[v], vdeg[v], cdeg_v[v] - vdeg[v],
+                        self_loop[v], consts[v >> shift][:, None], deg)

@@ -100,3 +100,42 @@ def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
             break
     return past, prev_mod, iters, decode_phase_conv(-1, iters, qs,
                                                     moved_rows)
+
+
+def sharded_phase_loop(sweep, comm0s: list, threshold: float) -> tuple:
+    """:func:`phase_loop` of a vertex mesh, plain schedule: the state is a
+    list of per-shard assignments, and ``sweep(comms)`` returns a result
+    with ``targets`` (per shard), ``modularity`` and ``n_moved`` (0-dim,
+    shard 0's device) and ``overflow`` (the sparse exchange's budget
+    flag), read on the host together once a sweep.  A sweep that
+    overflows invalidates the phase: the loop stops there and says so,
+    and the caller re-runs the phase with a larger budget (the reference
+    reads the flag once, at the phase's end, with the same outcome).
+
+    Returns (past, Q of past, sweeps, PhaseConvergence, overflowed)."""
+    lower = -1.0
+    past = comm = comm0s
+    prev_mod = lower
+    iters = 0
+    qs, moved_rows = [], []
+    while True:
+        res = sweep(comm)
+        iters += 1
+        q, moved, ovf = torch.stack(
+            [res.modularity.double(), res.n_moved.double(),
+             res.overflow.double()]).tolist()
+        if ovf:
+            return past, prev_mod, iters, decode_phase_conv(
+                -1, iters, qs, moved_rows), True
+        stop = (q - prev_mod) < threshold
+        if len(qs) < CONV_ROWS_CAP:
+            qs.append(q)
+            moved_rows.append(0 if stop else int(moved))
+        if stop:
+            break
+        prev_mod = max(q, lower)
+        past, comm = comm, res.targets
+        if iters >= MAX_TOTAL_ITERATIONS:
+            break
+    return past, prev_mod, iters, decode_phase_conv(-1, iters, qs,
+                                                    moved_rows), False

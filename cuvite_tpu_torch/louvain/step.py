@@ -28,7 +28,13 @@ tenant's constant -- and returns each tenant's Q and moved count (the
 reference's ``jax.vmap`` of its fused phase, ``cuvite_tpu/louvain/
 batched.py:101-130``).  One graph is a batch of one.
 
-Not ported: the multi-GPU form (``axis_name``, ``make_sharded_step``).
+A vertex mesh (``comm/mesh.py``): :func:`sharded_step` is the
+reference's ``louvain_step_local`` with an axis and ``make_sharded_step``
+(``step.py:46-163``) under the replicated exchange -- each shard sweeps
+its own slab (local src, padded-global dst) against the all-gathered
+community vector and the psum'd community degree and size tables, and Q
+and the moved count are psum'd.  Per shard the arithmetic is
+:func:`louvain_step_local`'s.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from cuvite_tpu_torch.comm.collectives import all_gather, psum
 from cuvite_tpu_torch.kernels.row_argmax import SENTINEL, tenant_shift
 from cuvite_tpu_torch.ops import segment as seg
 from cuvite_tpu_torch.ops.segment import TenantConstants
@@ -117,3 +124,78 @@ def louvain_step_local(src: torch.Tensor, dst: torch.Tensor,
         target=target,
         modularity=seg.modularity_terms(counter0, comm_deg64, consts),
         n_moved=move.view(n_t, -1).sum(1))
+
+
+class ShardedStepOut(NamedTuple):
+    targets: list             # per shard [nv_pad] int32 new communities
+    modularity: torch.Tensor  # 0-dim f64 Q of the INPUT, on shard 0's device
+    n_moved: torch.Tensor     # 0-dim int64 vertices moved, on shard 0's
+    overflow: torch.Tensor    # 0-dim bool: never, under this exchange
+
+
+def sharded_step(mesh, srcs: list, dsts: list, ws: list, comms: list,
+                 vdegs: list, constant: float) -> ShardedStepOut:
+    """One synchronous sort sweep over every shard of ``mesh`` under the
+    replicated exchange.  Per shard s: ``srcs[s]`` [ne_pad] int32 LOCAL
+    source (padding nv_pad), ``dsts[s]`` padded-global tail, ``ws[s]`` f32,
+    ``comms[s]``/``vdegs[s]`` [nv_pad] its owned slices; ``constant`` =
+    1/(2m)."""
+    nv = comms[0].shape[0]
+    nv_total = mesh.size * nv
+    c32 = float(torch.tensor(constant, dtype=torch.float32))
+    comm_full = all_gather(comms, mesh)
+    deg_parts, size_parts = [], []
+    for comm, vdeg in zip(comms, vdegs):
+        comm_l = comm.long()
+        deg_parts.append(seg.segment_sum(vdeg.double(), comm_l, nv_total))
+        size_parts.append(seg.segment_sum(torch.ones_like(comm_l), comm_l,
+                                          nv_total))
+    comm_deg64 = psum(deg_parts, mesh)
+    comm_size = psum(size_parts, mesh)
+    targets, le, moved = [], [], []
+    for s in range(mesh.size):
+        src, dst, w, comm, vdeg = srcs[s], dsts[s], ws[s], comms[s], vdegs[s]
+        comm_deg = comm_deg64[s].float()
+        size = comm_size[s]
+        comm_l = comm.long()
+        src_c = src.clamp(max=nv - 1).long()
+        csrc = comm[src_c]
+        ckey = comm_full[s][dst.long()]
+        zero = torch.zeros((), dtype=w.dtype, device=w.device)
+        counter0 = seg.segment_sum_drop(
+            torch.where(ckey == csrc, w, zero).double(), src, nv).float()
+        self_loop = seg.segment_sum_drop(
+            torch.where(dst == src + s * nv, w, zero).double(), src,
+            nv).float()
+        eix = counter0 - self_loop
+        src_s, ckey_s, w_s = seg.sort_edges_by_vertex_comm(
+            src, ckey, w, src_bound=nv + 1, key_bound=nv_total)
+        starts = seg.run_starts(src_s, ckey_s)
+        eiy, _ = seg.run_totals(w_s, starts)
+        i_s = src_s.clamp(max=nv - 1).long()
+        comm_i = comm[i_s]
+        valid = starts & (src_s < nv) & (ckey_s != comm_i)
+        k_i = vdeg[i_s]
+        a_y = comm_deg[ckey_s.long()]
+        a_x = comm_deg[comm_i.long()] - k_i
+        gain = 2.0 * (eiy - eix[i_s]) - 2.0 * k_i * (a_y - a_x) * c32
+        gain = torch.where(valid, gain, float("-inf"))
+        best_gain = seg.segment_max(gain, src_s, nv + 1)[:nv]
+        is_best = valid & (gain == best_gain[i_s])
+        best_c = seg.segment_min(torch.where(is_best, ckey_s, SENTINEL),
+                                 src_s, nv + 1)[:nv]
+        move = best_gain > 0.0
+        best_c_safe = best_c.clamp(max=nv_total - 1)
+        guard = ((size[best_c_safe.long()] == 1) & (size[comm_l] == 1)
+                 & (best_c_safe > comm))
+        move &= ~guard
+        targets.append(torch.where(move, best_c_safe, comm))
+        le.append(counter0.double().sum())
+        moved.append(move.sum())
+    le_tot = psum(le, mesh)[0]
+    la2 = comm_deg64[0].square().sum()
+    q = le_tot * constant - la2 * constant * constant
+    return ShardedStepOut(
+        targets=targets, modularity=q, n_moved=psum(moved, mesh)[0],
+        overflow=torch.zeros((), dtype=torch.bool,
+                             device=mesh.devices[0]))

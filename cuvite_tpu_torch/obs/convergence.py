@@ -91,8 +91,9 @@ def decode_phase_conv(phase: int, iterations: int, q_rows,
     """Rows of one phase from its per-sweep values.  ``q_rows`` holds at
     most ``CONV_ROWS_CAP`` values; only the first min(iterations, cap) are
     meaningful.  ``moved_rows=None`` marks an untracked schedule.  (The
-    reference's per-row sparse-exchange overflow flag has no use on one
-    device and is not kept.)"""
+    reference's per-row sparse-exchange overflow flag is not kept: the
+    mesh loop stops at the first sweep that overflows, and the driver
+    discards that attempt.)"""
     cap = len(q_rows)
     n = min(int(iterations), cap)
     rows = [ConvRow(

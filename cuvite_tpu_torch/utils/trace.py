@@ -13,13 +13,14 @@ drivers thread them unconditionally.  None of them reads a device value:
 ``track`` reads tensor metadata, and the drivers hand counters and events
 host values they already hold.
 
-Not ported: ``dist_stats_report`` and ``ShardDiag`` (multi-shard
-diagnostics, ``ROADMAP.md`` queue A item 7).
+:func:`dist_stats_report` prints a partition's edge distribution.  Not
+ported: ``ShardDiag`` (per-shard diagnostic files, ``--diag-prefix``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import resource
 import time
 
@@ -29,6 +30,40 @@ def rss_high_water_mb() -> float:
     ru = resource.getrusage(resource.RUSAGE_SELF)
     # ru_maxrss is KiB on Linux.
     return ru.ru_maxrss / 1024.0
+
+
+def dist_stats_report(dg, ghost_counts=None) -> str:
+    """Edge distribution of a DistGraph partition (reference
+    ``dist_stats_report``, ``cuvite_tpu/utils/trace.py:183``; the
+    reference application's PRINT_DIST_STATS block): min, max, mean,
+    variance and standard deviation of the shards' edge counts, and the
+    ghost counts of the phase's exchange plan when there is one."""
+    counts = ([sh.n_real_edges for sh in dg.shards] if dg.shards
+              else [dg.graph.num_edges])
+    n = max(len(counts), 1)
+    mean = sum(counts) / n
+    avg_sq = sum(c * c for c in counts) / n
+    var = abs(avg_sq - mean * mean)
+    lines = [
+        "-" * 55,
+        "Graph edge distribution characteristics",
+        "-" * 55,
+        f"Number of vertices: {dg.graph.num_vertices}",
+        f"Number of edges: {dg.graph.num_edges}",
+        f"Number of shards: {dg.nshards}",
+        f"Maximum number of edges: {max(counts)}",
+        f"Minimum number of edges: {min(counts)}",
+        f"Mean number of edges: {mean:g}",
+        f"Variance: {var:g}",
+        f"Standard deviation: {math.sqrt(var):g}",
+    ]
+    if ghost_counts is not None:
+        lines.append(
+            f"Ghost vertices per shard: max {max(ghost_counts)}, "
+            f"min {min(ghost_counts)}, "
+            f"mean {sum(ghost_counts) / max(len(ghost_counts), 1):g}")
+    lines.append("-" * 55)
+    return "\n".join(lines)
 
 
 class Tracer:

@@ -195,7 +195,7 @@ def test_churn_bench_command_prints_one_json_line(capsys, monkeypatch):
     _both_valid(rec)
     assert rec["graph"] == "rmat7" and rec["stream"]["warm"] == "plp"
     assert '# launches run 1: {"row_argmax": 0, "heavy_bincount": 0, ' \
-        '"seg_coalesce": 0}' in captured.err
+        '"seg_coalesce": 0, "row_argmax_sized": 0}' in captured.err
 
 
 def test_guard_trips_on_a_build_inside_the_first_timed_run(monkeypatch):

@@ -19,7 +19,12 @@ from cuvite_tpu_torch.kernels.heavy_bincount import (
     heavy_argmax,
     heavy_argmax_plain,
 )
-from cuvite_tpu_torch.kernels.row_argmax import row_argmax, row_argmax_plain
+from cuvite_tpu_torch.kernels.row_argmax import (
+    row_argmax,
+    row_argmax_plain,
+    row_argmax_sized,
+    row_argmax_sized_plain,
+)
 from cuvite_tpu_torch.kernels.seg_coalesce import (
     seg_coalesce,
     seg_coalesce_plain,
@@ -106,6 +111,45 @@ def zero_tie(width):
     comm_deg[9], comm_deg[15] = 100.0, 10.0
     return (cmat, wmat, np.array([15], np.int32),
             np.array([4.0], np.float32), np.zeros(1, np.float32), comm_deg)
+
+
+def sized_case(n_rows, width, seed, nv=600, n_ghost=300, n_comm=None):
+    """Rows of the row kernel's size form (the sparse exchange's record
+    tables): ``nv`` owned vertices and ``n_ghost`` ghosts; every one of
+    them carries a community in [0, n_comm) and that community's degree
+    and size (a quarter of the communities are singletons), so rows hold
+    duplicates and the guard's size-1 case.  Row r is owned vertex r,
+    its degree random in [1, width] with padding slots past it (the row's
+    own vertex, weight 0); rows 0-3 reach only their own community (no
+    candidate).  Weights are multiples of 1/16, the constant dyadic.
+    Returns (dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v, vdeg,
+    self_loop, deg) as numpy and the constant."""
+    rng = np.random.default_rng(seed)
+    n_ext = nv + n_ghost
+    n_comm = n_comm or max(width // 2, 8)
+    comm_ext = rng.integers(0, n_comm, n_ext).astype(np.int32)
+    cdeg_tab = (rng.integers(1, 256, n_comm) / 8.0).astype(np.float32)
+    size_tab = np.where(rng.random(n_comm) < 0.25, 1,
+                        rng.integers(2, 50, n_comm)).astype(np.int32)
+    cdeg_ext, csize_ext = cdeg_tab[comm_ext], size_tab[comm_ext]
+    verts = np.arange(n_rows, dtype=np.int32)
+    deg = rng.integers(1, width + 1, n_rows).astype(np.int32)
+    dst = rng.integers(0, n_ext, (n_rows, width)).astype(np.int32)
+    same = np.nonzero(comm_ext == comm_ext[0])[0]
+    for r in range(min(4, n_rows)):
+        comm_ext[r] = comm_ext[0]
+        dst[r] = rng.choice(same, width)
+        deg[r] = width
+    cdeg_ext, csize_ext = cdeg_tab[comm_ext], size_tab[comm_ext]
+    slot = np.arange(width)[None, :]
+    dst = np.where(slot < deg[:, None], dst, verts[:, None]).astype(np.int32)
+    w = (rng.integers(0, 32, (n_rows, width)) / 16.0).astype(np.float32)
+    w[slot >= deg[:, None]] = 0.0
+    vdeg = (rng.integers(1, 64, nv) / 4.0).astype(np.float32)
+    sl = (rng.integers(0, 3, nv) / 2.0).astype(np.float32)
+    return ((dst, w, verts, comm_ext, cdeg_ext, csize_ext,
+             np.ascontiguousarray(cdeg_ext[:nv]), vdeg, sl, deg),
+            np.float32(1.0 / 64.0))
 
 
 def coalesce_case(nv_pad, ne_pad, seed, gapped=False, weights="dyadic"):
@@ -320,6 +364,55 @@ def test_heavy_kernel_matches_twin_on_card(cuda_device):
     torch.cuda.synchronize()
     for r, g in zip(ref, got):
         assert torch.equal(r, g.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16, 32, 64, 256, 384, 2048, 8192])
+def test_row_kernel_size_form_matches_twin_on_card(cuda_device, width):
+    """The size form against its twin, with and without the row degrees:
+    targets, gains, counter0 and best_size bit-equal; the no-candidate
+    rows return the sentinel size."""
+    n_rows = 32 if width >= 2048 else 256
+    arrs, c = sized_case(n_rows, width, width)
+    t = [torch.from_numpy(a) for a in arrs[:9]]
+    deg = torch.from_numpy(arrs[9])
+    n = row_argmax_sized.launches
+    for d in (None, deg):
+        ref = row_argmax_sized_plain(*t, float(c), d)
+        got = row_argmax_sized(*[a.to(cuda_device) for a in t], float(c),
+                               None if d is None else d.to(cuda_device))
+        torch.cuda.synchronize()
+        for r, g in zip(ref, got):
+            g = g.cpu()
+            if g.dtype == torch.float32:
+                g, r = g.view(torch.int32), r.view(torch.int32)
+            assert torch.equal(r, g)
+        assert (got[3][:4].cpu() == 2**31 - 1).all()
+    assert row_argmax_sized.launches == n + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["replicated", "sparse"])
+def test_mesh_on_one_card_matches_cpu(cuda_device, exchange):
+    """Four shards on one card against four on the CPU and one shard on
+    the card: identical labels and sweeps; the sparse run launches the
+    size form."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    g = generate_rmat(11)
+    n = row_argmax_sized.launches
+    rg = louvain_phases(g, mesh=make_mesh(devices=[cuda_device] * 4),
+                        exchange=exchange)
+    rc = louvain_phases(g, nshards=4, device="cpu", exchange=exchange)
+    r1 = louvain_phases(g, device=cuda_device)
+    for r in (rc, r1):
+        assert np.array_equal(rg.communities, r.communities)
+        assert [p.iterations for p in rg.phases] == \
+            [p.iterations for p in r.phases]
+        assert abs(rg.modularity - r.modularity) <= 1e-9
+    assert (row_argmax_sized.launches > n) == (exchange == "sparse")
 
 
 @pytest.mark.cuda

@@ -235,7 +235,8 @@ def test_delta_verb_and_daemon_keeps_serving(tmp_path):
         # Beyond the reference's reply: the kernels' launch counts, none
         # on the CPU.
         assert st["kernels"] == dict.fromkeys(
-            ("row_argmax", "heavy_bincount", "seg_coalesce"), 0)
+            ("row_argmax", "heavy_bincount", "seg_coalesce",
+             "row_argmax_sized"), 0)
     finally:
         c.close()
     summary = stop(d)

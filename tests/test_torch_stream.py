@@ -693,7 +693,8 @@ def test_daemon_delta_verb_matches_reference(tmp_path):
     # The stats reply adds the kernels' launch counts beyond the
     # reference's (all zero on the CPU).
     assert replies[-1].pop("kernels") == dict.fromkeys(
-        ("row_argmax", "heavy_bincount", "seg_coalesce"), 0)
+        ("row_argmax", "heavy_bincount", "seg_coalesce",
+         "row_argmax_sized"), 0)
     assert replies == ref
     assert summary["stream"] == ref_summary["stream"]
     assert [r["ok"] for r in replies] == [False, True, True, True, True,
