@@ -4,8 +4,7 @@
     python3 chip_smoke.py [--scale 20] [--check-scale 14]
                           [--rgg-nv 4194304] [--rgg-check-nv 65536]
                           [--fused-check-scale 12] [--fused-shrink 4096]
-                          [--schedule-scale 20] [--mesh-shards 4]
-                          [--mesh-replicated-scale 20]
+                          [--schedule-scale 20]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -189,24 +188,27 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    id with its own size -- bit-equal, best_size included; phase 5's
    launches (the non-size forms; 229 row / 14 heavy at R-MAT 20) with no
    size-form launch; then the size form timed at the sparse phase-0
-   shapes of R-MAT --scale on --mesh-shards shards of one card, every
-   class of every shard a sweep, at the identity and the converged
-   assignment, bit-equal to its twin there, beside the twin and its
-   bound;
-29. louvain_phases on R-MAT --check-scale, --mesh-shards shards on one
-   card, both exchanges: labels, phases and iterations identical to the
-   same mesh on the CPU and to one shard on the card, Q to 1e-9;
-30. full width: R-MAT --scale on --mesh-shards shards of one card under
-   the sparse exchange and (at --mesh-replicated-scale) the replicated
-   one, the launch counts set to 0 just before each and read just
+   shapes of R-MAT --scale on 4 shards of one card, every class of every
+   shard a sweep, at the identity and the converged assignment,
+   bit-equal to its twin there, beside the twin and its bound; and the
+   non-size row kernel and the heavy kernel at the replicated phase-0
+   shapes of the same mesh (rows and hubs by padded-global id against
+   the gathered tables), every class and the hubs of every shard, at
+   the identity and the converged assignment, bit-equal to their twins;
+29. louvain_phases on R-MAT --check-scale, 4 shards on one card, both
+   exchanges: labels, phases and iterations identical to the same mesh
+   on the CPU and to one shard on the card, Q to 1e-9;
+30. full width: R-MAT --scale on 4 shards of one card under the sparse
+   and the replicated exchange, the launch counts set to 0 just before
+   each and read just
    after: per phase nv, ne, iterations, Q, seconds and the exchange
    (ghosts per shard, block, budget, the bytes a shard sends a sweep);
    fails if Q is more than 1e-6 from the host f64 modularity, if the
    labels differ from one shard's, or if the sparse run never launched
    the size form; every shard sat on one H100, so no NVLink transfer is
    measured;
-31. a per-peer budget of 1 on R-MAT --check-scale, --mesh-shards shards
-   on the card: the runner's sweeps overflow, the driver re-runs the
+31. a per-peer budget of 1 on R-MAT --check-scale, 4 shards on the
+   card: the runner's sweeps overflow, the driver re-runs the
    phase with a grown budget, and the labels equal one shard's.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
@@ -2904,6 +2906,8 @@ def run_stream_daemon() -> dict:
 # ---------------------------------------------------------------------------
 # Phases 28-31: the sharded engine on a mesh of shards on one card.
 
+# The vertex shards of phases 28-31, all on the one card.
+MESH_SHARDS = 4
 # The R-MAT 20 bucketed path's launches before the size form existed
 # (PR 8's and PR 9's smoke runs): the non-size row and heavy kernels.
 MAIN_PATH_LAUNCHES_20 = {"row_argmax": 229, "heavy_bincount": 14}
@@ -3089,6 +3093,69 @@ def time_sized_rows(g, nshards: int) -> dict:
     return out
 
 
+def check_replicated_rows(g, nshards: int) -> None:
+    """The non-size row kernel and the heavy kernel at the phase-0 shapes
+    of the replicated mesh path of ``g`` on one card: every class and the
+    hubs of every shard, rows and hubs by padded-global id against the
+    gathered tables, at the identity and at the converged phase-0
+    assignment, bit-equal to their twins."""
+    import torch
+
+    from cuvite_tpu_torch.comm.collectives import all_gather, psum
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.kernels.heavy_bincount import (
+        heavy_argmax,
+        heavy_argmax_plain,
+    )
+    from cuvite_tpu_torch.kernels.row_argmax import (
+        row_argmax,
+        row_argmax_plain,
+    )
+    from cuvite_tpu_torch.louvain.driver import MeshPhaseRunner
+    from cuvite_tpu_torch.ops import segment as seg
+
+    dev = torch.device("cuda", 0)
+    run = MeshPhaseRunner(DistGraph.build(g, nshards),
+                          make_mesh(devices=[dev] * nshards),
+                          exchange="replicated")
+    mp = run.plan
+    run.run(1.0e-6)
+    c = run.constant
+    names = ("best_c", "best_gain", "counter0")
+    rows = hubs = launches = 0
+    for label, comms in (("identity", run.comm0),
+                         ("converged", run.labels_dev)):
+        comm_full = all_gather(comms, mp.mesh)
+        deg = psum([seg.segment_sum(v.double(), cm, mp.nv_total)
+                    for cm, v in zip(comms, run.vdeg)], mp.mesh)
+        for s, p in enumerate(mp.plans):
+            tabs = (comm_full[s], deg[s].float(), mp.vdeg_full[s],
+                    mp.sl_full[s])
+            pairs = [(f"row_argmax width {dst.shape[1]}",
+                      row_argmax(dst, w, verts, *tabs, c, d),
+                      row_argmax_plain(dst, w, verts, *tabs, c, d))
+                     for verts, dst, w, d in p.buckets]
+            if label == "identity":
+                rows += sum(b[0].numel() for b in p.buckets)
+            if p.heavy is not None:
+                pairs.append(("heavy_argmax",
+                              heavy_argmax(p.heavy, *tabs, c),
+                              heavy_argmax_plain(p.heavy, *tabs, c)))
+                hubs += p.heavy.num_hubs if label == "identity" else 0
+            launches += len(pairs)
+            for what, got, ref in pairs:
+                for name, x, y in zip(names, got, ref):
+                    if not bits_equal(x, y):
+                        fail(f"{what} at the replicated phase-0 shapes, "
+                             f"shard {s} ({label}): {name} differs from "
+                             "the twin")
+    print(f"  row_argmax and heavy_argmax at the replicated {nshards}-shard "
+          f"phase-0 shapes: {rows} rows and {hubs} hubs by padded-global "
+          f"id, {launches} launches at the identity and the converged "
+          "assignment, bit-equal to their twins")
+
+
 class ExchangeLog:
     """A tracer stand-in that keeps the driver's per-phase ``exchange``
     events (mode, shards, budget, plan stats) and ignores the rest."""
@@ -3251,11 +3318,6 @@ def main() -> int:
                     help="FUSED_SHRINK_EDGES of the fused card-vs-CPU runs")
     ap.add_argument("--schedule-scale", type=int, default=20,
                     help="R-MAT scale of the ET and coloring runs")
-    ap.add_argument("--mesh-shards", type=int, default=4,
-                    help="vertex shards of the mesh runs, all on the card")
-    ap.add_argument("--mesh-replicated-scale", type=int, default=None,
-                    help="R-MAT scale of phase 30's replicated run "
-                         "(default --scale)")
     args = ap.parse_args()
 
     # The run uses one card: show torch only that one, so the device count
@@ -3505,7 +3567,7 @@ def main() -> int:
     paths["daemon delta verb"] = run_stream_daemon()
     print(f"  phases 24-27 took {time.perf_counter() - t24:.1f} s")
 
-    S = args.mesh_shards
+    S = MESH_SHARDS
     print("[28] the row kernel's size form against its twin, every width")
     t28 = time.perf_counter()
     check_sized_rows(dev, paths[f"bucketed R-MAT {args.scale}"], args.scale)
@@ -3518,6 +3580,7 @@ def main() -> int:
           f"{sized['ms_converged']:.4f} ms (twin "
           f"{sized['plain_ms_converged']:.4f} ms), bound "
           f"{sized['bound_ms']:.4f} ms by {sized['bound_by']}")
+    check_replicated_rows(g_rmat, S)
     print(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
 
     print(f"[29] R-MAT {args.check_scale} on {S} shards of one card: card "
@@ -3532,19 +3595,12 @@ def main() -> int:
     mesh_launches, mesh_s = run_mesh_full(g_rmat, args.scale, S, "sparse",
                                           main_res)
     paths[f"mesh {S} shards R-MAT {args.scale} sparse"] = mesh_launches
-    rep_scale = args.mesh_replicated_scale or args.scale
-    g_rep, ref_rep = g_rmat, main_res
-    if rep_scale != args.scale:
-        from cuvite_tpu_torch import louvain_phases
-
-        g_rep = generate_rmat(rep_scale)
-        ref_rep = louvain_phases(g_rep)
-    paths[f"mesh {S} shards R-MAT {rep_scale} replicated"], rep_s = \
-        run_mesh_full(g_rep, rep_scale, S, "replicated", ref_rep)
-    del g_rmat, g_rep
+    paths[f"mesh {S} shards R-MAT {args.scale} replicated"], rep_s = \
+        run_mesh_full(g_rmat, args.scale, S, "replicated", main_res)
+    del g_rmat
     print(f"  R-MAT {args.scale} walls: one shard {bucketed_s:.3f} s "
-          f"(phase 5), {S} shards sparse {mesh_s:.3f} s; R-MAT {rep_scale} "
-          f"{S} shards replicated {rep_s:.3f} s")
+          f"(phase 5), {S} shards sparse {mesh_s:.3f} s, {S} shards "
+          f"replicated {rep_s:.3f} s")
     print(f"  phase 30 took {time.perf_counter() - t30:.1f} s")
 
     print(f"[31] a per-peer budget of 1 on the card: R-MAT "

@@ -239,17 +239,18 @@ def heavy_argmax(lay: HeavyLayout, comm, comm_deg, vdeg, self_loop,
     best_gain = torch.empty(h, dtype=torch.float32, device=dev)
     counter0 = torch.empty(h, dtype=torch.float32, device=dev)
     lib = _build.library("heavy_bincount", _SIGNATURE)
-    err = lib.cv_heavy_argmax(
-        lay.verts.data_ptr(), lay.dst.data_ptr(), lay.w.data_ptr(), h,
-        lay.chunk_hub.data_ptr(), lay.chunk_offsets.data_ptr(),
-        lay.hub_chunks.data_ptr(), lay.num_chunks, lay.max_chunk,
-        lay.table_offsets.data_ptr(), sc.table.data_ptr(),
-        sc.slots.data_ptr(), sc.claims.data_ptr(), sc.partial.data_ptr(),
-        sc.best.data_ptr(), comm.data_ptr(), comm_deg.data_ptr(),
-        vdeg.data_ptr(), self_loop.data_ptr(), comm.numel(),
-        consts.data_ptr(), shift, SENTINEL,
-        best_c.data_ptr(), best_gain.data_ptr(), counter0.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # launch on the tensors' card
+        err = lib.cv_heavy_argmax(
+            lay.verts.data_ptr(), lay.dst.data_ptr(), lay.w.data_ptr(), h,
+            lay.chunk_hub.data_ptr(), lay.chunk_offsets.data_ptr(),
+            lay.hub_chunks.data_ptr(), lay.num_chunks, lay.max_chunk,
+            lay.table_offsets.data_ptr(), sc.table.data_ptr(),
+            sc.slots.data_ptr(), sc.claims.data_ptr(),
+            sc.partial.data_ptr(), sc.best.data_ptr(), comm.data_ptr(),
+            comm_deg.data_ptr(), vdeg.data_ptr(), self_loop.data_ptr(),
+            comm.numel(), consts.data_ptr(), shift, SENTINEL,
+            best_c.data_ptr(), best_gain.data_ptr(), counter0.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "heavy_argmax")
     heavy_argmax.launches += 1
     return best_c, best_gain, counter0

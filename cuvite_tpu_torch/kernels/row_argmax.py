@@ -199,12 +199,14 @@ def row_argmax(dst, w, verts, comm, comm_deg, vdeg, self_loop, constant,
     best_gain = torch.empty(n, dtype=torch.float32, device=dst.device)
     counter0 = torch.empty(n, dtype=torch.float32, device=dst.device)
     lib = _build.library("row_argmax", _SIGNATURE)
-    err = lib.cv_row_argmax(
-        dst.data_ptr(), w.data_ptr(), verts.data_ptr(),
-        None if deg is None else deg.data_ptr(), n, width,
-        vinfo.data_ptr(), comm.numel(), consts.data_ptr(), shift, SENTINEL,
-        best_c.data_ptr(), best_gain.data_ptr(), counter0.data_ptr(),
-        torch.cuda.current_stream(dst.device).cuda_stream)
+    with torch.cuda.device(dst.device):   # launch on the tensors' card
+        err = lib.cv_row_argmax(
+            dst.data_ptr(), w.data_ptr(), verts.data_ptr(),
+            None if deg is None else deg.data_ptr(), n, width,
+            vinfo.data_ptr(), comm.numel(), consts.data_ptr(), shift,
+            SENTINEL, best_c.data_ptr(), best_gain.data_ptr(),
+            counter0.data_ptr(),
+            torch.cuda.current_stream(dst.device).cuda_stream)
     _build.check(err, "row_argmax")
     row_argmax.launches += 1
     return best_c, best_gain, counter0
@@ -333,13 +335,14 @@ def row_argmax_sized(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
     counter0 = torch.empty(n, dtype=torch.float32, device=dst.device)
     best_size = torch.empty(n, dtype=torch.int32, device=dst.device)
     lib = _build.library("row_argmax", _SIGNATURE)
-    err = lib.cv_row_argmax_sized(
-        dst.data_ptr(), w.data_ptr(), verts.data_ptr(),
-        None if deg is None else deg.data_ptr(), n, width,
-        vinfo.data_ptr(), nv, consts.data_ptr(), shift, SENTINEL,
-        sinfo.data_ptr(), best_c.data_ptr(), best_gain.data_ptr(),
-        counter0.data_ptr(), best_size.data_ptr(),
-        torch.cuda.current_stream(dst.device).cuda_stream)
+    with torch.cuda.device(dst.device):   # launch on the tensors' card
+        err = lib.cv_row_argmax_sized(
+            dst.data_ptr(), w.data_ptr(), verts.data_ptr(),
+            None if deg is None else deg.data_ptr(), n, width,
+            vinfo.data_ptr(), nv, consts.data_ptr(), shift, SENTINEL,
+            sinfo.data_ptr(), best_c.data_ptr(), best_gain.data_ptr(),
+            counter0.data_ptr(), best_size.data_ptr(),
+            torch.cuda.current_stream(dst.device).cuda_stream)
     _build.check(err, "row_argmax_sized")
     row_argmax_sized.launches += 1
     return best_c, best_gain, counter0, best_size

@@ -190,10 +190,12 @@ def seg_coalesce(src, dst, w, *, nv_pad: int, grid: int):
     lib = _build.library("seg_coalesce", _SIGNATURE)
     scratch = torch.empty(lib.cv_seg_coalesce_scratch_bytes(b, ne, grid),
                           dtype=torch.uint8, device=dev)
-    err = lib.cv_seg_coalesce(
-        src.data_ptr(), dst.data_ptr(), w.data_ptr(), b, ne, grid, nv_pad,
-        src_c.data_ptr(), dst_c.data_ptr(), w_c.data_ptr(), n.data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # launch on the tensors' card
+        err = lib.cv_seg_coalesce(
+            src.data_ptr(), dst.data_ptr(), w.data_ptr(), b, ne, grid,
+            nv_pad, src_c.data_ptr(), dst_c.data_ptr(), w_c.data_ptr(),
+            n.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "seg_coalesce")
     seg_coalesce.launches += 1
     return src_c, dst_c, w_c, n

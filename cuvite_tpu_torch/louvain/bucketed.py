@@ -368,42 +368,74 @@ def bucketed_step(plan: DevicePlan, comm: torch.Tensor, vdeg: torch.Tensor,
     comm_deg = comm_deg64.float()
     # index_add_, not bincount: bincount reads its input's max on the host.
     comm_size = seg.segment_sum(torch.ones_like(info), info, nv_total)
-    dev = comm.device
-    # The kernels' per-vertex records, once per sweep (the CPU twins
-    # gather the tables themselves).
-    vinfo = (vertex_table(comm, comm_deg, vdeg, plan.self_loop)
-             if dev.type == "cuda" else None)
-    bcs, bgs, c0s = [], [], []
-    for verts, dst, w, deg in plan.buckets:
-        bc, bg, c0 = row_argmax(dst, w, verts, comm, comm_deg, vdeg,
-                                plan.self_loop, consts.c32, deg, vinfo)
-        bcs.append(bc)
-        bgs.append(bg)
-        c0s.append(c0)
-    # Trailing default slot for vertices in no bucket.
-    best_c = torch.cat(bcs + [torch.full((1,), SENTINEL, dtype=torch.int32,
-                                         device=dev)])[plan.perm]
-    best_gain = torch.cat(bgs + [torch.full((1,), float("-inf"),
-                                            device=dev)])[plan.perm]
-    counter0 = torch.cat(c0s + [torch.zeros(1, device=dev)])[plan.perm]
-    if plan.heavy is not None:
-        hc, hg, hc0 = heavy_argmax(plan.heavy, comm, comm_deg, vdeg,
-                                   plan.self_loop, consts.c32)
-        hv = plan.heavy.verts.long()
-        best_c[hv] = hc
-        best_gain[hv] = hg
-        counter0[hv] = hc0
-
-    move = best_gain > 0.0
-    best_c_safe = best_c.clamp(max=nv_total - 1)
-    guard = ((comm_size[best_c_safe.long()] == 1)
-             & (comm_size[comm.long()] == 1) & (best_c_safe > comm))
-    move &= ~guard
-    target = torch.where(move, best_c_safe, comm)
+    best_c, best_gain, counter0 = _replicated_moves(
+        plan, comm, comm_deg, vdeg, plan.self_loop, consts.c32, 0)
+    target, move = _guarded_targets(comm, best_c, best_gain, nv_total,
+                                    comm_size=comm_size)
     return StepResult(
         target=target,
         modularity=seg.modularity_terms(counter0, comm_deg64, consts),
         n_moved=move.view(consts.c64.numel(), -1).sum(1), counter0=counter0)
+
+
+def _replicated_moves(plan: DevicePlan, comm, comm_deg, vdeg, self_loop,
+                      constant, base: int) -> tuple:
+    """Best move of every vertex of ``plan`` against full tables: the row
+    kernel over each bucket, the heavy kernel over the hubs, assembled per
+    vertex.  ``comm``/``vdeg``/``self_loop`` cover every vertex the rows
+    name and ``comm_deg`` every community (on a mesh under the replicated
+    exchange the gathered tables, the plan's rows and hubs by padded-global
+    id, its vertex v at ``base + v``).  Returns (best_c, best_gain,
+    counter0) of the plan's vertices."""
+    # The kernels' per-vertex records, once per sweep (the CPU twins
+    # gather the tables themselves).
+    vinfo = (vertex_table(comm, comm_deg, vdeg, self_loop)
+             if comm.device.type == "cuda" else None)
+    parts = [row_argmax(dst, w, verts, comm, comm_deg, vdeg, self_loop,
+                        constant, deg, vinfo)
+             for verts, dst, w, deg in plan.buckets]
+    best_c, best_gain, counter0 = _assemble(
+        parts, plan.perm, (SENTINEL, float("-inf"), 0.0))
+    if plan.heavy is not None:
+        hc, hg, hc0 = heavy_argmax(plan.heavy, comm, comm_deg, vdeg,
+                                   self_loop, constant)
+        hv = plan.heavy.verts.long() - base
+        best_c[hv] = hc
+        best_gain[hv] = hg
+        counter0[hv] = hc0
+    return best_c, best_gain, counter0
+
+
+def _assemble(parts: list, perm: torch.Tensor, fills: tuple) -> list:
+    """Per-vertex results from the buckets' row results by the phase's
+    assembly gather; vertices in no bucket (the trailing slot) get
+    ``fills``."""
+    dev = perm.device
+    out = []
+    for k, fill in enumerate(fills):
+        col = [p[k] for p in parts]
+        dt = col[0].dtype if col else (torch.int32 if isinstance(fill, int)
+                                       else torch.float32)
+        out.append(torch.cat(col + [torch.full((1,), fill, dtype=dt,
+                                               device=dev)])[perm])
+    return out
+
+
+def _guarded_targets(comm, best_c, best_gain, nv_total: int, *,
+                     comm_size=None, sizes=None) -> tuple:
+    """Vertices move to their best candidate when its gain is positive,
+    except that of two singleton communities only the move to the smaller
+    id is kept (louvain.cpp:2230-2241).  The sizes of the target and the
+    current community come from ``comm_size`` (a table over every
+    community) or are given per vertex (``sizes``).  Returns (target,
+    move)."""
+    best_c_safe = best_c.clamp(max=nv_total - 1)
+    if sizes is None:
+        sizes = (comm_size[best_c_safe.long()], comm_size[comm.long()])
+    t_size, c_size = sizes
+    move = best_gain > 0.0
+    move &= ~((t_size == 1) & (c_size == 1) & (best_c_safe > comm))
+    return torch.where(move, best_c_safe, comm), move
 
 
 def bucketed_modularity(plans, comm: torch.Tensor, vdeg: torch.Tensor,
@@ -533,20 +565,6 @@ class ShardedResult(NamedTuple):
     counter0: list            # per shard [nv_pad] f32
 
 
-def _assemble(parts: list, perm: torch.Tensor, fills: tuple) -> list:
-    """Per-vertex results from the buckets' row results by the phase's
-    assembly gather; vertices in no bucket get ``fills``."""
-    dev = perm.device
-    out = []
-    for k, fill in enumerate(fills):
-        col = [p[k] for p in parts]
-        dt = col[0].dtype if col else (torch.int32 if isinstance(fill, int)
-                                       else torch.float32)
-        out.append(torch.cat(col + [torch.full((1,), fill, dtype=dt,
-                                               device=dev)])[perm])
-    return out
-
-
 def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
                           constant: float) -> ShardedResult:
     """One sweep over every shard of the mesh (reference ``bucketed_step``
@@ -573,9 +591,9 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
     for s in range(mesh.size):
         plan, comm, vdeg = mp.plans[s], comms[s], vdegs[s]
         sl = mp.self_loops[s]
-        cuda = comm.device.type == "cuda"
         if sparse:
             env = envs[s]
+            cuda = comm.device.type == "cuda"
             vinfo = (attached_vertex_table(comm, env.cdeg_v, vdeg, sl)
                      if cuda else None)
             sinfo = (slot_table(env.comm_ext, env.cdeg_ext, env.csize_ext)
@@ -590,31 +608,16 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
             best_c, best_gain, counter0, best_size = _sparse_hubs(
                 mp.heavy_edges[s], env, comm, vdeg, sl, c32, best_c,
                 best_gain, counter0, best_size)
-            t_size, c_size = best_size, env.csize_v
+            target, move = _guarded_targets(
+                comm, best_c, best_gain, nv_total,
+                sizes=(best_size, env.csize_v))
         else:
-            comm_deg = comm_deg64[s].float()
-            cf, vf, sf = comm_full[s], mp.vdeg_full[s], mp.sl_full[s]
-            vinfo = vertex_table(cf, comm_deg, vf, sf) if cuda else None
-            parts = [row_argmax(dst, w, verts, cf, comm_deg, vf, sf, c32,
-                                deg, vinfo)
-                     for verts, dst, w, deg in plan.buckets]
-            best_c, best_gain, counter0 = _assemble(
-                parts, plan.perm, (SENTINEL, float("-inf"), 0.0))
-            if plan.heavy is not None:
-                hc, hg, hc0 = heavy_argmax(plan.heavy, cf, comm_deg, vf, sf,
-                                           c32)
-                hv = plan.heavy.verts.long() - s * nv
-                best_c[hv] = hc
-                best_gain[hv] = hg
-                counter0[hv] = hc0
-        best_c_safe = best_c.clamp(max=nv_total - 1)
-        if not sparse:
-            t_size = comm_size[s][best_c_safe.long()]
-            c_size = comm_size[s][comm.long()]
-        move = best_gain > 0.0
-        guard = (t_size == 1) & (c_size == 1) & (best_c_safe > comm)
-        move &= ~guard
-        targets.append(torch.where(move, best_c_safe, comm))
+            best_c, best_gain, counter0 = _replicated_moves(
+                plan, comm_full[s], comm_deg64[s].float(), mp.vdeg_full[s],
+                mp.sl_full[s], c32, s * nv)
+            target, move = _guarded_targets(comm, best_c, best_gain,
+                                            nv_total, comm_size=comm_size[s])
+        targets.append(target)
         counter0s.append(counter0)
         moved.append(move.sum())
     if sparse:

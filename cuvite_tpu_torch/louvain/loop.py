@@ -3,8 +3,9 @@
 ``cuvite_tpu/louvain/driver.py:292-397``).
 
 Torch has no device while-loop, so the loop reads the stop test's values
-on the host once per sweep: Q, the moved count (the convergence rows)
-and, under ET modes 3/4, the active count, in one fetch.
+on the host once per sweep: Q, the moved count (the convergence rows),
+on a mesh the sparse exchange's budget flag and, under ET modes 3/4, the
+active count, in one fetch.
 """
 
 from __future__ import annotations
@@ -21,6 +22,13 @@ from cuvite_tpu_torch.core.types import (
 from cuvite_tpu_torch.obs.convergence import decode_phase_conv
 
 
+class BudgetOverflow(Exception):
+    """A mesh sweep overflowed the sparse exchange's per-peer budget: the
+    phase is invalid, and the caller re-runs it with a larger budget (the
+    reference reads the flag once, at the phase's end, with the same
+    outcome)."""
+
+
 def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
                et_mode: int = 0, et_delta: float = 0.25,
                real_mask: torch.Tensor | None = None,
@@ -32,14 +40,17 @@ def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
 
     ``sweep(comm, active)`` returns (target [nv] int32, Q of ``comm`` as a
     0-dim f64 tensor); ``active`` is the ET mask of movable vertices, None
-    without ET.  Early termination (reference ``_run_phase_loop_et``,
-    ``driver.py:332-397``): targets are masked by ``active``; from the
-    third sweep on, and only when the loop goes on, modes 1/3 freeze a
-    vertex whose target, assignment and previous assignment agree, modes
-    2/4 decay its probability by (1 - et_delta) whenever its assignment
-    did not change and freeze it at P_CUTOFF; modes 3/4 stop the phase
-    once ET_CUTOFF of the ``real_mask`` vertices are frozen, tested before
-    the threshold.  ``active0``: the movable vertices of the first sweep
+    without ET.  On a mesh (plain schedule only) the state is the list of
+    the shards' assignments and ``sweep`` returns (targets, Q, the moved
+    count, the budget-overflow flag), 0-dim on one device; a sweep that
+    overflows raises :class:`BudgetOverflow`.  Early termination
+    (reference ``_run_phase_loop_et``, ``driver.py:332-397``): targets
+    are masked by ``active``; from the third sweep on, and only when the
+    loop goes on, modes 1/3 freeze a vertex whose target, assignment and
+    previous assignment agree, modes 2/4 decay its probability by
+    (1 - et_delta) whenever its assignment did not change and freeze it
+    at P_CUTOFF; modes 3/4 stop the phase once ET_CUTOFF of the
+    ``real_mask`` vertices are frozen, tested before the threshold.  ``active0``: the movable vertices of the first sweep
     (default ``real_mask``), the caller's active set of a warm start
     (``driver.warm_start_phase``).  ``host_et``: make those float
     decisions as the reference's host loop (the class schedules) does,
@@ -67,18 +78,25 @@ def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
                                device=comm0.device)
     p_cut = float(np.float32(P_CUTOFF))
     while True:
-        target, mod = sweep(comm, active)
+        out = sweep(comm, active)
+        target, mod = out[0], out[1]
         if active is not None:
             target = torch.where(active, target, comm)
         iters += 1
-        vals = [mod, (target != comm).sum().double()]
+        on_mesh = len(out) > 2
+        if on_mesh:
+            vals = [mod, out[2].double(), out[3].double()]
+        else:
+            vals = [mod, (target != comm).sum().double()]
         if et_stop:
             vals.append(active.sum().double())
         read = torch.stack(vals).tolist()   # the one host read per sweep
+        if on_mesh and read[2]:
+            raise BudgetOverflow(f"sweep {iters} overflowed the budget")
         q = read[0]
         frozen_stop = False
         if et_stop:
-            frozen = nv_real - int(read[2])
+            frozen = nv_real - int(read[-1])
             frozen_stop = ((frozen if host_et else float(np.float32(frozen)))
                            >= cutoff)
         stop = frozen_stop or (q - prev_mod) < threshold
@@ -100,42 +118,3 @@ def phase_loop(sweep, comm0: torch.Tensor, threshold: float, *,
             break
     return past, prev_mod, iters, decode_phase_conv(-1, iters, qs,
                                                     moved_rows)
-
-
-def sharded_phase_loop(sweep, comm0s: list, threshold: float) -> tuple:
-    """:func:`phase_loop` of a vertex mesh, plain schedule: the state is a
-    list of per-shard assignments, and ``sweep(comms)`` returns a result
-    with ``targets`` (per shard), ``modularity`` and ``n_moved`` (0-dim,
-    shard 0's device) and ``overflow`` (the sparse exchange's budget
-    flag), read on the host together once a sweep.  A sweep that
-    overflows invalidates the phase: the loop stops there and says so,
-    and the caller re-runs the phase with a larger budget (the reference
-    reads the flag once, at the phase's end, with the same outcome).
-
-    Returns (past, Q of past, sweeps, PhaseConvergence, overflowed)."""
-    lower = -1.0
-    past = comm = comm0s
-    prev_mod = lower
-    iters = 0
-    qs, moved_rows = [], []
-    while True:
-        res = sweep(comm)
-        iters += 1
-        q, moved, ovf = torch.stack(
-            [res.modularity.double(), res.n_moved.double(),
-             res.overflow.double()]).tolist()
-        if ovf:
-            return past, prev_mod, iters, decode_phase_conv(
-                -1, iters, qs, moved_rows), True
-        stop = (q - prev_mod) < threshold
-        if len(qs) < CONV_ROWS_CAP:
-            qs.append(q)
-            moved_rows.append(0 if stop else int(moved))
-        if stop:
-            break
-        prev_mod = max(q, lower)
-        past, comm = comm, res.targets
-        if iters >= MAX_TOTAL_ITERATIONS:
-            break
-    return past, prev_mod, iters, decode_phase_conv(-1, iters, qs,
-                                                    moved_rows), False

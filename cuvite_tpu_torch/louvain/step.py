@@ -33,8 +33,8 @@ reference's ``louvain_step_local`` with an axis and ``make_sharded_step``
 (``step.py:46-163``) under the replicated exchange -- each shard sweeps
 its own slab (local src, padded-global dst) against the all-gathered
 community vector and the psum'd community degree and size tables, and Q
-and the moved count are psum'd.  Per shard the arithmetic is
-:func:`louvain_step_local`'s.
+and the moved count are psum'd.  Both run one shard's arithmetic,
+``_sweep``.
 """
 
 from __future__ import annotations
@@ -68,30 +68,46 @@ def louvain_step_local(src: torch.Tensor, dst: torch.Tensor,
     n_moved are [B], [1] for one graph."""
     nv = comm.shape[0]
     consts = TenantConstants.of(constant, comm.device)
-    n_t = consts.c64.numel()
-    shift = tenant_shift(consts.c32, nv, "louvain_step_local")
     comm_l = comm.long()
-
     # Community size and degree, recomputed fresh.
     comm_deg64 = seg.segment_sum(vdeg.double(), comm_l, nv)
-    comm_deg = comm_deg64.float()
     # index_add_, not bincount: bincount reads its input's max on the host.
     comm_size = seg.segment_sum(torch.ones_like(comm_l), comm_l, nv)
+    target, counter0, move = _sweep(src, dst, w, comm, comm, vdeg,
+                                    comm_deg64.float(), comm_size, consts, 0)
+    return StepOut(
+        target=target,
+        modularity=seg.modularity_terms(counter0, comm_deg64, consts),
+        n_moved=move.view(consts.c64.numel(), -1).sum(1))
+
+
+def _sweep(src, dst, w, comm, comm_tab, vdeg, comm_deg, comm_size, consts,
+           base: int) -> tuple:
+    """The sweep's arithmetic over one slab: ``comm`` [nv] the slab's own
+    vertices' assignment, ``comm_tab``/``comm_deg``/``comm_size`` the
+    assignment, degrees and sizes of every vertex and community the tails
+    ``dst`` name (``comm`` itself on one device; on a mesh the gathered
+    vector and psum'd tables, tails padded-global and the slab's vertex v
+    at ``base + v``).  Returns (target, counter0, move)."""
+    nv = comm.shape[0]
+    nv_total = comm_deg.shape[0]
+    shift = tenant_shift(consts.c32, nv, "louvain_step_local")
+    comm_l = comm.long()
 
     # Per-edge community keys; padding rows gather vertex nv - 1.
     src_c = src.clamp(max=nv - 1).long()
     csrc = comm[src_c]
-    ckey = comm[dst.long()]
+    ckey = comm_tab[dst.long()]
     zero = torch.zeros((), dtype=w.dtype, device=w.device)
     counter0 = seg.segment_sum_drop(
         torch.where(ckey == csrc, w, zero).double(), src, nv).float()
     self_loop = seg.segment_sum_drop(
-        torch.where(dst == src, w, zero).double(), src, nv).float()
+        torch.where(dst == src + base, w, zero).double(), src, nv).float()
     eix = counter0 - self_loop
 
     # Neighbour-community aggregation: sort + run totals.
     src_s, ckey_s, w_s = seg.sort_edges_by_vertex_comm(
-        src, ckey, w, src_bound=nv + 1, key_bound=nv)
+        src, ckey, w, src_bound=nv + 1, key_bound=nv_total)
     starts = seg.run_starts(src_s, ckey_s)
     eiy, _ = seg.run_totals(w_s, starts)
 
@@ -114,16 +130,12 @@ def louvain_step_local(src: torch.Tensor, dst: torch.Tensor,
     best_c = seg.segment_min(cand_c, src_s, nv + 1)[:nv]
 
     move = best_gain > 0.0
-    best_c_safe = best_c.clamp(max=nv - 1)
+    best_c_safe = best_c.clamp(max=nv_total - 1)
     # Singleton guard (louvain.cpp:2240-2241).
     guard = ((comm_size[best_c_safe.long()] == 1) & (comm_size[comm_l] == 1)
              & (best_c_safe > comm))
     move &= ~guard
-    target = torch.where(move, best_c_safe, comm)
-    return StepOut(
-        target=target,
-        modularity=seg.modularity_terms(counter0, comm_deg64, consts),
-        n_moved=move.view(n_t, -1).sum(1))
+    return torch.where(move, best_c_safe, comm), counter0, move
 
 
 class ShardedStepOut(NamedTuple):
@@ -142,7 +154,6 @@ def sharded_step(mesh, srcs: list, dsts: list, ws: list, comms: list,
     1/(2m)."""
     nv = comms[0].shape[0]
     nv_total = mesh.size * nv
-    c32 = float(torch.tensor(constant, dtype=torch.float32))
     comm_full = all_gather(comms, mesh)
     deg_parts, size_parts = [], []
     for comm, vdeg in zip(comms, vdegs):
@@ -154,42 +165,12 @@ def sharded_step(mesh, srcs: list, dsts: list, ws: list, comms: list,
     comm_size = psum(size_parts, mesh)
     targets, le, moved = [], [], []
     for s in range(mesh.size):
-        src, dst, w, comm, vdeg = srcs[s], dsts[s], ws[s], comms[s], vdegs[s]
-        comm_deg = comm_deg64[s].float()
-        size = comm_size[s]
-        comm_l = comm.long()
-        src_c = src.clamp(max=nv - 1).long()
-        csrc = comm[src_c]
-        ckey = comm_full[s][dst.long()]
-        zero = torch.zeros((), dtype=w.dtype, device=w.device)
-        counter0 = seg.segment_sum_drop(
-            torch.where(ckey == csrc, w, zero).double(), src, nv).float()
-        self_loop = seg.segment_sum_drop(
-            torch.where(dst == src + s * nv, w, zero).double(), src,
-            nv).float()
-        eix = counter0 - self_loop
-        src_s, ckey_s, w_s = seg.sort_edges_by_vertex_comm(
-            src, ckey, w, src_bound=nv + 1, key_bound=nv_total)
-        starts = seg.run_starts(src_s, ckey_s)
-        eiy, _ = seg.run_totals(w_s, starts)
-        i_s = src_s.clamp(max=nv - 1).long()
-        comm_i = comm[i_s]
-        valid = starts & (src_s < nv) & (ckey_s != comm_i)
-        k_i = vdeg[i_s]
-        a_y = comm_deg[ckey_s.long()]
-        a_x = comm_deg[comm_i.long()] - k_i
-        gain = 2.0 * (eiy - eix[i_s]) - 2.0 * k_i * (a_y - a_x) * c32
-        gain = torch.where(valid, gain, float("-inf"))
-        best_gain = seg.segment_max(gain, src_s, nv + 1)[:nv]
-        is_best = valid & (gain == best_gain[i_s])
-        best_c = seg.segment_min(torch.where(is_best, ckey_s, SENTINEL),
-                                 src_s, nv + 1)[:nv]
-        move = best_gain > 0.0
-        best_c_safe = best_c.clamp(max=nv_total - 1)
-        guard = ((size[best_c_safe.long()] == 1) & (size[comm_l] == 1)
-                 & (best_c_safe > comm))
-        move &= ~guard
-        targets.append(torch.where(move, best_c_safe, comm))
+        comm = comms[s]
+        target, counter0, move = _sweep(
+            srcs[s], dsts[s], ws[s], comm, comm_full[s], vdegs[s],
+            comm_deg64[s].float(), comm_size[s],
+            TenantConstants.of(constant, comm.device), s * nv)
+        targets.append(target)
         le.append(counter0.double().sum())
         moved.append(move.sum())
     le_tot = psum(le, mesh)[0]

@@ -415,6 +415,72 @@ def test_mesh_on_one_card_matches_cpu(cuda_device, exchange):
     assert (row_argmax_sized.launches > n) == (exchange == "sparse")
 
 
+@pytest.fixture
+def cards():
+    """Every visible card; skips with fewer than two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card(cards):
+    """With card 0 current, every wrapper launches on the card its tensors
+    are on (the last one) and agrees with its twin there: the row kernel
+    in both forms, the heavy kernel and seg_coalesce."""
+    dev = cards[-1]
+    torch.cuda.set_device(cards[0])
+    cmat, wmat, curr, vdeg, sl, comm_deg, _ = bucket_case(512, 384, 700, 7)
+    got, ref = _rows_on_card(cmat, wmat, curr, vdeg, sl, comm_deg, 0.3, None,
+                             dev)
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g)
+    arrs, c = sized_case(256, 2048, 11)
+    t = [torch.from_numpy(a) for a in arrs[:9]]
+    ref = row_argmax_sized_plain(*t, float(c))
+    got = row_argmax_sized(*[a.to(dev) for a in t], float(c))
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g.cpu())
+    cmat, wmat, curr, vdeg, sl, comm_deg, _ = bucket_case(8, 12000, 3000, 4)
+    lay = layout_from_dense(cmat, wmat, 3000)
+    _, comm, vd, slt = vertex_tables(curr, vdeg, sl, 3000)
+    cd = torch.from_numpy(comm_deg)
+    ref = heavy_argmax_plain(lay, comm, cd, vd, slt, 0.3)
+    got = heavy_argmax(lay.to(dev), comm.to(dev), cd.to(dev), vd.to(dev),
+                       slt.to(dev), 0.3)
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g.cpu())
+    slab = [torch.from_numpy(a)[None] for a in
+            coalesce_case(1024, 16384, 1024, gapped=True, weights="dyadic")]
+    coalesce_on_card(dev, slab, nv_pad=1024, grid=1024)
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["replicated", "sparse"])
+def test_mesh_across_cards_matches_one_card(cards, exchange):
+    """One shard per card (``make_mesh(n)``, up to four cards) against the
+    same shards all on card 0 and against one shard: identical labels and
+    sweeps."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    n = min(len(cards), 4)
+    g = generate_rmat(12)
+    mesh = make_mesh(n)
+    assert list(mesh.devices) == cards[:n]
+    rm = louvain_phases(g, mesh=mesh, exchange=exchange)
+    r0 = louvain_phases(g, mesh=make_mesh(devices=[cards[0]] * n),
+                        exchange=exchange)
+    r1 = louvain_phases(g, device=cards[0])
+    for r in (r0, r1):
+        assert np.array_equal(rm.communities, r.communities)
+        assert [p.iterations for p in rm.phases] == \
+            [p.iterations for p in r.phases]
+        assert abs(rm.modularity - r.modularity) <= 1e-9
+
+
 @pytest.mark.cuda
 def test_louvain_on_card_matches_cpu(cuda_device):
     from cuvite_tpu_torch import louvain_phases
