@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--scale 20] [--check-scale 14]
                           [--rgg-nv 4194304] [--rgg-check-nv 65536]
                           [--fused-check-scale 12] [--fused-shrink 4096]
-                          [--schedule-scale 20]
+                          [--schedule-scale 20] [--native-rmat-scale 18]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -12,7 +12,9 @@ non-zero (printing no result) on any mismatch, on a machine without CUDA,
 or without the cuvite_tpu_torch package beside it.  Phases:
 
 1. card: the card's name and power limit; build the CUDA kernels (one
-   nvcc per source, in parallel) and print the build seconds;
+   nvcc per source, in parallel) and the native host runtime (g++) and
+   print both build seconds, the library's OpenMP threads and
+   os.cpu_count();
 2. the row-argmax kernel against its plain twin at every DEFAULT_BUCKETS
    width (8 ... 8192): integer and dyadic weights, zero-weight and padding
    slots, ties, all-padding and no-candidate rows, each with and without
@@ -26,10 +28,13 @@ or without the cuvite_tpu_torch package beside it.  Phases:
 4. louvain_phases on R-MAT --check-scale on the card and on the CPU (the
    twins): identical labels, phases and iterations, Q to 1e-9;
 5. the main path: louvain_phases on R-MAT --scale on the card, with the
-   kernels' launch counts set to 0 just before and read just after; per
-   phase nv, ne, iterations, Q and seconds; fails if a kernel never
-   launched or the reported Q is more than 1e-6 from the host f64
-   modularity of the returned labels;
+   kernels' launch counts set to 0 just before and read just after (the
+   native host runtime's call counts set to 0 before the graph's
+   generation); per phase nv, ne, iterations, Q and seconds, and the
+   plan and coarsen seconds over the phases; fails if a kernel never
+   launched, if build_csr_unit, plan_scan, bucket_fill or coarsen_csr
+   was never called, or if the reported Q is more than 1e-6 from the
+   host f64 modularity of the returned labels;
 6. the row and heavy kernels timed with CUDA events at the phase-0 shapes
    of that graph (the row kernel also width by width), at the identity
    assignment and at the converged phase-0 assignment, beside their twins
@@ -142,8 +147,10 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    `stats` reply (fails if the row kernel or seg_coalesce never ran).
 22. the bench on the card through its command line, in subprocesses
    (``python -m cuvite_tpu_torch.workloads bench``): R-MAT --scale with 2
-   timed runs (Q, phases and iterations equal to phase 5's, and the first
-   timed run's launches, counted in the child, equal to phase 5's), B=64
+   timed runs (Q, phases and iterations equal to phase 5's, the first
+   timed run's launches, counted in the child, equal to phase 5's, and
+   its native plan and coarsen calls made with the guard held: no build,
+   library load or first kernel-form launch inside it), B=64
    with phase 17's 64 synth 4096 jobs on both batched engines (a timed
    pass's launches equal to phase 17's), and the serving bench at 200
    jobs/s (jobs conserved);
@@ -210,6 +217,13 @@ or without the cuvite_tpu_torch package beside it.  Phases:
 31. a per-peer budget of 1 on R-MAT --check-scale, 4 shards on the
    card: the runner's sweeps overflow, the driver re-runs the
    phase with a grown budget, and the labels equal one shard's.
+32. the native host runtime against its numpy paths on this host,
+   bit-equal, each with both times: R-MAT --native-rmat-scale
+   generation; at the R-MAT --scale shapes from_edges (the unit builder),
+   weighted degrees, edge-balanced parts, the phase-0 plan (plan_scan +
+   bucket_fill) and one coarsening onto phase 5's final communities; at
+   the R-MAT --native-rmat-scale shapes the generic and w32 weighted
+   builders and a 32-bit Vite write, header and read.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -2460,6 +2474,12 @@ def run_bench_phase(card: tuple, scale: int, main_res, paths: dict) -> dict:
     if run1 != main_launches:
         fail(f"{what}: timed run 1 launched {run1}, phase 5 "
              f"{main_launches}")
+    calls = stderr_json(what, err, "# native calls run 1: ")
+    if not all(calls[k] for k in ("plan_scan", "bucket_fill",
+                                  "coarsen_csr")):
+        fail(f"{what}: timed run 1 made the native calls {calls}")
+    print(f"  {what}: timed run 1's native calls {calls}, under the "
+          "guard")
     print(f"  {what}: Q, phases and iterations {got} as phase 5; "
           f"timed run 1 launched {run1}, as phase 5; ledger peaks "
           f"{rec['hbm_peak_by_buffer']}")
@@ -3301,6 +3321,143 @@ def check_budget_retry(scale: int, nshards: int) -> dict:
     return {f"mesh budget-1 retry R-MAT {scale}": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the native host runtime against its numpy paths.
+
+
+def _np_same(a, b) -> bool:
+    """Equal dtypes, shapes and bits."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def _timed(fn) -> tuple:
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _graphs_equal(a, b) -> bool:
+    return all(_np_same(getattr(a, n), getattr(b, n))
+               for n in ("offsets", "tails", "weights"))
+
+
+def _plans_equal(a, b) -> bool:
+    if len(a.buckets) != len(b.buckets) or a.has_heavy != b.has_heavy:
+        return False
+    for x, y in zip(a.buckets, b.buckets):
+        if x.width != y.width or not all(
+                _np_same(getattr(x, f), getattr(y, f))
+                for f in ("verts", "dst", "w")):
+            return False
+    return all(_np_same(getattr(a, f), getattr(b, f))
+               for f in ("heavy_src", "heavy_dst", "heavy_w", "self_loop",
+                         "deg"))
+
+
+def check_native(scale: int, rmat_scale: int, main_res) -> dict:
+    """Phase 32: each routine of the native host runtime on this host
+    against its numpy path (``CUVITE_NO_NATIVE=1``) on the same inputs,
+    bit-equal, with both times; the call counts prove which path ran."""
+    from cuvite_tpu_torch import native
+    from cuvite_tpu_torch.coarsen.rebuild import (
+        coarsen_graph,
+        renumber_communities,
+    )
+    from cuvite_tpu_torch.core.distgraph import DistGraph, balanced_parts
+    from cuvite_tpu_torch.core.graph import Graph
+    from cuvite_tpu_torch.io.generate import rmat_edges_numpy
+    from cuvite_tpu_torch.io.vite import read_vite, write_vite
+    from cuvite_tpu_torch.louvain.bucketed import BucketPlan
+
+    rows = {}
+
+    def both(name, routines, fn, same=None):
+        native.zero_call_counts()
+        got, nat_s = _timed(fn)
+        calls = native.call_counts()
+        if not all(calls[r] for r in routines):
+            fail(f"native {name}: {routines} not called ({calls})")
+        os.environ["CUVITE_NO_NATIVE"] = "1"
+        try:
+            want, np_s = _timed(fn)
+        finally:
+            del os.environ["CUVITE_NO_NATIVE"]
+        if native.call_counts() != calls:
+            fail(f"native {name}: called with CUVITE_NO_NATIVE=1")
+        if not (same or _graphs_equal)(got, want):
+            fail(f"native {name}: differs from its numpy path")
+        rows[name] = {"native_s": nat_s, "numpy_s": np_s}
+        print(f"  {name}: native {nat_s:.3f} s, numpy {np_s:.3f} s "
+              f"({np_s / max(nat_s, 1e-9):.2f}x), bit-equal")
+        return got
+
+    ne = 16 << rmat_scale
+
+    def rmat():
+        if native.available():
+            return native.rmat_edges(rmat_scale, ne, 1, 0.57, 0.19, 0.19)
+        return rmat_edges_numpy(rmat_scale, ne, 1, 0.57, 0.19, 0.19)
+
+    src, dst = both(f"R-MAT {rmat_scale} edges ({ne})", ["rmat_edges"],
+                    rmat, lambda a, b: all(map(_np_same, a, b)))
+
+    nv = 1 << scale
+    s20, d20 = native.rmat_edges(scale, 16 << scale, 1, 0.57, 0.19, 0.19)
+    keep = s20 != d20
+    s20, d20 = s20[keep].astype(np.int32), d20[keep].astype(np.int32)
+    g = both(f"from_edges R-MAT {scale} ({len(s20)} edges, unit)",
+             ["build_csr_unit"], lambda: Graph.from_edges(nv, s20, d20))
+    del s20, d20, keep
+    both(f"weighted_degrees R-MAT {scale}", ["weighted_degrees"],
+         g.weighted_degrees, _np_same)
+    both(f"balanced_parts R-MAT {scale}, 4 parts", ["balanced_parts"],
+         lambda: (native.balanced_parts(g.offsets, 4)
+                  if native.available() else balanced_parts(g, 4)),
+         _np_same)
+    dg = DistGraph.build(g)
+    both(f"phase-0 plan R-MAT {scale}", ["plan_scan", "bucket_fill"],
+         lambda: BucketPlan.build(dg.src, dg.dst, dg.w, nv_local=dg.nv_pad),
+         _plans_equal)
+    del dg
+    dense, nc = renumber_communities(main_res.communities)
+    both(f"coarsen R-MAT {scale} onto phase 5's {nc} communities",
+         ["coarsen_csr"], lambda: coarsen_graph(g, dense, nc))
+    del g
+
+    n = 1 << rmat_scale
+    w = np.random.default_rng(1).integers(1, 64, size=len(src)) / 16.0
+    both(f"from_edges R-MAT {rmat_scale} weighted (generic builder)",
+         ["build_csr"], lambda: Graph.from_edges(n, src, dst, weights=w))
+    g18 = both(f"build_csr_w R-MAT {rmat_scale} weighted",
+               ["build_csr_w"],
+               lambda: Graph.from_arrays(*native.build_csr_w(n, src, dst, w))
+               if native.available() else
+               Graph.from_edges(n, src, dst, weights=w))
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    paths = [os.path.join(work, f"native-{k}.vite") for k in ("a", "b")]
+
+    def write():
+        path = paths[0] if native.available() else paths[1]
+        write_vite(path, g18, bits64=False)
+        with open(path, "rb") as f:
+            return f.read()
+
+    both(f"write_vite R-MAT {rmat_scale} (32-bit)", ["vite_write"], write,
+         lambda a, b: a == b)
+    both(f"read_vite R-MAT {rmat_scale} (32-bit)", ["vite_edges"],
+         lambda: read_vite(paths[0], bits64=False))
+    if native.vite_header(paths[0], False) != (n, g18.num_edges):
+        fail("native vite_header differs from the graph's nv, ne")
+    for p in paths:
+        os.unlink(p)
+    print("  vite_header: (nv, ne) of the file written")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -3318,6 +3475,9 @@ def main() -> int:
                     help="FUSED_SHRINK_EDGES of the fused card-vs-CPU runs")
     ap.add_argument("--schedule-scale", type=int, default=20,
                     help="R-MAT scale of the ET and coloring runs")
+    ap.add_argument("--native-rmat-scale", type=int, default=18,
+                    help="R-MAT scale of phase 32's generation and "
+                         "weighted-builder and Vite checks")
     args = ap.parse_args()
 
     # The run uses one card: show torch only that one, so the device count
@@ -3342,7 +3502,13 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build_s = _build.build()
-    print(f"  kernels built in {build_s:.2f} s")
+    print(f"  kernels built with nvcc in {build_s:.2f} s")
+    from cuvite_tpu_torch import native
+
+    gxx_s = native.build()
+    print(f"  native host runtime built with g++ in {gxx_s:.2f} s; "
+          f"cv_openmp_threads {native.openmp_threads()}, os.cpu_count() "
+          f"{os.cpu_count()}")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line:
@@ -3358,12 +3524,19 @@ def main() -> int:
     check_card_vs_cpu(args.check_scale)
 
     print(f"[5] main path: louvain_phases on R-MAT {args.scale}")
+    native.zero_call_counts()
     t0 = time.perf_counter()
     g = generate_rmat(args.scale)
     print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
           f"edges, max degree {int(g.degrees().max())} in "
           f"{time.perf_counter() - t0:.2f} s")
     launches, sweeps, bucketed_s, main_res = run_main_path(g, args.scale)
+    calls = native.call_counts()
+    print(f"  native calls, generation included: {calls}")
+    for name in ("build_csr_unit", "plan_scan", "bucket_fill",
+                 "coarsen_csr"):
+        if calls[name] == 0:
+            fail(f"native {name} never called on the main path")
 
     print(f"[6] kernels at the R-MAT {args.scale} phase-0 shapes")
     kernels = time_kernels(g, launches, sweeps)
@@ -3627,6 +3800,11 @@ def main() -> int:
         "real_rows": sized["real_rows"], "real_slots": sized["real_slots"],
         "launches_per_sweep": sized["launches_per_sweep"],
         "library_ms": None})
+
+    print(f"[32] the native host runtime against its numpy paths")
+    t32 = time.perf_counter()
+    check_native(args.scale, args.native_rmat_scale, main_res)
+    print(f"  phase 32 took {time.perf_counter() - t32:.1f} s")
 
     kernels[0]["batched"] = batched_rows
     kernels[1]["batched"] = batched_heavy

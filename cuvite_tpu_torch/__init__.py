@@ -4,7 +4,9 @@ ported to PyTorch with hand-written CUDA kernels for one NVIDIA H100.
 It runs ``louvain_phases`` single-GPU end to end on three engines.  The
 default ``bucketed`` engine sweeps degree-bucketed plans on the row-argmax
 and heavy-bincount kernels (``kernels/csrc``), with host plans and host
-coarsening between phases.  The ``sort`` engine keeps the edge slab on the
+coarsening between phases; the host stages and the ingest under them run
+in the native host runtime (``native/``, C++ that g++ builds at first
+use; ``CUVITE_NO_NATIVE=1`` runs their numpy versions).  The ``sort`` engine keeps the edge slab on the
 card, sweeps it with a packed-key sort, and coarsens it there, on the
 ``seg_coalesce`` kernel once a phase's class is at most 4096 vertices.  The
 ``fused`` engine uploads the slab once, runs relabel-only phases on it,
@@ -34,8 +36,8 @@ sparse one runs the row kernel's size form.  Not ported yet: the
 two-level exchange, multi-process meshes, the color and ET schedules on
 a mesh, and the concurrency checker's scheduler.
 
-The package imports torch and numpy only; it never imports JAX or
-``cuvite_tpu``.
+The package imports torch, numpy and scipy only; it never imports JAX
+or ``cuvite_tpu``.
 """
 
 from cuvite_tpu_torch.core.graph import Graph

@@ -2,8 +2,11 @@
 
 ``offsets[nv+1]``, ``tails[ne]``, ``weights[ne]`` numpy arrays.  Graphs are
 undirected and stored with both directions present (the Vite binary format
-stores each undirected edge twice), so ``sum(weights) == 2m``.  The port
-builds CSRs with numpy only; it has no C++ host library.
+stores each undirected edge twice), so ``sum(weights) == 2m``.  Above
+``native.MIN_NATIVE_EDGES`` edges the CSR builders and the weighted
+degrees run in the native host runtime (``cuvite_tpu_torch/native``),
+under the reference's conditions; the numpy code below is their plain
+version, equal bit for bit.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import dataclasses
 
 import numpy as np
 
+from cuvite_tpu_torch import native
 from cuvite_tpu_torch.core.types import Policy, default_policy
 
 
@@ -47,6 +51,9 @@ class Graph:
     def weighted_degrees(self) -> np.ndarray:
         """Per-vertex sum of incident edge weights, self-loops included,
         accumulated in f64 in slab order and cast once."""
+        if self.num_edges >= native.MIN_NATIVE_EDGES and native.available():
+            return native.weighted_degrees(
+                self.offsets, self.weights).astype(self.policy.weight_dtype)
         return np.bincount(
             self.sources(), weights=self.weights.astype(np.float64),
             minlength=self.num_vertices,
@@ -94,12 +101,43 @@ class Graph:
         to the policy dtype once.
         """
         policy = policy or default_policy()
+        big = len(src) >= native.MIN_NATIVE_EDGES and native.available()
+        f32 = policy.weight_dtype == np.float32
+        # Unit weights: the native builder counts duplicates with int32
+        # ids and no f64 array; the counts are exact integers rounded
+        # once, so this needs the f32 policy (a f64 one keeps the f64 sum).
+        if big and weights is None and f32 and num_vertices <= 1 << 31:
+            offsets, tails, wcnt = native.build_csr_unit(
+                num_vertices, src, dst, symmetrize)
+            return Graph(offsets=offsets,
+                         tails=tails.astype(policy.vertex_dtype, copy=False),
+                         weights=wcnt, policy=policy)
+        # Weighted, large nv: the sort carries an int32 edge index instead
+        # of the f64 weights (~24 B a slot against 32).  Small nv keeps
+        # the generic builder, whose dense counting path wins there.
+        if (big and weights is not None and f32
+                and (1 << 22) < num_vertices <= (1 << 31)
+                and (2 * len(src) if symmetrize else len(src)) < (1 << 31)):
+            offsets, tails, w32 = native.build_csr_w(
+                num_vertices, src, dst, weights, symmetrize)
+            return Graph(offsets=offsets,
+                         tails=tails.astype(policy.vertex_dtype, copy=False),
+                         weights=w32, policy=policy)
         src = np.asarray(src, dtype=np.int64)
         dst = np.asarray(dst, dtype=np.int64)
         if weights is None:
             w = np.ones(len(src), dtype=np.float64)
         else:
             w = np.asarray(weights, dtype=np.float64)
+        # The generic builder's radix key src * nv + dst fits uint64 only
+        # while nv <= 2^32.
+        if big and num_vertices <= 1 << 32:
+            offsets, tails, wsum = native.build_csr(
+                num_vertices, src, dst, w, symmetrize)
+            return Graph(offsets=offsets,
+                         tails=tails.astype(policy.vertex_dtype),
+                         weights=wsum.astype(policy.weight_dtype),
+                         policy=policy)
         if symmetrize:
             keep = src != dst
             src2 = np.concatenate([src, dst[keep]])

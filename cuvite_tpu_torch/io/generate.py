@@ -12,7 +12,9 @@
   bit-identical.
 - ``generate_rmat`` (port of ``:180-234``): Graph500-style R-MAT (a=0.57,
   b=0.19, c=0.19) with a counter-based SplitMix64 RNG, bit-identical to
-  the reference package's for every (scale, edge_factor, seed).
+  the reference package's for every (scale, edge_factor, seed).  The edge
+  list comes from the native host runtime (``native.rmat_edges``) unless
+  ``CUVITE_NO_NATIVE`` is set; ``rmat_edges_numpy`` is its plain version.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.spatial import cKDTree
 
+from cuvite_tpu_torch import native
 from cuvite_tpu_torch.core.graph import Graph
 from cuvite_tpu_torch.core.types import Policy, default_policy
 from cuvite_tpu_torch.utils.rng import lcg_stream, \
@@ -173,6 +176,17 @@ def generate_rmat(
     policy = policy or default_policy()
     nv = 1 << scale
     ne = edge_factor << scale
-    src, dst = rmat_edges_numpy(scale, ne, seed, a, b, c)
+    if native.available():
+        src, dst = native.rmat_edges(scale, ne, seed, a, b, c)
+    else:
+        src, dst = rmat_edges_numpy(scale, ne, seed, a, b, c)
     keep = src != dst
+    if scale < 31:
+        # int32 ids for the unit-weight CSR builder; the int64 generator
+        # output is freed before the ingest.
+        s32 = src[keep].astype(np.int32)
+        del src
+        d32 = dst[keep].astype(np.int32)
+        del dst, keep
+        return Graph.from_edges(nv, s32, d32, policy=policy)
     return Graph.from_edges(nv, src[keep], dst[keep], policy=policy)

@@ -8,6 +8,10 @@ On-disk layout (reference distgraph.cpp:99-197):
 
 GraphElem/GraphWeight are int64/double by default, or int32/float with
 ``bits64=False`` (the reference's ``USE_32_BIT_GRAPH`` build).
+
+From ``native.MIN_NATIVE_EDGES`` edges on, the edge records are read and
+written by the native host runtime (one sequential read or write and a
+parallel (de)interleave); the numpy memmap code is its plain version.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import os
 
 import numpy as np
 
+from cuvite_tpu_torch import native
 from cuvite_tpu_torch.core.graph import Graph
 from cuvite_tpu_torch.core.types import Policy, default_policy, wide_policy
 
@@ -58,6 +63,12 @@ def read_vite(path: str, bits64: bool = True,
             f"{path}: non-monotone CSR offsets — wrong bits64={bits64} flag "
             f"or corrupt file"
         )
+    if e1 - e0 >= native.MIN_NATIVE_EDGES and native.available():
+        tails, weights = native.vite_edges(path, bits64, nv, e0, e1)
+        return Graph(offsets=offsets - e0,
+                     tails=tails.astype(policy.vertex_dtype),
+                     weights=weights.astype(policy.weight_dtype),
+                     policy=policy)
     edges_offset = 2 * elem.itemsize + (nv + 1) * elem.itemsize
     edges = (np.memmap(path, dtype=edge, mode="r",
                        offset=edges_offset + e0 * edge.itemsize,
@@ -74,6 +85,11 @@ def read_vite(path: str, bits64: bool = True,
 def write_vite(path: str, graph: Graph, bits64: bool = True) -> None:
     """Write a graph in the Vite binary format (reference
     distgraph.cpp:936-1014)."""
+    if graph.num_edges >= native.MIN_NATIVE_EDGES and native.available():
+        native.vite_write(path, bits64, graph.offsets,
+                          graph.tails.astype(np.int64),
+                          graph.weights.astype(np.float64))
+        return
     elem = _elem_dtype(bits64)
     rec = np.empty(graph.num_edges, dtype=_edge_dtype(bits64))
     rec["tail"] = graph.tails

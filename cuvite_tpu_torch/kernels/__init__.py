@@ -4,8 +4,12 @@ Each wrapper counts the launches of its kernel in its ``launches``
 attribute (a launch on a CUDA tensor, never a twin call);
 :func:`launch_counts` reads the counts (the row kernel's size form,
 ``row_argmax_sized``, has its own) and
-:func:`zero_launch_counts` resets them.
+:func:`zero_launch_counts` resets them.  :func:`form_counts` reads the
+launches of each kernel form in the process (``_build.note_form``), and
+:func:`new_forms` compares two readings.
 """
+
+from cuvite_tpu_torch.kernels import _build
 
 
 def _wrappers() -> dict:
@@ -29,3 +33,15 @@ def launch_counts() -> dict:
 def zero_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def form_counts() -> dict:
+    """Launches of each kernel form ``(kernel, body, card)`` since the
+    process started (never zeroed: CUDA loads a body once a process)."""
+    return dict(_build.FORMS)
+
+
+def new_forms(before: dict, after: dict) -> list:
+    """The forms that ``after`` counts and ``before`` never launched,
+    sorted: the bodies CUDA first loaded between the two readings."""
+    return sorted(k for k, n in after.items() if n and not before.get(k))

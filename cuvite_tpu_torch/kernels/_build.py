@@ -13,7 +13,16 @@ product and difference on its own, as the reference does.
 
 Subscribers in :data:`HOOKS` see every nvcc run and every first load of
 a library in the process (``obs/compile_watch.py`` turns them into the
-flight recorder's ``compile`` events and the bench's guard).
+flight recorder's ``compile`` events and the bench's guard).  The native
+host runtime (``cuvite_tpu_torch/native``) builds with g++ into the same
+directory and reports through the same hooks.
+
+CUDA loads each kernel body at its first launch (lazy module loading),
+which no hook sees.  So every wrapper records the form it launched --
+:func:`note_form`: the kernel, the ``__global__`` body or set of bodies
+that the launch runs, and the card -- and :data:`FORMS` counts each form's
+launches in the process; the bench guard refuses a timed window that
+launches a form for the first time.
 """
 
 from __future__ import annotations
@@ -47,11 +56,19 @@ BUILD_LOG: dict[str, str] = {}
 # "build" | "load"} for every nvcc run and every first library load.  They
 # are called under _LOCK, so they must not call back into this module.
 HOOKS: list = []
+# Launches of each kernel form in the process: {(kernel, body, card): n}.
+FORMS: dict = {}
 
 
 def _notify(module: str, dur_s: float, kind: str) -> None:
     for fn in list(HOOKS):
         fn({"module": module, "dur_s": dur_s, "kind": kind})
+
+
+def note_form(kernel: str, body: str, device) -> None:
+    """Count one launch of ``kernel``'s form ``body`` on ``device``."""
+    key = (kernel, body, str(device))
+    FORMS[key] = FORMS.get(key, 0) + 1
 
 
 def _nvcc() -> str:

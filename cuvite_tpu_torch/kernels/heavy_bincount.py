@@ -252,6 +252,7 @@ def heavy_argmax(lay: HeavyLayout, comm, comm_deg, vdeg, self_loop,
             best_c.data_ptr(), best_gain.data_ptr(), counter0.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "heavy_argmax")
+    _build.note_form("heavy_bincount", "passes", dev)
     heavy_argmax.launches += 1
     return best_c, best_gain, counter0
 

@@ -69,6 +69,15 @@ _SIGNATURE = {
 }
 
 
+def row_body(width: int) -> str:
+    """The kernel body a row class of ``width`` runs (``launch`` in
+    ``csrc/row_argmax.cu``): a lane group per row up to 32, a warp per
+    row up to ``kWarpMaxWidth`` = 256, a block per row above."""
+    if width in (8, 16, 32):
+        return f"narrow{width}"
+    return "warp" if width <= 256 else "block"
+
+
 def tenant_constants(constant, device) -> torch.Tensor:
     """The [B] float32 per-tenant constants as the kernels take them: a
     tensor as given, one graph's float as a batch of one (a fill on
@@ -208,6 +217,7 @@ def row_argmax(dst, w, verts, comm, comm_deg, vdeg, self_loop, constant,
             counter0.data_ptr(),
             torch.cuda.current_stream(dst.device).cuda_stream)
     _build.check(err, "row_argmax")
+    _build.note_form("row_argmax", row_body(width), dst.device)
     row_argmax.launches += 1
     return best_c, best_gain, counter0
 
@@ -344,6 +354,7 @@ def row_argmax_sized(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
             counter0.data_ptr(), best_size.data_ptr(),
             torch.cuda.current_stream(dst.device).cuda_stream)
     _build.check(err, "row_argmax_sized")
+    _build.note_form("row_argmax_sized", row_body(width), dst.device)
     row_argmax_sized.launches += 1
     return best_c, best_gain, counter0, best_size
 

@@ -120,7 +120,7 @@ def coalesce_engine(nv_pad: int) -> str:
         raise ValueError(f"CUVITE_SEG_COALESCE={mode!r}: the port has "
                          "'dense' (default) and 'sort'; the reference's "
                          "'msd' and 'hash' engines are not ported "
-                         "(ROADMAP.md)")
+                         "(ROADMAP.md A5)")
     return "dense" if nv_pad <= _max_nv() else "sort"
 
 
@@ -197,6 +197,13 @@ def seg_coalesce(src, dst, w, *, nv_pad: int, grid: int):
             n.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "seg_coalesce")
+    if b * ne:
+        # The dense dedup tier runs once the rows outnumber a warp
+        # table's cap (WCAP = 2048 up to grid WTABLE_MAX = 1024, else 32).
+        cap = 2048 if grid <= 1024 else 32
+        _build.note_form("seg_coalesce",
+                         "pipeline+dense" if b * ne > cap else "pipeline",
+                         dev)
     seg_coalesce.launches += 1
     return src_c, dst_c, w_c, n
 

@@ -46,7 +46,7 @@ What does not carry over, by design:
   has no trace to reuse.  ``bucket_shape`` is still accepted, and a batch
   that does not fit it is refused.
 - Sharding the batch axis over several devices (``make_batch_mesh``,
-  ``BATCH_AXIS``): multi-GPU work, ``ROADMAP.md`` item 14.  ``mesh=None``
+  ``BATCH_AXIS``): multi-GPU work, ``ROADMAP.md`` A7.4.  ``mesh=None``
   and ``mesh="auto"`` resolve to the one device; any other value raises.
 - The accumulator binning of ``accum_class_of``: the port sums in f64 for
   every graph, so every graph is one class (``"float64"``).  The serving
@@ -151,7 +151,7 @@ def _resolve_mesh(mesh) -> None:
         return
     raise ValueError(
         f"mesh={mesh!r}: sharding the batch axis over several devices is "
-        "not ported (ROADMAP.md queue A item 14, multi-GPU); pass "
+        "not ported (ROADMAP.md A7.4, multi-GPU); pass "
         "mesh=None or mesh='auto' for the one device")
 
 

@@ -66,6 +66,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cuvite_tpu_torch import native
 from cuvite_tpu_torch.comm.collectives import all_gather, psum
 from cuvite_tpu_torch.comm.exchange import sparse_env, sparse_modularity
 from cuvite_tpu_torch.kernels.heavy_bincount import (
@@ -116,8 +117,12 @@ class BucketPlan:
         in the space ``base`` + local id lives in: the single shard starts
         at 0, shard s of a mesh at s * nv_pad under the replicated
         exchange, and at 0 under the sparse one (extended-local tails).
-        The reference's numpy path with its default widths, array for
-        array."""
+        The reference's plan with its default widths, array for array:
+        the native streamed build (:func:`_build_native`) where it
+        applies, else the numpy path below, its plain version."""
+        plan = _build_native(src, dst, w, nv_local, base)
+        if plan is not None:
+            return plan
         real = src < nv_local
         s = src[real].astype(np.int64)
         d = dst[real].astype(np.int64)
@@ -194,6 +199,71 @@ class BucketPlan:
             has_heavy=has_heavy,
             deg=deg,
         )
+
+
+def _build_native(src, dst, w, nv_local: int, base: int):
+    """The plan from the native host runtime in two O(E) passes
+    (``native.plan_scan``, then ``native.bucket_fill`` into matrices
+    allocated here), with no transient larger than O(nv)
+    (``cuvite_tpu/louvain/bucketed.py:245-310``).  None, for the numpy
+    path, when the library is off, the slab is below
+    ``native.MIN_NATIVE_EDGES``, the dtypes are mixed or not contiguous,
+    or the slab is not CSR-sorted with its padding at the tail."""
+    if (not native.available() or len(src) < native.MIN_NATIVE_EDGES
+            or src.dtype != dst.dtype
+            or src.dtype not in (np.int32, np.int64)
+            or w.dtype not in (np.float32, np.float64)
+            or not (src.flags.c_contiguous and dst.flags.c_contiguous
+                    and w.flags.c_contiguous)):
+        return None
+    self_loop, sorted_, unit, tail_ok = native.plan_scan(
+        src, dst, w, nv_local, base)
+    if not (sorted_ and tail_ok):
+        return None
+    deg = np.bincount(src, minlength=nv_local + 1)[:nv_local]
+    widths = np.asarray(DEFAULT_BUCKETS, dtype=np.int64)
+    cls_idx = np.searchsorted(widths, deg, side="left")
+    heavy = deg > widths[-1]
+    in_bucket = (deg > 0) & ~heavy
+    counts = np.bincount(cls_idx[in_bucket], minlength=len(widths))
+    kept = np.nonzero(counts)[0]
+    # Class codes: the kept class's index, 254 heavy, 255 no row.
+    remap = np.full(len(widths) + 1, 255, dtype=np.uint8)
+    remap[kept] = np.arange(len(kept), dtype=np.uint8)
+    cls = np.full(nv_local, 255, dtype=np.uint8)
+    cls[in_bucket] = remap[cls_idx[in_bucket]]
+    cls[heavy] = 254
+    row_start = np.zeros(nv_local, dtype=np.int64)
+    np.cumsum(deg[:-1], out=row_start[1:])
+    nb_pad = np.array([1 << int(n - 1).bit_length() if n > 1 else 1
+                       for n in counts[kept]], dtype=np.int64)
+    widths_kept = widths[kept]
+    wm_dtype = np.uint8 if unit else w.dtype
+    verts = [np.full(n, nv_local, dtype=np.int64) for n in nb_pad]
+    dmats = [np.zeros((n, width), dtype=dst.dtype)
+             for n, width in zip(nb_pad, widths_kept)]
+    wmats = [np.zeros((n, width), dtype=wm_dtype)
+             for n, width in zip(nb_pad, widths_kept)]
+    n_h = int(deg[heavy].sum())
+    heavy_pad = max(int(2 ** np.ceil(np.log2(max(n_h, 1)))), 8)
+    heavy_src = np.full(heavy_pad, nv_local, dtype=src.dtype)
+    heavy_dst = np.zeros(heavy_pad, dtype=dst.dtype)
+    heavy_w = np.zeros(heavy_pad, dtype=w.dtype)
+    native.bucket_fill(dst, w, nv_local, base, row_start, deg, cls,
+                       widths_kept, nb_pad, verts, dmats, wmats, unit,
+                       heavy_pad, heavy_src, heavy_dst, heavy_w)
+    return BucketPlan(
+        nv_local=nv_local,
+        buckets=[Bucket(width=int(width), verts=v, dst=d, w=wm)
+                 for width, v, d, wm in zip(widths_kept, verts, dmats,
+                                            wmats)],
+        heavy_src=heavy_src,
+        heavy_dst=heavy_dst,
+        heavy_w=heavy_w,
+        self_loop=self_loop.astype(w.dtype),
+        has_heavy=n_h > 0,
+        deg=deg,
+    )
 
 
 def build_class_plans(src: np.ndarray, dst: np.ndarray, w: np.ndarray,

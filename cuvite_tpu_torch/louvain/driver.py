@@ -627,7 +627,7 @@ def louvain_phases(
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: the port has 'auto', "
                          "'bucketed', 'sort' and 'fused'; the reference's "
-                         "'pallas' engine is not ported (ROADMAP.md)")
+                         "'pallas' engine is not ported (ROADMAP.md A8)")
     if et_mode not in (0, 1, 2, 3, 4):
         raise ValueError(f"et_mode must be 0-4, got {et_mode!r}")
     if engine == "fused" and (et_mode or coloring or vertex_ordering

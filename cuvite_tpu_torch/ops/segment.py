@@ -236,7 +236,7 @@ def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
     if engine != "sort":
         raise ValueError(f"coalesced_runs: unknown engine {engine!r} (the "
                          "port has 'sort' and 'dense'; 'msd' and 'hash' "
-                         "are not ported, see ROADMAP.md)")
+                         "are not ported, see ROADMAP.md A5)")
     folded = b * nv_pad
     base = torch.arange(b, device=src.device)[:, None] * nv_pad
     src_f = torch.where(src < nv_pad, src.long() + base, folded)

@@ -14,13 +14,15 @@ One JSON line goes to stdout; progress goes to stderr.  The schema
 is the reference's, so a record validates the same in both packages.
 
 The guard.  The first timed run executes under a compile watcher; any
-kernel build (an ``nvcc`` run) or first library load inside it aborts
-the bench with the event log on stderr and no JSON (rc 3), because a
-number that paid for a build is not a steady-state number.  The warm-up
-runs the same work first: the same graph, one batch of the same class,
-B and engine, or one batch at every serving rung, so every kernel form a
-timed run launches has launched once before it (CUDA loads a library's
-kernels lazily, at their first launch, which no watcher sees).
+build (an ``nvcc`` or ``g++`` run), first library load, or first launch
+of a kernel form in the process inside it aborts the bench with the log
+on stderr and no JSON (rc 3), because a number that paid for a build or
+a load is not a steady-state number.  CUDA loads each kernel body at its
+first launch, so a form (the kernel, its body and the card,
+``kernels.form_counts``) that the warm-up never launched is a load inside
+the window.  The warm-up runs the same work first: the same graph, one
+batch of the same class, B and engine, or one batch at every serving
+rung, so every build, load and form of a timed run happens before it.
 
 Every timed window ends with the result on the host: the drivers return
 numpy labels read from the device (``louvain_phases``' final label read,
@@ -66,6 +68,7 @@ import subprocess
 import sys
 import time
 
+from cuvite_tpu_torch import native
 from cuvite_tpu_torch.core.batch import BATCH_ENGINES
 
 _T_PROC = time.perf_counter()  # budget accounting starts at import
@@ -105,14 +108,26 @@ REQUIRED_STAGE_KEYS = ("coarsen_s", "coalesce_s", "rebin_s", "upload_s",
 
 
 class BenchCompileGuardError(RuntimeError):
-    """The first timed run built or loaded a kernel library: the warm-up
-    did not take every one-time cost, so the measurement is invalid."""
+    """The first timed run built or loaded a library, or launched a
+    kernel form for the first time: the warm-up did not take every
+    one-time cost, so the measurement is invalid."""
 
     def __init__(self, compile_log: list):
         self.compile_log = compile_log
         super().__init__(
-            f"first timed run built or loaded {len(compile_log)} kernel "
-            "librar(ies); refusing to emit a bench record")
+            f"first timed run built, loaded or first launched "
+            f"{len(compile_log)} librar(ies) or kernel form(s); refusing "
+            "to emit a bench record")
+
+
+def check_guard(watch) -> None:
+    """Raise :class:`BenchCompileGuardError` if the watched window built
+    or loaded a library or launched a kernel form for the first time."""
+    log = list(watch.compiles) + [
+        f"first launch {kernel} {body} on {card}"
+        for kernel, body, card in watch.new_forms]
+    if log:
+        raise BenchCompileGuardError(log)
 
 
 def validate_record(rec: dict) -> list:
@@ -671,12 +686,16 @@ def run_bench(
             # The gate: any build or load inside the first timed run
             # invalidates the measurement.
             before = _launches()
+            calls = native.call_counts()
             with CompileWatcher(on_event=frec._on_compile) as watch:
                 last_res = louvain_phases(g, engine=engine, device=card.dev,
                                           tracer=last_tr)
-            if watch.compiles:
-                raise BenchCompileGuardError(watch.compiles)
+            check_guard(watch)
             print(f"# launches run 1: {json.dumps(_since(before))}",
+                  file=sys.stderr)
+            calls = {k: v - calls[k]
+                     for k, v in native.call_counts().items()}
+            print(f"# native calls run 1: {json.dumps(calls)}",
                   file=sys.stderr)
         else:
             last_res = louvain_phases(g, engine=engine, device=card.dev,
@@ -782,8 +801,7 @@ def run_batch_bench(
             launches = []
             with CompileWatcher(on_event=frec._on_compile) as watch:
                 out = one_pass(tr, launches)
-            if watch.compiles:
-                raise BenchCompileGuardError(watch.compiles)
+            check_guard(watch)
             print(f"# launches pass 1, by batch: {json.dumps(launches)}",
                   file=sys.stderr)
         else:
@@ -1002,8 +1020,7 @@ def run_serve_bench(
             deadline_s=(deadline_ms / 1e3 if deadline_ms is not None
                         else None),
             max_wall_s=max(budget_s - elapsed, 30.0), pipelined=pipelined)
-    if watch.compiles:
-        raise BenchCompileGuardError(watch.compiles)
+    check_guard(watch)
     rec = _served_record(rep, card, frec, tr,
                          f"synthpl-{edges}x{n_jobs}-serve")
     print(f"# serve: rate={rate:.1f}/s goodput="
@@ -1127,8 +1144,7 @@ def run_mixed_serve_bench(
         mrep = run_mixed_open_loop(
             server, smalls, bigs, rate,
             max_wall_s=max(budget_s - elapsed, 30.0), pipelined=pipelined)
-    if watch.compiles:
-        raise BenchCompileGuardError(watch.compiles)
+    check_guard(watch)
     rep = mrep.report
     rec = _served_record(rep, card, frec, tr,
                          f"mixpl-{small_edges}x{n_small}"
@@ -1244,8 +1260,7 @@ def run_churn_bench(
         info = sess.apply_delta(batch)
         res_warm = sess.recluster(warm=warm)
         delta_wall = time.perf_counter() - t1
-    if watch.compiles:
-        raise BenchCompileGuardError(watch.compiles)
+    check_guard(watch)
     print(f"# launches run 1: {json.dumps(_since(before))}",
           file=sys.stderr)
 

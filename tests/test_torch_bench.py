@@ -5,9 +5,11 @@ The port's bench records pass both packages' ``validate_record`` and carry
 the reference record's phases and iterations, with Q within 1e-6, on the
 same graphs (R-MAT 9 edge factor 10 seed 3, and synth 1024 batches on
 both batched engines).  The guard aborts a bench whose first timed run
-builds or loads a kernel library, and ``main`` then prints no JSON and
-exits 3.  The command line's ``-s``, ``--json``, ``-g``, ``--trace-out``
-and ``--metrics-out`` give what the reference command line gives.
+builds or loads a kernel library or first launches a kernel form (the
+set comparison on fake form counts, and a fake first launch inside the
+timed run), and ``main`` then prints no JSON and exits 3.  The command
+line's ``-s``, ``--json``, ``-g``, ``--trace-out`` and ``--metrics-out``
+give what the reference command line gives.
 """
 
 import json
@@ -224,6 +226,59 @@ def test_guard_trips_on_a_build_inside_the_first_timed_run(monkeypatch):
         bench.run_bench(factory, repeats=1, budget_s=600, device="cpu",
                         t_start=time.perf_counter())
     assert exc.value.compile_log[0] == "build row_argmax in 1.500 s"
+
+
+_FORM_A = ("row_argmax", "warp", "cuda:0")
+_FORM_B = ("row_argmax", "block", "cuda:0")
+
+
+@pytest.mark.parametrize("before,after,new", [
+    ({_FORM_A: 3}, {_FORM_A: 5}, []),
+    ({_FORM_A: 3}, {_FORM_A: 3, _FORM_B: 1}, [_FORM_B]),
+    ({}, {_FORM_B: 2, _FORM_A: 1}, [_FORM_B, _FORM_A]),
+    ({_FORM_A: 1}, {_FORM_A: 1, ("row_argmax", "warp", "cuda:1"): 1},
+     [("row_argmax", "warp", "cuda:1")]),
+    ({_FORM_A: 0}, {_FORM_A: 1}, [_FORM_A]),
+    ({}, {_FORM_A: 0}, []),
+], ids=["same", "new-body", "first-window", "new-card", "zero-before",
+        "zero-after"])
+def test_new_forms_compares_form_counts(before, after, new):
+    """The guard's set comparison on fake form counts: a form the timed
+    window launched that no earlier reading counts is new."""
+    from cuvite_tpu_torch.kernels import new_forms
+
+    assert new_forms(before, after) == sorted(new)
+
+
+def test_guard_trips_on_a_first_form_inside_the_first_timed_run(
+        monkeypatch):
+    """A graph factory whose second call arms a first launch: the first
+    timed run's set-up then records a kernel form the warm-up never
+    launched, as a kernel body CUDA loads lazily there would, and the
+    bench refuses a record with the form in its log."""
+    from cuvite_tpu_torch.louvain import driver
+
+    monkeypatch.setattr(_build, "FORMS", {_FORM_A: 4})
+    g = _port(jax_rmat(7, seed=2))
+    calls = []
+    build_dg = driver.DistGraph.build
+
+    def first_launch(graph):
+        _build.note_form(*_FORM_B)
+        _build.note_form(*_FORM_A)
+        return build_dg(graph)
+
+    def factory():
+        calls.append(1)
+        if len(calls) == 2:
+            monkeypatch.setattr(driver.DistGraph, "build", first_launch)
+        return g
+
+    with pytest.raises(bench.BenchCompileGuardError) as exc:
+        bench.run_bench(factory, repeats=1, budget_s=600, device="cpu",
+                        t_start=time.perf_counter())
+    assert exc.value.compile_log == ["first launch row_argmax block on "
+                                     "cuda:0"]
 
 
 def test_main_emits_no_json_on_guard_trip(monkeypatch, capsys):

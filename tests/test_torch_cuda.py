@@ -930,6 +930,57 @@ def test_bench_record_on_card(cuda_device):
     assert np.array_equal(traced.communities, cpu.communities)
 
 
+_FIRST_FORM_IN_TIMED_RUN = r"""
+import numpy as np
+from cuvite_tpu_torch import Graph
+from cuvite_tpu_torch.kernels import _build, heavy_bincount, row_argmax, \
+    seg_coalesce
+from cuvite_tpu_torch.workloads.bench import BenchCompileGuardError, \
+    run_bench
+
+# Every library built and loaded up front: only CUDA's lazy loading of a
+# kernel body at its first launch is left to happen in the timed run.
+for mod, name in ((row_argmax, "row_argmax"),
+                  (heavy_bincount, "heavy_bincount"),
+                  (seg_coalesce, "seg_coalesce")):
+    _build.library(name, mod._SIGNATURE)
+n = 1 << 14
+s = np.arange(n)
+ring = Graph.from_edges(n, s, (s + 1) % n)      # rows of degree 2 only
+hub = Graph.from_edges(n, np.concatenate([s, np.zeros(n - 1, np.int64)]),
+                       np.concatenate([(s + 1) % n, s[1:]]))  # + a hub
+graphs = [ring, hub]
+try:
+    run_bench(lambda: graphs.pop(0), repeats=1, budget_s=600)
+except BenchCompileGuardError as e:
+    print("\n".join(e.compile_log))
+else:
+    print("NO TRIP")
+"""
+
+
+@pytest.mark.cuda
+def test_guard_trips_on_a_form_first_launched_in_the_timed_run_card(
+        cuda_device):
+    """C1: a fresh process whose bench warm-up runs a ring (no hub) and
+    whose first timed run gets a hub of degree 16,383: the heavy kernel's
+    body is first launched, so first loaded by CUDA, inside the timed
+    window, and the guard refuses the record -- with no build or library
+    load in the window to give it away."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FIRST_FORM_IN_TIMED_RUN],
+                         cwd=repo, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    log = out.stdout.strip().splitlines()
+    assert "first launch heavy_bincount passes on cuda:0" in log, log
+    assert all(line.startswith("first launch ") for line in log), log
+
+
 @pytest.mark.cuda
 def test_stream_delta_on_card_matches_cpu(cuda_device):
     """apply_delta_slab, delta_frontier and grow_slab on the card, bit-equal
