@@ -5,6 +5,7 @@
                           [--rgg-nv 4194304] [--rgg-check-nv 65536]
                           [--fused-check-scale 12] [--fused-shrink 4096]
                           [--schedule-scale 20] [--native-rmat-scale 18]
+    python3 chip_smoke.py --only-multiprocess    # phases 1, 30, 33, 34
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -224,6 +225,25 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    bucket_fill) and one coarsening onto phase 5's final communities; at
    the R-MAT --native-rmat-scale shapes the generic and w32 weighted
    builders and a 32-bit Vite write, header and read.
+33. one rank per card over torch.distributed: min(visible cards, 4) NCCL
+   ranks (a file:// store in a temporary directory; one rank holding all
+   4 shards on a one-card host) each generate R-MAT --scale and run it on
+   4 shards under the replicated and then the sparse exchange, the
+   launch counts zeroed just before each run and read just after; per
+   rank the seconds it took to join the group, the wall, the stage
+   walls, the launches and the bytes it handed to the collectives (over
+   the run and a sweep); fails unless every rank's labels, iterations
+   and Q equal phase 30's one-process run of the same exchange and the
+   launches summed over the ranks equal its; then each rank times the
+   replicated exchange's all-gather of the f64 degree tables and the
+   sparse exchange's ghost-pull all_to_all at the phase-0 shapes (CUDA
+   events; across cards, the NVLink figure);
+34. per-rank ingest: R-MAT --scale written as a 32-bit Vite file in a
+   temporary directory; each rank of the same world loads it with
+   DistVite, reading only its shards' edge ranges (bytes read printed;
+   fewer than the file's on two or more ranks), and runs it (the sparse
+   exchange); labels, iterations, Q and summed launches against phase
+   30's sparse run.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -3231,7 +3251,8 @@ def check_mesh_card_vs_cpu(scale: int, nshards: int) -> dict:
 def run_mesh_full(g, scale: int, nshards: int, exchange: str,
                   main_res) -> tuple:
     """Phase 30: one full-width mesh run on one card, launch counts zeroed
-    just before and read just after.  Returns (launches, wall s)."""
+    just before and read just after.  Returns (launches, wall s, the
+    LouvainResult)."""
     import torch
 
     from cuvite_tpu_torch import louvain_phases
@@ -3278,7 +3299,7 @@ def run_mesh_full(g, scale: int, nshards: int, exchange: str,
         fail(f"{exchange} mesh: the row kernel's form never launched")
     if exchange == "sparse" and launches["row_argmax"]:
         fail("sparse mesh: the non-size row kernel launched")
-    return launches, wall
+    return launches, wall, res
 
 
 def check_budget_retry(scale: int, nshards: int) -> dict:
@@ -3458,6 +3479,339 @@ def check_native(scale: int, rmat_scale: int, main_res) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 33-34: one rank per card over torch.distributed (NCCL).
+
+MAX_WORLD = 4
+WORLD_TIMEOUT_S = 900
+
+
+def world_cards(visible) -> list:
+    """The cards this host offers, as CUDA_VISIBLE_DEVICES entries: the
+    caller's list, else every index nvidia-smi reports."""
+    if visible is not None:
+        return [c for c in visible.split(",") if c]
+    out = subprocess.run(["nvidia-smi", "--query-gpu=index",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def time_collectives(nshards: int, nv_pad: int, block: int) -> dict:
+    """On a rank of phase 33: the two collectives that move most of a
+    sweep's bytes, at R-MAT --scale's phase-0 shapes, timed with CUDA
+    events on this rank's card (20 calls after 3): the all-gather under
+    the replicated exchange's psum of each shard's f64 degree table over
+    every community ([S * nv_pad] f64 a shard), and the sparse exchange's
+    ghost pull (an all_to_all of [S, B, 3] int32 blocks a shard).  Bytes
+    sent are the rank's own payload; received, what lands on its card."""
+    import torch
+
+    from cuvite_tpu_torch.comm.collectives import (
+        all_gather,
+        all_to_all,
+        sent_bytes,
+        zero_sent_bytes,
+    )
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+
+    mesh = make_mesh(nshards)
+    dev, L = mesh.devices[0], len(mesh.devices)
+    cases = {
+        "all_gather f64 degree tables": (all_gather, [
+            torch.ones(nshards * nv_pad, dtype=torch.float64, device=dev)
+            for _ in range(L)], nshards),
+        "all_to_all ghost pull": (all_to_all, [
+            torch.ones(nshards, block, 3, dtype=torch.int32, device=dev)
+            for _ in range(L)], 1),
+    }
+    out = {}
+    for name, (fn, xs, fan_in) in cases.items():
+        for _ in range(3):
+            fn(xs, mesh)
+        torch.cuda.synchronize(dev)
+        zero_sent_bytes()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(20):
+            fn(xs, mesh)
+        t1.record()
+        torch.cuda.synchronize(dev)
+        ms = t0.elapsed_time(t1) / 20
+        sent = sent_bytes() // 20
+        # An all-gather lands every shard's block on each rank; an
+        # all_to_all lands as much as the rank sent.
+        recv = sent * (nshards // L if fan_in > 1 else 1)
+        out[name] = {"ms": ms, "sent_bytes": sent, "recv_bytes": recv,
+                     "recv_gb_per_s": recv / ms / 1e6}
+    return out
+
+
+def rank_worker(spec_json: str) -> int:
+    """One NCCL rank of phases 33-34 (``chip_smoke.py --rank-worker
+    SPEC``, started by :func:`run_world`): join the world, load R-MAT
+    --scale (generated, or read per rank with DistVite), run
+    louvain_phases on its shards once per exchange with the launch counts
+    zeroed just before and read just after, and write its labels and a
+    JSON record to the spec's directory."""
+    spec = json.loads(spec_json)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from cuvite_tpu_torch.comm import multihost
+
+    t0 = time.perf_counter()
+    multihost.initialize(timeout=WORLD_TIMEOUT_S)
+    init_s = time.perf_counter() - t0
+    with multihost.fail_together():
+        from cuvite_tpu_torch import louvain_phases
+        from cuvite_tpu_torch.comm.collectives import (
+            sent_bytes,
+            zero_sent_bytes,
+        )
+        from cuvite_tpu_torch.io.dist_ingest import DistVite
+        from cuvite_tpu_torch.io.generate import generate_rmat
+
+        r = multihost.rank()
+        rec = {"rank": r, "world": multihost.world_size(), "init_s": init_s,
+               "device": str(multihost.local_device()),
+               "card": torch.cuda.get_device_name(), "runs": {}}
+        t0 = time.perf_counter()
+        if spec["path"]:
+            g = DistVite.load(spec["path"], spec["nshards"], bits64=False)
+            rec["bytes_read"] = g.bytes_read
+            rec["file_bytes"] = os.path.getsize(spec["path"])
+            rec["held"] = [s for s, sh in enumerate(g.shards)
+                           if sh.src is not None]
+        else:
+            g = generate_rmat(spec["scale"])
+        rec["load_s"] = time.perf_counter() - t0
+        for exchange in spec["exchanges"]:
+            log = ExchangeLog()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_sent_bytes()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            res = louvain_phases(g, nshards=spec["nshards"],
+                                 exchange=exchange, tracer=log)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            np.save(os.path.join(spec["out"], f"{exchange}-rank{r}.npy"),
+                    res.communities)
+            rec["runs"][exchange] = {
+                "wall_s": wall, "launches": kernel_counts(),
+                "sent_bytes": sent_bytes(),
+                "iterations": [p.iterations for p in res.phases],
+                "sweeps": res.total_iterations,
+                "q": res.modularity.hex(),
+                "stages": [p.stages for p in res.phases],
+                "exchange": log.events,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if spec.get("collectives"):
+            rec["collectives"] = time_collectives(spec["nshards"],
+                                                  *spec["collectives"])
+        with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+            json.dump(rec, f)
+        multihost.shutdown()
+    return 0
+
+
+def run_world(what: str, cards: list, spec: dict) -> list:
+    """Start one rank per card of ``cards`` on ``spec`` (a ``file://``
+    store in a temporary directory, NCCL and gloo on the loopback
+    interface); fails unless every rank exits 0.  Returns the ranks'
+    records."""
+    import tempfile
+
+    import torch
+
+    from cuvite_tpu_torch.comm.multihost import launch
+
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(cards))
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("OMP_NUM_THREADS",
+                   str(max((os.cpu_count() or 1) // len(cards), 1)))
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(spec, out=tmp)
+        t0 = time.perf_counter()
+        outs = launch([sys.executable, os.path.abspath(__file__),
+                       "--rank-worker", json.dumps(spec)], len(cards),
+                      f"file://{os.path.join(tmp, 'store')}", env=env,
+                      timeout=WORLD_TIMEOUT_S, grace=60.0)
+        wall = time.perf_counter() - t0
+        for r, (rc, out, err) in enumerate(outs):
+            if rc != 0:
+                print(f"  rank {r} of {what} exited {rc}:\n{out[-2000:]}\n"
+                      f"{err[-6000:]}", file=sys.stderr)
+                fail(f"{what}: rank {r} exited {rc}")
+        recs = []
+        for r in range(len(cards)):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                rec = json.load(f)
+            rec["labels"] = {ex: np.load(os.path.join(tmp,
+                                                      f"{ex}-rank{r}.npy"))
+                             for ex in spec["exchanges"]}
+            recs.append(rec)
+    print(f"  {what}: world of {len(cards)} on cards {cards} "
+          f"({recs[0]['card']}), {wall:.1f} s with process start and load")
+    return recs
+
+
+def print_inits(recs: list) -> None:
+    print("  joining the group (multihost.initialize, the NCCL "
+          "communicator and its peer links included): "
+          + ", ".join(f"rank {rec['rank']} {rec['init_s']:.2f} s"
+                      for rec in recs))
+
+
+def check_world(what: str, recs: list, one_process: dict,
+                nshards: int) -> dict:
+    """Each rank's labels, iterations and Q bits against the one-process
+    run of the same exchange (phase 30), the launches summed over the
+    ranks against its launches; prints per rank the stage walls, the
+    launches and the bytes it handed to the collectives (counted in
+    ``comm/collectives.py``), over the run and a sweep.  Returns the
+    summed launches by exchange."""
+    summed = {}
+    for ex, (res, launches, wall1) in one_process.items():
+        if ex not in recs[0]["runs"]:
+            continue
+        total = {}
+        for rec in recs:
+            run = rec["runs"][ex]
+            if not np.array_equal(rec["labels"][ex], res.communities):
+                fail(f"{what} {ex}: rank {rec['rank']}'s labels differ from "
+                     "the one-process mesh's")
+            if run["iterations"] != [p.iterations for p in res.phases]:
+                fail(f"{what} {ex}: rank {rec['rank']} iterations "
+                     f"{run['iterations']} vs one process "
+                     f"{[p.iterations for p in res.phases]}")
+            q = float.fromhex(run["q"])
+            if abs(q - res.modularity) > 1e-9:
+                fail(f"{what} {ex}: rank {rec['rank']} Q {q} vs one "
+                     f"process {res.modularity}")
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+            local = nshards // rec["world"]
+            sweeps = max(run["sweeps"], 1)
+            stages = {k: sum(st.get(k, 0.0) for st in run["stages"])
+                      for k in ("plan", "upload", "iterate", "evaluate",
+                                "coarsen")}
+            print(f"  {what} {ex} rank {rec['rank']} ({rec['device']}, "
+                  f"{local} shards): wall {run['wall_s']:.3f} s; stages "
+                  + " ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                  + f"; phase-0 stages "
+                  + " ".join(f"{k} {v:.3f}"
+                             for k, v in run["stages"][0].items())
+                  + f"; launches {run['launches']}; bytes sent "
+                  f"{run['sent_bytes']} over {sweeps} sweeps, "
+                  f"{run['sent_bytes'] / sweeps:.0f} a sweep; peak "
+                  f"{run['max_memory_allocated']} B")
+        want = {k: v for k, v in launches.items() if v}
+        if {k: v for k, v in total.items() if v} != want:
+            fail(f"{what} {ex}: launches over the ranks {total} vs one "
+                 f"process {launches}")
+        print(f"  {what} {ex}: labels, iterations and Q equal the "
+              f"one-process mesh's on every rank; launches over the ranks "
+              f"{total} (one process: {launches}); walls "
+              f"{[round(rec['runs'][ex]['wall_s'], 3) for rec in recs]} s "
+              f"(one process {wall1:.3f} s)")
+        summed[ex] = total
+    return summed
+
+
+def run_multiprocess(g, scale: int, nshards: int, cards: list,
+                     one_process: dict) -> dict:
+    """Phases 33-34 on the world of min(len(cards), MAX_WORLD) ranks, held
+    against phase 30's one-process runs.  Returns the summed launches by
+    path."""
+    import tempfile
+
+    from cuvite_tpu_torch.core.types import next_pow2
+    from cuvite_tpu_torch.io.vite import write_vite
+
+    world = min(len(cards), MAX_WORLD)
+    paths = {}
+    print(f"[33] R-MAT {scale} on {nshards} shards, one NCCL rank per card "
+          f"(world {world}), replicated and sparse")
+    t0 = time.perf_counter()
+    # The sparse exchange's phase-0 block on this graph (phase 30).
+    block = one_process["sparse"][0].exchange_stats["block"]
+    nv_pad = next_pow2(-(-g.num_vertices // nshards))
+    recs = run_world(f"R-MAT {scale}", cards[:world], {
+        "scale": scale, "nshards": nshards, "path": None,
+        "exchanges": ["replicated", "sparse"],
+        "collectives": [nv_pad, block]})
+    for ex, tot in check_world(f"R-MAT {scale}", recs, one_process,
+                               nshards).items():
+        paths[f"world {world}, {nshards} shards R-MAT {scale} {ex}"] = tot
+    print_inits(recs)
+    for rec in recs:
+        for name, c in rec["collectives"].items():
+            print(f"  rank {rec['rank']} {name} (nv_pad {nv_pad}, block "
+                  f"{block}): {c['ms']:.4f} ms, sent {c['sent_bytes']} B, "
+                  f"received {c['recv_bytes']} B, "
+                  f"{c['recv_gb_per_s']:.1f} GB/s received")
+    print(f"  phase 33 took {time.perf_counter() - t0:.1f} s")
+
+    print(f"[34] per-rank ingest: R-MAT {scale} read by DistVite, world "
+          f"{world}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"rmat{scale}.vite")
+        t1 = time.perf_counter()
+        write_vite(path, g, bits64=False)
+        print(f"  wrote {os.path.getsize(path)} B (32-bit Vite) in "
+              f"{time.perf_counter() - t1:.2f} s")
+        recs = run_world(f"DistVite R-MAT {scale}", cards[:world], {
+            "scale": scale, "nshards": nshards, "path": path,
+            "exchanges": ["sparse"]})
+    per = nshards // world
+    for rec in recs:
+        r = rec["rank"]
+        if rec["held"] != list(range(r * per, (r + 1) * per)):
+            fail(f"DistVite rank {r} holds shards {rec['held']}")
+        if world > 1 and rec["bytes_read"] >= rec["file_bytes"]:
+            fail(f"DistVite rank {r} read {rec['bytes_read']} B of a "
+                 f"{rec['file_bytes']} B file")
+        print(f"  rank {r}: shards {rec['held']}, read {rec['bytes_read']} "
+              f"B of {rec['file_bytes']} B in {rec['load_s']:.2f} s")
+    print_inits(recs)
+    tot = check_world(f"DistVite R-MAT {scale}", recs,
+                      {"sparse": one_process["sparse"]}, nshards)
+    paths[f"world {world} DistVite, {nshards} shards R-MAT {scale} "
+          "sparse"] = tot["sparse"]
+    print(f"  phase 34 took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def run_multiprocess_only(args, cards: list) -> int:
+    """``--only-multiprocess``: phase 30's one-process runs as the
+    reference, then phases 33-34."""
+    import torch
+
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    S = MESH_SHARDS
+    g = generate_rmat(args.scale)
+    print(f"[30] R-MAT {args.scale} on {S} shards of one card, the "
+          "one-process reference")
+    one_process = {}
+    for ex in ("replicated", "sparse"):
+        launches, wall, res = run_mesh_full(g, args.scale, S, ex, None)
+        one_process[ex] = (res, launches, wall)
+    run_multiprocess(g, args.scale, S, cards, one_process)
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -3478,10 +3832,17 @@ def main() -> int:
     ap.add_argument("--native-rmat-scale", type=int, default=18,
                     help="R-MAT scale of phase 32's generation and "
                          "weighted-builder and Vite checks")
+    ap.add_argument("--only-multiprocess", action="store_true",
+                    help="run phases 1, 30, 33 and 34 only (the one-rank-"
+                         "per-card world spans min(visible cards, 4))")
+    ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
 
     # The run uses one card: show torch only that one, so the device count
-    # on the last line is the count the run used.
+    # on the last line is the count the run used.  Phases 33-34 start their
+    # ranks on the cards the caller offered.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = \
         "0" if visible is None else visible.split(",")[0]
@@ -3496,6 +3857,7 @@ def main() -> int:
     except ImportError as err:
         fail(f"cuvite_tpu_torch is not beside this script ({err})")
     dev = torch.device("cuda")
+    cards = world_cards(visible)
 
     print("[1] card")
     print(f"  {smi_line()}")
@@ -3513,6 +3875,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    if args.only_multiprocess:
+        return run_multiprocess_only(args, cards)
 
     print("[2] row_argmax kernel against its twin, every bucket width")
     check_rows(dev)
@@ -3765,12 +4129,14 @@ def main() -> int:
     print(f"[30] full width: R-MAT {args.scale} on {S} shards of one card, "
           "sparse and replicated")
     t30 = time.perf_counter()
-    mesh_launches, mesh_s = run_mesh_full(g_rmat, args.scale, S, "sparse",
-                                          main_res)
+    mesh_launches, mesh_s, mesh_res = run_mesh_full(
+        g_rmat, args.scale, S, "sparse", main_res)
     paths[f"mesh {S} shards R-MAT {args.scale} sparse"] = mesh_launches
-    paths[f"mesh {S} shards R-MAT {args.scale} replicated"], rep_s = \
-        run_mesh_full(g_rmat, args.scale, S, "replicated", main_res)
-    del g_rmat
+    rep_launches, rep_s, rep_res = run_mesh_full(
+        g_rmat, args.scale, S, "replicated", main_res)
+    paths[f"mesh {S} shards R-MAT {args.scale} replicated"] = rep_launches
+    one_process = {"sparse": (mesh_res, mesh_launches, mesh_s),
+                   "replicated": (rep_res, rep_launches, rep_s)}
     print(f"  R-MAT {args.scale} walls: one shard {bucketed_s:.3f} s "
           f"(phase 5), {S} shards sparse {mesh_s:.3f} s, {S} shards "
           f"replicated {rep_s:.3f} s")
@@ -3805,6 +4171,10 @@ def main() -> int:
     t32 = time.perf_counter()
     check_native(args.scale, args.native_rmat_scale, main_res)
     print(f"  phase 32 took {time.perf_counter() - t32:.1f} s")
+
+    paths.update(run_multiprocess(g_rmat, args.scale, S, cards,
+                                  one_process))
+    del g_rmat
 
     kernels[0]["batched"] = batched_rows
     kernels[1]["batched"] = batched_heavy

@@ -32,9 +32,13 @@ that change between requests (the daemon's ``delta`` verb).
 ``louvain_phases(graph, nshards=S)`` (or ``mesh=comm.mesh.make_mesh(...)``)
 runs S vertex shards from one process, on S cards or several shards to a
 card, under the replicated or the sparse ghost exchange (``comm/``); the
-sparse one runs the row kernel's size form.  Not ported yet: the
-two-level exchange, multi-process meshes, the color and ET schedules on
-a mesh, and the concurrency checker's scheduler.
+sparse one runs the row kernel's size form.  After
+``comm.multihost.initialize`` (``--distributed`` in the CLI, or torchrun)
+the same call runs one rank per card over ``torch.distributed``, each
+rank sweeping its own shards; ``io.dist_ingest.DistVite`` has each rank
+read only its shards' edges.  Not ported yet: the two-level exchange,
+the color and ET schedules on a mesh, and the concurrency checker's
+scheduler.
 
 The package imports torch, numpy and scipy only; it never imports JAX
 or ``cuvite_tpu``.

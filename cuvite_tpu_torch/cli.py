@@ -36,9 +36,27 @@ first N cards, or all on ``--device`` when it is given (``--device
 cuda:0`` puts four shards on one card, ``--device cpu`` on the CPU);
 ``--balanced``/``-b`` cuts edge-balanced ranges, ``--exchange`` picks the
 community exchange and ``--dist-stats`` prints the partition's edge
-distribution.  Refused by name, not ported yet (``ROADMAP.md`` A7):
-``--mesh`` (the two-level exchange), ``--dist-ingest`` and
-``--distributed`` (multi-process), and ``--diag-prefix``.
+distribution.
+
+    torchrun --nproc-per-node 4 -m cuvite_tpu_torch.cli --rmat 20 \
+        --shards 4 --distributed [--exchange sparse]
+    torchrun --nproc-per-node 2 -m cuvite_tpu_torch.cli --file g.bin \
+        --shards 4 --distributed --dist-ingest
+
+``--distributed`` makes this process one rank of a multi-process run
+(``comm/multihost.py``: NCCL, one rank per card, or gloo under
+``--device cpu``); every rank runs the same command and holds
+``--shards / world`` shards.  ``--coordinator HOST:PORT`` (or a
+``file://`` store), ``--num-processes`` and ``--process-id`` default to
+``CUVITE_COORDINATOR`` / ``CUVITE_NUM_PROCESSES`` / ``CUVITE_PROCESS_ID``,
+then to torchrun's variables.  Rank 0 alone prints and writes files
+(``-o``, ``-s``, ``--json``, ``-g``, ``--trace``, ``--trace-out``,
+``--metrics-out``, ``--profile-dir``, ``--dist-stats``); every rank
+computes the same result.  ``--dist-ingest`` reads only this rank's
+shards' edge ranges of ``--file`` (``io/dist_ingest.py``; the sparse
+exchange and the bucketed engine).  Refused by name, not ported yet
+(``ROADMAP.md`` A7): ``--mesh`` (the two-level exchange) and
+``--diag-prefix``.
 """
 
 from __future__ import annotations
@@ -102,10 +120,28 @@ def build_parser() -> argparse.ArgumentParser:
                           "sweep; 'replicated' = all_gather of the whole "
                           "community vector; 'auto' picks by graph size "
                           "per phase")
-    for flag in ("--mesh", "--dist-ingest", "--distributed",
-                 "--diag-prefix"):
+    run.add_argument("--dist-ingest", action="store_true",
+                     help="each rank reads only its shards' edge ranges "
+                          "of --file (sparse exchange, bucketed engine)")
+    for flag in ("--mesh", "--diag-prefix"):
         run.add_argument(flag, nargs="?", const=True, default=None,
                          help=argparse.SUPPRESS)
+
+    dist = p.add_argument_group("distributed (one rank per card)")
+    dist.add_argument("--distributed", action="store_true",
+                      help="join a multi-process run over torch.distributed "
+                           "(NCCL; gloo with --device cpu); every rank runs "
+                           "the same command")
+    dist.add_argument("--coordinator", metavar="HOST:PORT",
+                      help="rendezvous address, or a file:// store "
+                           "(default: $CUVITE_COORDINATOR, else torchrun's "
+                           "MASTER_ADDR:MASTER_PORT)")
+    dist.add_argument("--num-processes", type=int,
+                      help="world size (default: $CUVITE_NUM_PROCESSES, "
+                           "else $WORLD_SIZE)")
+    dist.add_argument("--process-id", type=int,
+                      help="this process's rank (default: "
+                           "$CUVITE_PROCESS_ID, else $RANK)")
     run.add_argument("--checkpoint-dir", metavar="DIR",
                      help="save the state after each phase")
     run.add_argument("--resume", action="store_true",
@@ -145,7 +181,7 @@ def build_parser() -> argparse.ArgumentParser:
 def validate(args) -> None:
     """The reference's checks (``cuvite_tpu/cli.py:169``) for the flags
     the port has, and the refusal of those it has not."""
-    for flag in ("mesh", "dist_ingest", "distributed", "diag_prefix"):
+    for flag in ("mesh", "diag_prefix"):
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
                              "cuvite_tpu_torch yet (ROADMAP.md A7)")
@@ -168,15 +204,55 @@ def validate(args) -> None:
         raise SystemExit("Cannot combine --one-phase with --threshold-cycling")
     if args.early_term in (2, 4) and not (0.0 <= args.et_delta <= 1.0):
         raise SystemExit("--et-delta must be in [0, 1]")
+    if args.dist_ingest:
+        if not args.file:
+            raise SystemExit("--dist-ingest requires --file")
+        if args.shards < 2:
+            raise SystemExit("--dist-ingest requires --shards >= 2")
+        if args.engine not in ("auto", "bucketed"):
+            raise SystemExit("--dist-ingest supports only the bucketed "
+                             "engine")
+        if args.write_graph:
+            raise SystemExit("--dist-ingest is incompatible with "
+                             "--write-graph (no rank holds the full graph)")
+    if not args.distributed and (args.coordinator or args.process_id
+                                 is not None or args.num_processes):
+        raise SystemExit("--coordinator, --num-processes and --process-id "
+                         "need --distributed")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
     if args.checkpoint_dir and args.one_phase:
         raise SystemExit("--checkpoint-dir is incompatible with --one-phase")
 
 
+# What rank 0 alone does: each flag that prints a report or writes a file,
+# with its value on the other ranks (the reference's list,
+# cuvite_tpu/cli.py:255-266).
+_RANK0_ONLY = {"quiet": True, "output": False, "json": False,
+               "ground_truth": None, "trace": False, "dist_stats": False,
+               "write_graph": None, "trace_out": None, "metrics_out": None,
+               "profile_dir": None}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     validate(args)
+    if not args.distributed:
+        return _run(args)
+    from cuvite_tpu_torch.comm import multihost
+
+    with multihost.fail_together():
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+        if multihost.rank() != 0:
+            for flag, off in _RANK0_ONLY.items():
+                setattr(args, flag, off)
+        rc = _run(args)
+        multihost.shutdown()
+    return rc
+
+
+def _run(args) -> int:
     from cuvite_tpu_torch.evaluate.compare import (
         compare_communities,
         load_ground_truth,
@@ -189,7 +265,13 @@ def main(argv=None) -> int:
     from cuvite_tpu_torch.utils.trace import Tracer, rss_high_water_mb
 
     t0 = time.perf_counter()
-    if args.file:
+    if args.dist_ingest:
+        from cuvite_tpu_torch.io.dist_ingest import DistVite
+
+        graph = DistVite.load(args.file, args.shards, bits64=args.bits64,
+                              balanced=args.balanced)
+        name = args.file
+    elif args.file:
         graph = read_vite(args.file, bits64=args.bits64)
         name = args.file
     elif args.rmat is not None:
@@ -246,7 +328,10 @@ def main(argv=None) -> int:
     if args.trace_out and not args.quiet:
         print(f"Wrote trace to {args.trace_out}")
 
-    q = modularity(graph, res.communities)
+    # No rank holds a per-rank-ingest graph whole: its Q is the driver's,
+    # reduced across the ranks.
+    q = (res.modularity if args.dist_ingest
+         else modularity(graph, res.communities))
     teps = sum(p.num_edges * p.iterations for p in res.phases) / max(
         sum(p.seconds for p in res.phases), 1e-9)
     if not args.quiet:

@@ -25,7 +25,9 @@ The counterpart of the reference application's three-part protocol
 - :func:`sparse_modularity`: Q with each community's degree counted once,
   by its owner.
 
-Values per shard are lists indexed by shard (``comm/collectives.py``).
+Values per shard are lists over the mesh's local shards
+(``comm/collectives.py``): on a multi-process mesh a rank holds, routes
+and sweeps only its own shards, and builds only their rows of the plan.
 Degrees are summed in f64 and rounded once to f32 for the kernels
 (``cdeg_ext``/``cdeg_v``); ``deg_local`` stays f64 for Q.  The reference
 sums in f32 (or double-single pairs).  The ghost pull moves its three
@@ -33,8 +35,8 @@ channels in one all_to_all, floats by their bits, as the reference does.
 On the exactness domain the values are the reference's bit for bit.
 
 Not ported: the grouped plan and the two-level env (``build_grouped``,
-``twolevel_env``), per-host ingest (``local_only`` plans), and the frozen
-``info`` assignment of vertex ordering on a mesh (``ROADMAP.md`` A7).
+``twolevel_env``), and the frozen ``info`` assignment of vertex ordering
+on a mesh (``ROADMAP.md`` A7).
 """
 
 from __future__ import annotations
@@ -71,16 +73,37 @@ class ExchangePlan:
     max_ghosts: int
 
     @staticmethod
-    def build(dg) -> "ExchangePlan":
-        """The plan of ``dg``, whose every shard is on this host."""
+    def build(dg, shard_ids=None) -> "ExchangePlan":
+        """The plan of ``dg``.  ``shard_ids``: the shards this rank of a
+        process group holds; it finds their ghosts alone and all-gathers
+        every shard's ghost list (the reference's exchangeVertexReqs
+        flow), as a partition read per rank (``io/dist_ingest.DistVite``,
+        ``dg.local_only``) always does.  Without, every shard is on this
+        host.  Every rank then lays out the whole routing alike."""
         S, nvp = dg.nshards, dg.nv_pad
+        if getattr(dg, "local_only", False):
+            shard_ids = range(dg.local_lo, dg.local_hi)
         ghost_ids = []
-        for s in range(S):
+        for s in (range(S) if shard_ids is None else shard_ids):
             sh = dg.shards[s]
             real = np.asarray(sh.src) < nvp
             d = np.asarray(sh.dst)[real].astype(np.int64)
             owned = (d >= s * nvp) & (d < (s + 1) * nvp)
             ghost_ids.append(np.unique(d[~owned]))
+        if shard_ids is not None:
+            from cuvite_tpu_torch.comm.multihost import allgather_varlen
+
+            lens = np.array([len(g) for g in ghost_ids], dtype=np.int64)
+            flat = (np.concatenate(ghost_ids) if ghost_ids
+                    else np.zeros(0, dtype=np.int64))
+            ghost_ids = []
+            for ls, fl in zip(allgather_varlen(lens),
+                              allgather_varlen(flat)):
+                ghost_ids += np.split(fl, np.cumsum(ls)[:-1])
+            if len(ghost_ids) != S:
+                raise RuntimeError(
+                    f"ghost exchange gathered {len(ghost_ids)} shard "
+                    f"lists for {S} shards")
         bounds = [np.searchsorted(g, np.arange(S + 1) * nvp)
                   for g in ghost_ids]
         max_g = max((len(g) for g in ghost_ids), default=0)
@@ -137,12 +160,13 @@ class ExchangePlan:
         return out
 
     def to_mesh(self, mesh) -> tuple:
-        """(send_idx, ghost_sel) as per-shard int64 tensors on their
-        devices: shard t's [S, B] send rows and [G] ghost selection."""
+        """(send_idx, ghost_sel) of the mesh's local shards as int64
+        tensors on their devices: shard t's [S, B] send rows and [G]
+        ghost selection."""
         return ([torch.from_numpy(self.send_idx[t].astype(np.int64)).to(d)
-                 for t, d in enumerate(mesh.devices)],
+                 for t, d in zip(mesh.shard_ids, mesh.devices)],
                 [torch.from_numpy(self.ghost_sel[t].astype(np.int64)).to(d)
-                 for t, d in enumerate(mesh.devices)])
+                 for t, d in zip(mesh.shard_ids, mesh.devices)])
 
 
 class SparseEnv(NamedTuple):
@@ -174,7 +198,7 @@ def _pull_ghosts(channels: list, send_idx: list, ghost_sel: list,
     recv = all_to_all(sent, mesh)
     return [[torch.cat([ch[s], recv[s][:, k].reshape(-1)[ghost_sel[s]]
                         .view(dt)])
-             for s in range(mesh.size)]
+             for s in range(len(send_idx))]
             for k, (ch, dt) in enumerate(zip(channels, dts))]
 
 
@@ -219,16 +243,16 @@ def _group_by_community(vec: torch.Tensor, nv_pad: int, S: int, budget: int,
 
 def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
                mesh, *, budget: int) -> list:
-    """Every shard's :class:`SparseEnv` for the sweep of ``comms``.
+    """The local shards' :class:`SparseEnv` for the sweep of ``comms``.
 
-    ``comms`` [nv_pad] int32 and ``vdegs`` [nv_pad] f32 per shard are the
-    owned slices; ``send_idx``/``ghost_sel`` the plan's per-shard tensors
-    (:meth:`ExchangePlan.to_mesh`)."""
+    ``comms`` [nv_pad] int32 and ``vdegs`` [nv_pad] f32 per local shard
+    are the owned slices; ``send_idx``/``ghost_sel`` the plan's per-shard
+    tensors (:meth:`ExchangePlan.to_mesh`)."""
     S = mesh.size
     nv_pad = comms[0].shape[0]
     oob = S * budget
     groups, deg_local, size_local, fwd = [], [], [], []
-    for s, (comm, vdeg) in enumerate(zip(comms, vdegs)):
+    for s, comm, vdeg in zip(mesh.shard_ids, comms, vdegs):
         dev = comm.device
         base = s * nv_pad
         gr = _group_by_community(comm, nv_pad, S, budget, base)
@@ -263,30 +287,30 @@ def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
 
     # Owners add the partials they received (sentinel keys drop) and reply
     # with the totals over the transposed routing.
-    rep_deg, rep_size, lks = [], [], []
-    for s in range(S):
+    rep_deg, rep_size = [], []
+    for i, s in enumerate(mesh.shard_ids):
         base = s * nv_pad
-        lk = recv_key[s].reshape(-1).long() - base
+        lk = recv_key[i].reshape(-1).long() - base
         lk_in = torch.where((lk >= 0) & (lk < nv_pad), lk, nv_pad)
-        deg_local[s].index_add_(0, lk_in, recv_deg[s].reshape(-1))
-        size_local[s].index_add_(0, lk_in, recv_size[s].reshape(-1))
-        deg_local[s] = deg_local[s][:nv_pad]
-        size_local[s] = size_local[s][:nv_pad]
+        deg_local[i].index_add_(0, lk_in, recv_deg[i].reshape(-1))
+        size_local[i].index_add_(0, lk_in, recv_size[i].reshape(-1))
+        deg_local[i] = deg_local[i][:nv_pad]
+        size_local[i] = size_local[i][:nv_pad]
         lk_safe = lk.clamp(0, nv_pad - 1)
-        rep_deg.append(deg_local[s][lk_safe].view(S, budget))
-        rep_size.append(size_local[s][lk_safe].view(S, budget))
+        rep_deg.append(deg_local[i][lk_safe].view(S, budget))
+        rep_size.append(size_local[i][lk_safe].view(S, budget))
     back_deg = all_to_all(rep_deg, mesh)
     back_size = all_to_all(rep_size, mesh)
 
     cdeg_v, csize_v = [], []
-    for s, gr in enumerate(groups):
+    for i, (s, gr) in enumerate(zip(mesh.shard_ids, groups)):
         base = s * nv_pad
         flat_slot = gr.slot.clamp(0, oob - 1)
         self_safe = (gr.uk.long() - base).clamp(0, nv_pad - 1)
-        deg_at_uk = torch.where(gr.is_self, deg_local[s][self_safe],
-                                back_deg[s].reshape(-1)[flat_slot])
-        size_at_uk = torch.where(gr.is_self, size_local[s][self_safe],
-                                 back_size[s].reshape(-1)[flat_slot])
+        deg_at_uk = torch.where(gr.is_self, deg_local[i][self_safe],
+                                back_deg[i].reshape(-1)[flat_slot])
+        size_at_uk = torch.where(gr.is_self, size_local[i][self_safe],
+                                 back_size[i].reshape(-1)[flat_slot])
         # Attach the totals to the owned vertices (invert the sort).
         cd = torch.empty(nv_pad, dtype=torch.float32, device=gr.uk.device)
         cd[gr.order] = deg_at_uk[gr.run_id].float()
@@ -297,18 +321,18 @@ def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
 
     comm_ext, csize_ext, cdeg_ext = _pull_ghosts(
         [comms, csize_v, cdeg_v], send_idx, ghost_sel, mesh)
-    return [SparseEnv(comm_ext=comm_ext[s], cdeg_ext=cdeg_ext[s],
-                      csize_ext=csize_ext[s], cdeg_v=cdeg_v[s],
-                      csize_v=csize_v[s], deg_local=deg_local[s],
-                      overflow=groups[s].overflow)
-            for s in range(S)]
+    return [SparseEnv(comm_ext=comm_ext[i], cdeg_ext=cdeg_ext[i],
+                      csize_ext=csize_ext[i], cdeg_v=cdeg_v[i],
+                      csize_v=csize_v[i], deg_local=deg_local[i],
+                      overflow=groups[i].overflow)
+            for i in range(len(groups))]
 
 
 def sparse_modularity(counter0: list, deg_local: list, constant: float,
                       mesh) -> torch.Tensor:
     """Q = e*c - a^2*c^2 in f64, the a^2 term from each shard's OWNED
     community degrees so that every community counts once.  Returns the
-    0-dim f64 Q on shard 0's device."""
+    0-dim f64 Q on the first local shard's device."""
     le = psum([c.double().sum() for c in counter0], mesh)[0]
     la2 = psum([d.double().square().sum() for d in deg_local], mesh)[0]
     return le * constant - la2 * constant * constant

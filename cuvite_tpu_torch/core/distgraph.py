@@ -28,7 +28,9 @@ shard (:class:`Shard`: local src, padded-global dst, w) padded to a
 common ``ne_pad``, padding rows ``src == nv_pad``.  ``min_nv_pad`` and
 ``min_ne_pad`` are kept there for parity with the reference's builds.
 A multi-shard graph lives on the host; the sharded engines upload its
-slabs or plans shard by shard.
+slabs or plans shard by shard.  A rank of a process group builds the
+slabs of its own shards only (``shard_ids``); the others keep their
+range and edge count with ``src=None``, as a per-rank ingest's do.
 """
 
 from __future__ import annotations
@@ -130,14 +132,16 @@ class DistGraph:
     @staticmethod
     def build(graph: Graph, nshards: int = 1, balanced: bool = False,
               pad_pow2: bool = True, min_nv_pad: int = 1,
-              min_ne_pad: int = 1) -> "DistGraph":
+              min_ne_pad: int = 1, shard_ids=None) -> "DistGraph":
         """One shard: the CSR layout of the module note (the other
         arguments do not apply).  Several: the reference's padded slabs
         (``min_nv_pad``/``min_ne_pad`` floor the padded sizes,
-        ``pad_pow2`` rounds them up to powers of two)."""
+        ``pad_pow2`` rounds them up to powers of two); with ``shard_ids``
+        (a rank's shards of a process group) only those shards get their
+        slabs, the others ``src=None``."""
         if nshards > 1:
             return _build_sharded(graph, nshards, balanced, pad_pow2,
-                                  min_nv_pad, min_ne_pad)
+                                  min_nv_pad, min_ne_pad, shard_ids)
         nv = graph.num_vertices
         nv_pad = next_pow2(max(nv, 1))
         vdt = graph.policy.vertex_dtype
@@ -215,9 +219,10 @@ class DistGraph:
 
 
 def _build_sharded(graph: Graph, nshards: int, balanced: bool,
-                   pad_pow2: bool, min_nv_pad: int,
-                   min_ne_pad: int) -> DistGraph:
-    """The reference's multi-shard ``DistGraph.build``, array for array."""
+                   pad_pow2: bool, min_nv_pad: int, min_ne_pad: int,
+                   shard_ids=None) -> DistGraph:
+    """The reference's multi-shard ``DistGraph.build``, array for array
+    (the slabs of ``shard_ids`` only, when given)."""
     nv = graph.num_vertices
     parts = (balanced_parts(graph, nshards) if balanced
              else uniform_parts(nv, nshards))
@@ -238,21 +243,27 @@ def _build_sharded(graph: Graph, nshards: int, balanced: bool,
         ne_pad = next_pow2(ne_pad)
     vdt = graph.policy.vertex_dtype
     wdt = graph.policy.weight_dtype
-    sources = graph.sources().astype(np.int64)
+    held = range(nshards) if shard_ids is None else shard_ids
     shards = []
     for s in range(nshards):
-        e0 = int(graph.offsets[parts[s]])
-        e1 = int(graph.offsets[parts[s + 1]])
+        lo, hi = int(parts[s]), int(parts[s + 1])
+        e0, e1 = int(graph.offsets[lo]), int(graph.offsets[hi])
         n = e1 - e0
+        if s not in held:
+            shards.append(Shard(base=lo, bound=hi, src=None, dst=None,
+                                w=None, n_real_edges=n))
+            continue
         src_l = np.full(ne_pad, nv_pad, dtype=vdt)
         dst_g = np.zeros(ne_pad, dtype=vdt)
         w = np.zeros(ne_pad, dtype=wdt)
-        src_l[:n] = (old_to_pad[sources[e0:e1]] - s * nv_pad).astype(vdt)
+        # A source's local index is its offset in the shard's range.
+        src_l[:n] = np.repeat(np.arange(hi - lo, dtype=vdt),
+                              np.diff(graph.offsets[lo: hi + 1]))
         dst_g[:n] = old_to_pad[graph.tails[e0:e1].astype(np.int64)].astype(
             vdt)
         w[:n] = graph.weights[e0:e1]
-        shards.append(Shard(base=int(parts[s]), bound=int(parts[s + 1]),
-                            src=src_l, dst=dst_g, w=w, n_real_edges=n))
+        shards.append(Shard(base=lo, bound=hi, src=src_l, dst=dst_g, w=w,
+                            n_real_edges=n))
     return DistGraph(graph=graph, nv_pad=nv_pad, src=None, dst=None, w=None,
                      old_to_pad=old_to_pad, pad_to_old=pad_to_old,
                      nshards=nshards, parts=parts, ne_pad=ne_pad,

@@ -36,9 +36,13 @@ def _edge_dtype(bits64: bool) -> np.dtype:
 
 
 def read_vite(path: str, bits64: bool = True,
-              policy: Policy | None = None) -> Graph:
-    """Read a whole Vite binary graph; raises ValueError on a header or
-    offset table that does not fit the file (a wrong ``bits64`` flag)."""
+              policy: Policy | None = None,
+              vertex_range: tuple[int, int] | None = None) -> Graph:
+    """Read a Vite binary graph, or with ``vertex_range=(lo, hi)`` only the
+    rows of vertices ``[lo, hi)``: the local slice, its offsets re-based
+    to 0 and its tails global (reference distgraph.cpp:194-197).  Raises
+    ValueError on a header or offset table that does not fit the file (a
+    wrong ``bits64`` flag) and on a range outside the graph."""
     policy = policy or (wide_policy() if bits64 else default_policy())
     elem = _elem_dtype(bits64)
     edge = _edge_dtype(bits64)
@@ -54,9 +58,12 @@ def read_vite(path: str, bits64: bool = True,
             f"{path}: header (nv={nv}, ne={ne}) implies {expected} bytes but "
             f"file has {actual} — wrong bits64={bits64} flag or corrupt file"
         )
+    lo, hi = (0, nv) if vertex_range is None else map(int, vertex_range)
+    if not 0 <= lo <= hi <= nv:
+        raise ValueError(f"bad vertex range {(lo, hi)} for nv={nv}")
     offsets = np.array(np.memmap(path, dtype=elem, mode="r",
-                                 offset=2 * elem.itemsize, shape=(nv + 1,)),
-                       dtype=np.int64)
+                                 offset=2 * elem.itemsize, shape=(nv + 1,))
+                       [lo: hi + 1], dtype=np.int64)
     e0, e1 = int(offsets[0]), int(offsets[-1])
     if e0 < 0 or e1 > ne or np.any(np.diff(offsets) < 0):
         raise ValueError(

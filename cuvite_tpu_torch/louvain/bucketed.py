@@ -540,19 +540,21 @@ def bucketed_modularity(plans, comm: torch.Tensor, vdeg: torch.Tensor,
 # A vertex mesh.
 
 
-def build_stacked_plans(dg, exchange_plan=None) -> list:
-    """One :class:`BucketPlan` per shard of ``dg`` (the plans of the
-    reference's ``build_stacked_plans``, ``bucketed.py:354-528``).  The
-    reference pads them to common shapes and stacks them, since one SPMD
-    program sweeps every shard; here each shard launches its own plan, so
-    there is nothing to pad and no ``StackedPlan``.  With
-    ``exchange_plan`` (``comm/exchange.ExchangePlan``) each shard's tails
-    are remapped into its extended-local space and self-loops are found
-    locally (base 0); without, tails stay padded-global (base s *
-    nv_pad)."""
+def build_stacked_plans(dg, exchange_plan=None, shard_ids=None) -> list:
+    """One :class:`BucketPlan` per shard of ``dg`` in ``shard_ids`` (all
+    shards by default; a rank of a process group builds its own only) --
+    the plans of the reference's ``build_stacked_plans``,
+    ``bucketed.py:354-528``.  The reference pads them to common shapes and
+    stacks them, since one SPMD program sweeps every shard; here each
+    shard launches its own plan, so there is nothing to pad and no
+    ``StackedPlan``.  With ``exchange_plan`` (``comm/exchange.ExchangePlan``)
+    each shard's tails are remapped into its extended-local space and
+    self-loops are found locally (base 0); without, tails stay
+    padded-global (base s * nv_pad)."""
     nvl = dg.nv_pad
     plans = []
-    for s, sh in enumerate(dg.shards):
+    for s in (range(dg.nshards) if shard_ids is None else shard_ids):
+        sh = dg.shards[s]
         if exchange_plan is None:
             plans.append(BucketPlan.build(sh.src, sh.dst, sh.w,
                                           nv_local=nvl, base=s * nvl))
@@ -567,12 +569,13 @@ def build_stacked_plans(dg, exchange_plan=None) -> list:
 class MeshPlan:
     """A phase's plans on the shards of a mesh, in the kernels' dtypes.
 
-    ``exchange`` 'replicated': shard s's :class:`DevicePlan` addresses its
-    rows and hubs by padded-global id, and ``vdeg_full``/``sl_full`` hold
-    the whole mesh's degrees and self-loops on every shard (gathered once a
-    phase).  'sparse': rows by local id, tails extended-local, hubs as
-    raw edges (``heavy_edges``: local src, extended-local dst, w) and the
-    routing (``send_idx``, ``ghost_sel``, ``budget``)."""
+    Lists run over the mesh's local shards.  ``exchange`` 'replicated':
+    shard s's :class:`DevicePlan` addresses its rows and hubs by
+    padded-global id, and ``vdeg_full``/``sl_full`` hold the whole mesh's
+    degrees and self-loops on every shard (gathered once a phase).
+    'sparse': rows by local id, tails extended-local, hubs as raw edges
+    (``heavy_edges``: local src, extended-local dst, w) and the routing
+    (``send_idx``, ``ghost_sel``, ``budget``)."""
 
     mesh: object
     nv_pad: int
@@ -594,15 +597,15 @@ class MeshPlan:
     def upload(host_plans: list, mesh, nv_pad: int, vdegs: list, *,
                exchange: str = "replicated", xplan=None,
                budget: int = 0) -> "MeshPlan":
-        """Place the per-shard ``host_plans`` (:func:`build_stacked_plans`)
-        on ``mesh``; ``vdegs`` are the shards' [nv_pad] f32 degrees on
-        their devices; ``xplan`` and ``budget`` for the sparse
-        exchange."""
+        """Place the local shards' ``host_plans``
+        (:func:`build_stacked_plans`) on ``mesh``; ``vdegs`` are their
+        [nv_pad] f32 degrees on their devices; ``xplan`` and ``budget``
+        for the sparse exchange."""
         S = mesh.size
         nv_total = S * nv_pad
         sparse = exchange == "sparse"
         plans, sls, heavy = [], [], []
-        for s, (p, dev) in enumerate(zip(host_plans, mesh.devices)):
+        for s, p, dev in zip(mesh.shard_ids, host_plans, mesh.devices):
             if sparse:
                 plans.append(DevicePlan.upload(p, dev, hubs=False))
                 real = p.heavy_src < nv_pad
@@ -628,19 +631,20 @@ class MeshPlan:
 
 
 class ShardedResult(NamedTuple):
-    targets: list             # per shard [nv_pad] int32 proposed community
-    modularity: torch.Tensor  # 0-dim f64 Q of the INPUT, shard 0's device
-    n_moved: torch.Tensor     # 0-dim int64, shard 0's device
+    targets: list             # per local shard [nv_pad] int32 community
+    modularity: torch.Tensor  # 0-dim f64 Q of the INPUT, first local device
+    n_moved: torch.Tensor     # 0-dim int64, the same device
     overflow: torch.Tensor    # 0-dim bool: a shard's budget overflowed
-    counter0: list            # per shard [nv_pad] f32
+    counter0: list            # per local shard [nv_pad] f32
 
 
 def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
                           constant: float) -> ShardedResult:
-    """One sweep over every shard of the mesh (reference ``bucketed_step``
-    under ``make_sharded_bucketed_step``, ``bucketed.py:842-1150,1251``).
-    ``comms``/``vdegs``: the shards' [nv_pad] owned slices; ``constant`` =
-    1/(2m), rounded to f32 for the gains."""
+    """One sweep over the local shards of the mesh (reference
+    ``bucketed_step`` under ``make_sharded_bucketed_step``,
+    ``bucketed.py:842-1150,1251``).  ``comms``/``vdegs``: the local shards'
+    [nv_pad] owned slices; ``constant`` = 1/(2m), rounded to f32 for the
+    gains."""
     mesh, nv = mp.mesh, mp.nv_pad
     nv_total = mp.nv_total
     c32 = float(torch.tensor(constant, dtype=torch.float32))
@@ -658,11 +662,11 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
         comm_deg64 = psum(deg_parts, mesh)
         comm_size = psum(size_parts, mesh)
     targets, counter0s, moved = [], [], []
-    for s in range(mesh.size):
-        plan, comm, vdeg = mp.plans[s], comms[s], vdegs[s]
-        sl = mp.self_loops[s]
+    for i, s in enumerate(mesh.shard_ids):
+        plan, comm, vdeg = mp.plans[i], comms[i], vdegs[i]
+        sl = mp.self_loops[i]
         if sparse:
-            env = envs[s]
+            env = envs[i]
             cuda = comm.device.type == "cuda"
             vinfo = (attached_vertex_table(comm, env.cdeg_v, vdeg, sl)
                      if cuda else None)
@@ -676,17 +680,17 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
             best_c, best_gain, counter0, best_size = _assemble(
                 parts, plan.perm, (SENTINEL, float("-inf"), 0.0, 0))
             best_c, best_gain, counter0, best_size = _sparse_hubs(
-                mp.heavy_edges[s], env, comm, vdeg, sl, c32, best_c,
+                mp.heavy_edges[i], env, comm, vdeg, sl, c32, best_c,
                 best_gain, counter0, best_size)
             target, move = _guarded_targets(
                 comm, best_c, best_gain, nv_total,
                 sizes=(best_size, env.csize_v))
         else:
             best_c, best_gain, counter0 = _replicated_moves(
-                plan, comm_full[s], comm_deg64[s].float(), mp.vdeg_full[s],
-                mp.sl_full[s], c32, s * nv)
+                plan, comm_full[i], comm_deg64[i].float(), mp.vdeg_full[i],
+                mp.sl_full[i], c32, s * nv)
             target, move = _guarded_targets(comm, best_c, best_gain,
-                                            nv_total, comm_size=comm_size[s])
+                                            nv_total, comm_size=comm_size[i])
         targets.append(target)
         counter0s.append(counter0)
         moved.append(move.sum())

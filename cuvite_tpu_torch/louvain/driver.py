@@ -92,12 +92,25 @@ larger budget (sticky across phases).  Coarsening between phases runs on
 the host and the next phase re-shards, as in the reference; no device
 coarsening or re-binning runs on a mesh.  ``engine='fused'`` warns and
 runs the bucketed engine.  ET, coloring, vertex ordering and checkpoints
-on a mesh of more than one shard raise (``ROADMAP.md`` A7), as do the
-two-level exchange and multi-process meshes, which are not ported.
+on a mesh of more than one shard raise (``ROADMAP.md`` A7), as does the
+two-level exchange, which is not ported.
 ``LouvainResult.exchange_stats`` digests the first mesh phase's plan,
 and ``dist_stats=True`` prints the partition's edge distribution once.
 
-Not ported yet: the per-host-ingest fingerprints of checkpoints.
+Several processes, one rank per card (``comm/multihost.initialize``
+first; reference ``driver.py:420-433,1788-1810``): the mesh is this
+rank's view (``make_mesh(S)``), each rank sweeps its own shards, the
+collectives go over the process group, and at each phase end the labels
+come back to every rank (``multihost.gather_global``).  Planning,
+coarsening and the f64 Q stay on the host and are replicated: every rank
+computes the same ones, so every rank returns the same result.  A
+``io/dist_ingest.DistVite`` graph (per-rank ingest) forces the sparse
+exchange and the bucketed engine; its phase 0 runs on the ranks' own
+slabs, its Q is reduced over them, and the coarse graph is all-gathered
+onto every rank for the phases after it.
+
+Not ported yet: the per-rank-ingest fingerprints of checkpoints (they
+wait for checkpoints on a mesh, ``ROADMAP.md`` A7).
 """
 
 from __future__ import annotations
@@ -124,6 +137,7 @@ from cuvite_tpu_torch.coarsen.rebin import (
 )
 from cuvite_tpu_torch.coarsen.rebuild import coarsen_graph, \
     renumber_communities
+from cuvite_tpu_torch.comm import multihost
 from cuvite_tpu_torch.comm.exchange import ExchangePlan
 from cuvite_tpu_torch.comm.mesh import make_mesh, shard_1d
 from cuvite_tpu_torch.core.device import resolve_device
@@ -380,16 +394,21 @@ class MeshPhaseRunner:
                                     for a, dt in ((sh.src, torch.int32),
                                                   (sh.dst, torch.int32),
                                                   (sh.w, torch.float32)))
-                              for sh, d in zip(dg.shards, mesh.devices)]
+                              for sh, d in zip(
+                                  (dg.shards[s] for s in mesh.shard_ids),
+                                  mesh.devices)]
         else:
             xplan = None
             if exchange == "sparse":
-                xplan = ExchangePlan.build(dg)
+                # A rank finds its own shards' ghosts and gathers the rest.
+                xplan = (ExchangePlan.build(dg) if mesh.group is None
+                         else ExchangePlan.build(dg, mesh.shard_ids))
                 self.xplan_stats = xplan.stats()
                 self.ghost_counts = self.xplan_stats["ghosts_per_shard"]
                 self.budget = min(int(max(128, nv // 4) if budget is None
                                       else budget), nv)
-            plans = build_stacked_plans(dg, exchange_plan=xplan)
+            plans = build_stacked_plans(dg, exchange_plan=xplan,
+                                        shard_ids=mesh.shard_ids)
             with tracer.stage("upload", into=stages):
                 self.plan = MeshPlan.upload(
                     plans, mesh, nv, self.vdeg, exchange=exchange,
@@ -412,7 +431,9 @@ class MeshPhaseRunner:
         """One phase from the identity assignment; a sparse sweep that
         overflows its budget re-runs the phase with the budget grown to
         min(nv_pad, max(4 * budget, 512)), where the owner route cannot
-        overflow.  Returns (padded-space labels as numpy, Q, sweeps)."""
+        overflow.  Returns (padded-space labels of every shard as numpy,
+        on every rank of a process group: the reference's ``_phase_sync``;
+        Q; sweeps)."""
         def sweep(comms, _active):
             res = self.step(comms)
             return res.targets, res.modularity, res.n_moved, res.overflow
@@ -430,7 +451,7 @@ class MeshPhaseRunner:
                 continue
             break
         self.labels_dev = past
-        return torch.cat([p.cpu() for p in past]).numpy(), q, iters
+        return multihost.gather_global(past), q, iters
 
 
 def _mesh_refusals(et_mode, coloring, vertex_ordering, checkpoint_dir):
@@ -467,6 +488,26 @@ def _runner_slab(runner):
     if getattr(runner, "src", None) is None:
         return None
     return runner.src, runner.dst, runner.w
+
+
+def _phase_q(dg, comm_pad: np.ndarray, runner) -> float:
+    """The phase's reported f64 Q: a per-rank partition's own reduction
+    over its slabs (``DistVite.modularity``), else ``phase_modularity``."""
+    if getattr(dg, "local_only", False):
+        return dg.modularity(comm_pad)
+    return phase_modularity(dg, comm_pad, _runner_slab(runner))
+
+
+def _coarse_from_partition(dg, dense: np.ndarray, nc: int) -> Graph:
+    """The next phase's graph from a per-rank partition: each rank's
+    coarse edges, all-gathered and rebuilt alike on every rank (the
+    reference's send_newEdges counterpart, ``driver.py:2325-2335``).
+    ``dense``: the dense community of each original vertex."""
+    dense_pad = np.zeros(dg.total_padded_vertices, dtype=np.int64)
+    dense_pad[dg.old_to_pad] = dense
+    cs, cd, cw = dg.coarse_edges(dense_pad, nc)
+    return Graph.from_edges(nc, cs, cd, weights=cw, symmetrize=False,
+                            policy=dg.graph.policy)
 
 
 def _device_transition(runner: PhaseRunner, nc: int, tracer,
@@ -582,10 +623,13 @@ def louvain_phases(
 
     ``device=None`` runs on the card and raises when there is none;
     ``device="cpu"`` runs the kernels' plain PyTorch versions.
-    ``nshards=S`` / ``mesh=`` (``comm.mesh.make_mesh``): S vertex shards,
-    one process driving all of them.  Without ``mesh`` the shards are the
-    first S visible cards (``make_mesh(S)``, which raises with fewer), or
-    all on ``device`` when one is given.  ``balanced``: edge-balanced
+    ``nshards=S`` / ``mesh=`` (``comm.mesh.make_mesh``): S vertex shards.
+    Without ``mesh`` the shards are the first S visible cards
+    (``make_mesh(S)``, which raises with fewer), or all on ``device`` when
+    one is given, one process driving all of them; under an initialized
+    process group (``comm.multihost.initialize``) this rank's S / world
+    shards on its own card.  ``graph`` may be a per-rank
+    ``io.dist_ingest.DistVite`` (module note).  ``balanced``: edge-balanced
     vertex ranges (``-b``).  ``exchange``: 'auto', 'replicated' or
     'sparse' (module note); ``exchange_budget``: the sparse exchange's
     first per-peer budget ('auto' then means sparse).  ``dist_stats``:
@@ -607,6 +651,26 @@ def louvain_phases(
         raise ValueError(f"unknown exchange {exchange!r}: the port has "
                          "'auto', 'replicated' and 'sparse'; the two-level "
                          "exchange is not ported (ROADMAP.md A7)")
+    dist_ingest = getattr(graph, "local_only", False)
+    if dist_ingest:
+        # Per-rank ingest (io/dist_ingest.DistVite): phase 0 runs on the
+        # partition's own slabs, later phases on the all-gathered coarse
+        # graph (reference driver.py:1788-1810).
+        if nshards == 1:
+            nshards = graph.nshards
+        if nshards != graph.nshards or nshards < 2:
+            raise ValueError(
+                f"nshards={nshards} does not match the DistVite partition "
+                f"({graph.nshards} shards; per-rank ingest needs >= 2)")
+        if engine not in ("auto", "bucketed"):
+            raise ValueError(
+                "per-rank ingest supports only the bucketed engine")
+        if exchange == "auto":
+            exchange = "sparse"     # host memory is the constraint here
+        if exchange != "sparse":
+            raise ValueError("per-rank ingest requires exchange='sparse': "
+                             "the replicated exchange needs every shard's "
+                             "host arrays")
     if exchange == "auto" and exchange_budget is not None:
         exchange = "sparse"
     if nshards > 1:
@@ -646,9 +710,27 @@ def louvain_phases(
             "vertex-ordering; auto-switching to the class-capable "
             "'bucketed' engine", stacklevel=2)
         engine = "bucketed"
+    if multihost.is_distributed() and mesh is None:
+        # One rank per card: this rank's shards of the mesh, on its device.
+        here = multihost.local_device()
+        if device is not None and torch.device(device).type != here.type:
+            raise ValueError(f"device={device!r} conflicts with this rank's "
+                             f"device {here} (multihost.initialize)")
+        if nshards == 1 and multihost.world_size() > 1:
+            raise ValueError(
+                f"a world of {multihost.world_size()} ranks needs nshards "
+                "a multiple of the world size, not 1")
+        if nshards == 1:
+            device = here
     if nshards > 1 and mesh is None:
-        mesh = (make_mesh(nshards) if device is None
+        mesh = (make_mesh(nshards)
+                if multihost.is_distributed() or device is None
                 else make_mesh(devices=[torch.device(device)] * nshards))
+    if dist_ingest and (mesh.shard_ids.start, mesh.shard_ids.stop) != (
+            graph.local_lo, graph.local_hi):
+        raise ValueError(
+            f"the mesh holds shards {list(mesh.shard_ids)} but this "
+            f"DistVite read [{graph.local_lo}, {graph.local_hi})")
     dev = mesh.devices[0] if nshards > 1 else resolve_device(device)
     tracer = tracer if tracer is not None else NullTracer()
     nv0 = graph.num_vertices
@@ -725,8 +807,14 @@ def louvain_phases(
         with tracer.stage("plan", into=stages):
             if pending is not None:
                 dg = pending
+            elif getattr(g, "local_only", False):
+                dg = g              # the per-rank partition itself
             elif nshards > 1:
-                dg = DistGraph.build(g, nshards, balanced=balanced)
+                # A rank of a process group builds its own shards' slabs.
+                dg = DistGraph.build(
+                    g, nshards, balanced=balanced,
+                    shard_ids=None if mesh.group is None
+                    else mesh.shard_ids)
             else:
                 dg = DistGraph.build(g)
         pending = None
@@ -780,7 +868,7 @@ def louvain_phases(
                 exchange_stats = dict(runner.xplan_stats
                                       or {"mode": runner.exchange})
         with tracer.stage("evaluate", into=stages):
-            curr_mod = phase_modularity(dg, comm_pad, _runner_slab(runner))
+            curr_mod = _phase_q(dg, comm_pad, runner)
         tot_iters += iters
         tracer.count("traversed_edges", g_ne * iters)
         tracer.ledger_snapshot(phase)
@@ -817,6 +905,9 @@ def louvain_phases(
                         runner, nc, tracer, stages)
                     g = pending.graph   # SlabMeta: scalar facts only
                     runner = None
+                elif getattr(dg, "local_only", False):
+                    runner = None
+                    g = _coarse_from_partition(dg, dense, nc)
                 else:
                     runner = None   # free the phase's device plan first
                     g = coarsen_graph(g, dense, nc)
@@ -850,8 +941,7 @@ def louvain_phases(
             with tracer.stage("iterate", into=stages):
                 comm_pad, _, iters = runner.run(1.0e-6)
             with tracer.stage("evaluate", into=stages):
-                curr_mod = phase_modularity(dg, comm_pad,
-                                            _runner_slab(runner))
+                curr_mod = _phase_q(dg, comm_pad, runner)
             tot_iters += iters
             final_gained = (curr_mod - prev_mod) > 1.0e-6
             conv = runner.convergence

@@ -139,19 +139,19 @@ def _sweep(src, dst, w, comm, comm_tab, vdeg, comm_deg, comm_size, consts,
 
 
 class ShardedStepOut(NamedTuple):
-    targets: list             # per shard [nv_pad] int32 new communities
-    modularity: torch.Tensor  # 0-dim f64 Q of the INPUT, on shard 0's device
-    n_moved: torch.Tensor     # 0-dim int64 vertices moved, on shard 0's
+    targets: list             # per local shard [nv_pad] int32 communities
+    modularity: torch.Tensor  # 0-dim f64 Q of the INPUT, first local device
+    n_moved: torch.Tensor     # 0-dim int64 vertices moved, the same device
     overflow: torch.Tensor    # 0-dim bool: never, under this exchange
 
 
 def sharded_step(mesh, srcs: list, dsts: list, ws: list, comms: list,
                  vdegs: list, constant: float) -> ShardedStepOut:
-    """One synchronous sort sweep over every shard of ``mesh`` under the
-    replicated exchange.  Per shard s: ``srcs[s]`` [ne_pad] int32 LOCAL
-    source (padding nv_pad), ``dsts[s]`` padded-global tail, ``ws[s]`` f32,
-    ``comms[s]``/``vdegs[s]`` [nv_pad] its owned slices; ``constant`` =
-    1/(2m)."""
+    """One synchronous sort sweep over the local shards of ``mesh`` under
+    the replicated exchange.  Per local shard i: ``srcs[i]`` [ne_pad] int32
+    LOCAL source (padding nv_pad), ``dsts[i]`` padded-global tail,
+    ``ws[i]`` f32, ``comms[i]``/``vdegs[i]`` [nv_pad] its owned slices;
+    ``constant`` = 1/(2m)."""
     nv = comms[0].shape[0]
     nv_total = mesh.size * nv
     comm_full = all_gather(comms, mesh)
@@ -164,11 +164,11 @@ def sharded_step(mesh, srcs: list, dsts: list, ws: list, comms: list,
     comm_deg64 = psum(deg_parts, mesh)
     comm_size = psum(size_parts, mesh)
     targets, le, moved = [], [], []
-    for s in range(mesh.size):
-        comm = comms[s]
+    for i, s in enumerate(mesh.shard_ids):
+        comm = comms[i]
         target, counter0, move = _sweep(
-            srcs[s], dsts[s], ws[s], comm, comm_full[s], vdegs[s],
-            comm_deg64[s].float(), comm_size[s],
+            srcs[i], dsts[i], ws[i], comm, comm_full[i], vdegs[i],
+            comm_deg64[i].float(), comm_size[i],
             TenantConstants.of(constant, comm.device), s * nv)
         targets.append(target)
         le.append(counter0.double().sum())

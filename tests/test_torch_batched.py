@@ -38,6 +38,10 @@ from cuvite_tpu_torch.ops.segment import (
     coalesced_runs_batched,
 )
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ENGINES = ("fused", "bucketed")
 
 

@@ -28,6 +28,10 @@ from cuvite_tpu_torch import Graph
 from cuvite_tpu_torch.kernels import _build
 from cuvite_tpu_torch.workloads import bench
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -14,6 +14,10 @@ from cuvite_tpu.utils.checkpoint import load_latest as jax_load_latest
 from cuvite_tpu_torch import Graph, louvain_phases
 from cuvite_tpu_torch.utils.checkpoint import graph_fingerprint, load_latest
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 @pytest.fixture(scope="module")
 def rmat10():

@@ -29,6 +29,10 @@ from cuvite_tpu_torch.coarsen.rebuild import coarsen_graph, \
     renumber_communities
 from cuvite_tpu_torch.core.distgraph import DistGraph
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ENGINES = ("dense", "sort")
 
 

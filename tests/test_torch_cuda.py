@@ -31,6 +31,20 @@ from cuvite_tpu_torch.kernels.seg_coalesce import (
 )
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread while a module's tests run.  Under pytest-xdist
+    each worker is its own process with its own torch, and torch's
+    default of one OpenMP thread per core in each of six workers on eight
+    cores makes them spin against each other: the port's CPU test files
+    ran several times slower so.  The thread count is restored after the
+    module; results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def bucket_case(n_rows, width, nv, seed):
     """The rows of tests/test_kernels.py::_bucket_case: communities in
     [0, nv), weights multiples of 1/16 (exact float sums in any order)."""
@@ -479,6 +493,64 @@ def test_mesh_across_cards_matches_one_card(cards, exchange):
         assert [p.iterations for p in rm.phases] == \
             [p.iterations for p in r.phases]
         assert abs(rm.modularity - r.modularity) <= 1e-9
+
+
+NCCL_RANK = r"""
+import json, sys
+import numpy as np
+from cuvite_tpu_torch.comm import multihost
+spec = json.loads(sys.argv[1])
+multihost.initialize(timeout=300)
+with multihost.fail_together():
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    res = louvain_phases(generate_rmat(12), nshards=spec["nshards"],
+                         exchange=spec["exchange"])
+    np.save(f"{spec['out']}/rank{multihost.rank()}.npy", res.communities)
+    print(json.dumps({"iters": [p.iterations for p in res.phases],
+                      "q": res.modularity.hex(),
+                      "device": str(multihost.local_device())}))
+    multihost.shutdown()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["replicated", "sparse"])
+def test_nccl_world_matches_one_process(cards, exchange, tmp_path):
+    """One NCCL rank per card (up to four, a ``file://`` store) on twice
+    as many shards: every rank sits on its own card and returns the
+    labels, iterations and Q bits of the one-process mesh on card 0."""
+    import json
+    import os
+    import sys
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.comm.multihost import launch
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    n = min(len(cards), 4)
+    spec = {"nshards": 2 * n, "exchange": exchange, "out": str(tmp_path)}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = vis.split(",")[:n] if vis else [str(i) for i in range(n)]
+    env = dict(os.environ, PYTHONPATH=repo, CUDA_VISIBLE_DEVICES=",".join(ids))
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    outs = launch([sys.executable, "-c", NCCL_RANK, json.dumps(spec)], n,
+                  f"file://{tmp_path / 'store'}", env=env, timeout=300)
+    for r, (rc, out, err) in enumerate(outs):
+        assert rc == 0, f"rank {r} exited {rc}:\n{out}\n{err[-3000:]}"
+    want = louvain_phases(generate_rmat(12),
+                          mesh=make_mesh(devices=[cards[0]] * (2 * n)),
+                          exchange=exchange)
+    for r, (_, out, _) in enumerate(outs):
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["device"] == f"cuda:{r}"
+        assert np.array_equal(np.load(tmp_path / f"rank{r}.npy"),
+                              want.communities)
+        assert rec["iters"] == [p.iterations for p in want.phases]
+        assert rec["q"] == want.modularity.hex()
 
 
 @pytest.mark.cuda

@@ -20,6 +20,10 @@ from cuvite_tpu.io.generate import generate_rmat as jax_rmat
 from cuvite_tpu.louvain.driver import louvain_phases as jax_louvain
 from cuvite_tpu_torch import Graph, louvain_phases
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 @pytest.fixture(autouse=True)
 def _free_jax_executables():

@@ -25,6 +25,10 @@ from cuvite_tpu_torch.io.generate import (
 )
 from cuvite_tpu_torch.io.vite import read_vite, write_vite
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

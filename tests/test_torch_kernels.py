@@ -34,6 +34,10 @@ from test_torch_cuda import layout_from_dense as _layout_from_dense
 from test_torch_cuda import vertex_tables as _tables
 from test_torch_cuda import zero_tie as _zero_tie
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def _pallas_rows(cmat, wmat, curr, vdeg, sl, comm_deg, constant):
     ay = comm_deg[cmat]

@@ -21,6 +21,10 @@ from cuvite_tpu_torch.louvain.driver import PhaseRunner
 
 import torch
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def _port_graph(g):
     return Graph.from_arrays(g.offsets, g.tails, g.weights)

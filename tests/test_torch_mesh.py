@@ -41,6 +41,10 @@ from cuvite_tpu_torch.louvain.bucketed import (
 )
 from cuvite_tpu_torch.louvain.driver import MeshPhaseRunner
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def _port_graph(g):
     return Graph.from_arrays(g.offsets, g.tails, g.weights)
@@ -355,8 +359,8 @@ def test_mesh_refusals_and_fallbacks(rmat9):
 
 def test_cli_shards_matches_library(rmat9, tmp_path, capsys):
     """--shards 4 --exchange sparse -b --json equals the library call;
-    --dist-stats prints the partition; the multi-process flags are
-    refused by name."""
+    --dist-stats prints the partition; the flags not ported are refused
+    by name, and the multi-process ones without what they need."""
     from cuvite_tpu_torch.cli import main
     from cuvite_tpu_torch.evaluate.modularity import modularity
     from cuvite_tpu_torch.io.vite import write_vite
@@ -375,8 +379,12 @@ def test_cli_shards_matches_library(rmat9, tmp_path, capsys):
     assert rec["modularity"] == modularity(g, lib.communities)
     assert (rec["communities"], rec["iterations"], rec["phases"]) == \
         (lib.num_communities, lib.total_iterations, len(lib.phases))
-    for flag in (["--mesh", "2x2"], ["--dist-ingest"], ["--distributed"]):
+    for flag in (["--mesh", "2x2"], ["--diag-prefix", "d"]):
         with pytest.raises(SystemExit, match="not ported"):
             main(["--file", path, "--device", "cpu", *flag])
+    with pytest.raises(SystemExit, match="--shards >= 2"):
+        main(["--file", path, "--device", "cpu", "--dist-ingest"])
+    with pytest.raises(SystemExit, match="need --distributed"):
+        main(["--file", path, "--device", "cpu", "--process-id", "0"])
     with pytest.raises(SystemExit, match="A7"):
         main(["--file", path, "--device", "cpu", "--shards", "2", "-t", "1"])

@@ -55,6 +55,10 @@ from cuvite_tpu_torch.louvain.bucketed import (
     _build_native,
 )
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

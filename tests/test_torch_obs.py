@@ -32,6 +32,10 @@ from cuvite_tpu_torch import Graph, louvain_many, louvain_phases
 from cuvite_tpu_torch.kernels import _build
 from cuvite_tpu_torch.utils.trace import Tracer
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 COUNTERS = ("traversed_edges", "coalesce_edges", "coalesce_dense_edges",
             "rebin_phases", "rebin_device_phases")
 TIME_KEYS = ("wall", "mono", "dur_s", "rss_mb")

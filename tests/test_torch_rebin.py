@@ -30,6 +30,10 @@ from cuvite_tpu_torch.louvain.bucketed import (
 )
 from test_rebin import _coalesced_slab
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 CONFIGS = [
     (8, 64, {}),
     (64, 1024, {"gapped": True}),

@@ -23,6 +23,10 @@ from cuvite_tpu.louvain.driver import louvain_phases as jax_louvain
 from cuvite_tpu_torch import Graph, louvain_phases
 from cuvite_tpu_torch.core.distgraph import DistGraph
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 @pytest.fixture(autouse=True)
 def _free_jax_executables():
@@ -242,24 +246,33 @@ def _check_schedules(jg, configs) -> list:
 # ET inside the class schedule runs the reference's host loop: its frozen
 # stop in Python floats (mode 3 stops R-MAT 10's phase 0 after six sweeps
 # instead of thirteen) and its decay (mode 2 with a steep decay adds a
-# fourth phase).  It shares the compiled class sweeps of the plain runs.
-_SCHEDULES = [dict(coloring=8), dict(vertex_ordering=8)]
-_ET_SCHEDULES = [dict(coloring=8, et_mode=3),
-                 dict(coloring=8, et_mode=2, et_delta=0.9)]
+# fourth phase).  One case a configuration, so that the cases spread over
+# the test workers; each checks what its configuration pins.
+_COLOR_CASES = {
+    "coloring8": (dict(coloring=8), {"rmat10": ("phase0_sweeps", 13)}),
+    "ordering8": (dict(vertex_ordering=8), {}),
+    "coloring8-et3": (dict(coloring=8, et_mode=3),
+                      {"rmat10": ("phase0_sweeps", 6)}),
+    "coloring8-et2": (dict(coloring=8, et_mode=2, et_delta=0.9),
+                      {"rmat10": ("phases", 4)}),
+}
 
 
-@pytest.mark.parametrize("name", ["karate", "rmat10", "rmat12"])
-def test_color_schedules_match_jax(name, request):
+@pytest.mark.parametrize("name,case", [
+    (name, case) for name in ("karate", "rmat10", "rmat12")
+    for case in ("coloring8", "ordering8")] + [
+    ("rmat10", "coloring8-et3"), ("rmat10", "coloring8-et2")])
+def test_color_schedules_match_jax(name, case, request):
     """coloring=8 (community tables refreshed per class) and
     vertex_ordering=8 (frozen at the iteration start) on phase 0, and on
     R-MAT 10 coloring with ET."""
-    with_et = name == "rmat10"
-    runs = _check_schedules(request.getfixturevalue(name),
-                            _SCHEDULES + (_ET_SCHEDULES if with_et else []))
-    if with_et:
-        assert runs[0].phases[0].iterations == 13
-        assert runs[2].phases[0].iterations == 6
-        assert len(runs[3].phases) == 4
+    kw, pins = _COLOR_CASES[case]
+    run = _check_schedules(request.getfixturevalue(name), [kw])[0]
+    if name in pins:
+        what, want = pins[name]
+        got = (run.phases[0].iterations if what == "phase0_sweeps"
+               else len(run.phases))
+        assert got == want, (what, got, want)
 
 
 def test_sort_engine_switches_to_bucketed_for_colors(karate):

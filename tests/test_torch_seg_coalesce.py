@@ -25,6 +25,10 @@ from cuvite_tpu_torch.kernels import seg_coalesce as sc
 from cuvite_tpu_torch.ops import segment as seg
 from test_torch_cuda import coalesce_case, hot_src_slab
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def _jax(*arrs):
     return tuple(jnp.asarray(a) for a in arrs)

@@ -48,6 +48,10 @@ from cuvite_tpu_torch.serve.loadgen import (
 )
 from cuvite_tpu_torch.utils.trace import Tracer as PTracer
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 SMALL = (4096, 16384)
 BIG = (8192, 32768)
 

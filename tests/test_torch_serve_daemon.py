@@ -26,6 +26,10 @@ import pytest
 import cuvite_tpu.serve as jserve
 import cuvite_tpu_torch.serve as pserve
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

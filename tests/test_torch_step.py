@@ -20,6 +20,10 @@ from cuvite_tpu.io.generate import rmat_edges_numpy
 from cuvite_tpu.louvain.step import make_single_step
 from cuvite_tpu_torch.louvain.step import louvain_step_local
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def _dyadic_rmat(scale):
     src, dst = rmat_edges_numpy(scale, 16 << scale, 1, 0.57, 0.19, 0.19)

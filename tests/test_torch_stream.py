@@ -73,6 +73,10 @@ from cuvite_tpu_torch.workloads.synth import churn_batches, load_churn, \
 
 from test_torch_serve_daemon import DaemonClient, stub_runner
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NV = 300
 

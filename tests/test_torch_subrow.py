@@ -29,6 +29,10 @@ from cuvite_tpu_torch.core import batch as pbatch
 from cuvite_tpu_torch.louvain import batched as pbatched
 from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 SMALL = (4096, 16384)
 BIG = (8192, 32768)
 ENGINES = ("fused", "bucketed")

@@ -19,6 +19,10 @@ from cuvite_tpu_torch.io.vite import read_vite
 from cuvite_tpu_torch.workloads import golden as pgolden
 from cuvite_tpu_torch.workloads import synth as psynth
 
+from test_torch_cuda import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 # tests/test_workloads.py's golden workload.
 SYNTH_EDGES = 40_000
 SYNTH_SEED = 7
