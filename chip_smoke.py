@@ -5,7 +5,8 @@
                           [--rgg-nv 4194304] [--rgg-check-nv 65536]
                           [--fused-check-scale 12] [--fused-shrink 4096]
                           [--schedule-scale 20] [--native-rmat-scale 18]
-    python3 chip_smoke.py --only-multiprocess    # phases 1, 30, 33, 34
+    python3 chip_smoke.py --only-multiprocess    # phases 1, 30, 35's
+                                                 # colored run, 33, 34
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -243,7 +244,24 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    DistVite, reading only its shards' edge ranges (bytes read printed;
    fewer than the file's on two or more ranks), and runs it (the sparse
    exchange); labels, iterations, Q and summed launches against phase
-   30's sparse run.
+   30's sparse run; then coloring=8 (colors from
+   multi_hash_coloring_dist), against phase 35's one-process colored
+   sparse run, and the same stopped after phase 0 (max_phases=1) and
+   resumed from a checkpoint directory the ranks share (rank 0 writes),
+   equal to it too;
+35. (run before 33-34) ET, the color schedules and checkpoints on 4
+   shards of one card: et_mode 1-4, coloring=8 and vertex_ordering=8 on
+   R-MAT --check-scale under both exchanges, card against CPU and one
+   shard (the non-size row kernel on the replicated runs, the size form
+   on the sparse ones); a checkpointed coloring=8 sparse run
+   (max_phases=1, then resume) equal to the uninterrupted one; R-MAT
+   --scale's coloring=8 classes, class 0 emptied on shard 1, each class
+   step of two iterations (refreshed, then frozen tables) and the Q pass
+   card against CPU, targets, counter0, overflow and Q bit-equal, under
+   both exchanges, with the card steps' launches; R-MAT --scale at full
+   width with coloring=8 sparse and et_mode=3 replicated: per phase the
+   stages, the walls beside phase 14's one-shard runs, the launches,
+   labels equal to phase 14's, Q within 1e-6 of the host f64 modularity.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -1394,8 +1412,9 @@ def check_schedules_card_vs_cpu(scale: int) -> None:
           "0 conflicting edges")
 
 
-def run_schedule_paths(g, scale: int) -> dict:
-    """Phase 14; returns each run's launch counts."""
+def run_schedule_paths(g, scale: int, results: dict | None = None) -> dict:
+    """Phase 14; returns each run's launch counts.  ``results``: filled
+    with each run's (LouvainResult, wall s) by name."""
     import torch
 
     from cuvite_tpu_torch import louvain_phases
@@ -1431,6 +1450,8 @@ def run_schedule_paths(g, scale: int) -> dict:
             fail(f"R-MAT {scale} {name}: reported Q {res.modularity} vs "
                  f"host f64 {q_host}")
         out[f"{name} R-MAT {scale}"] = launches
+        if results is not None:
+            results[name] = (res, total_s)
     return out
 
 
@@ -3343,6 +3364,247 @@ def check_budget_retry(scale: int, nshards: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 35: early termination, the color schedules and checkpoints on a
+# mesh.
+
+# Phase 34's colored DistVite runs and phase 35's full-width sparse run.
+COLOR_RUN = "coloring=8 sparse"
+MESH_SCHEDULES = ([{"et_mode": m} for m in (1, 2, 3, 4)]
+                  + [{"coloring": 8}, {"vertex_ordering": 8}])
+
+
+def _kw_name(kw: dict) -> str:
+    return " ".join(f"{k}={v}" for k, v in kw.items())
+
+
+def check_mesh_schedules(scale: int, nshards: int) -> dict:
+    """Phase 35, first part: every mesh option on R-MAT --check-scale,
+    both exchanges, card against CPU and against one shard on the card;
+    then a checkpointed colored run resumed on the card."""
+    import tempfile
+
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    g = generate_rmat(scale)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * nshards)
+    paths = {}
+    for kw in MESH_SCHEDULES:
+        name = _kw_name(kw)
+        one = louvain_phases(g, device="cuda", **kw)
+        line = []
+        for exchange in ("replicated", "sparse"):
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            rg = louvain_phases(g, mesh=mesh, exchange=exchange, **kw)
+            card_s = time.perf_counter() - t0
+            launches = kernel_counts()
+            rc = louvain_phases(g, nshards=nshards, device="cpu",
+                                exchange=exchange, **kw)
+            what = f"R-MAT {scale} {nshards} shards {exchange} {name}"
+            check_same_run(what, rg, rc)
+            check_same_run(f"{what} vs one shard", rg, one)
+            form, other = (("row_argmax_sized", "row_argmax")
+                           if exchange == "sparse"
+                           else ("row_argmax", "row_argmax_sized"))
+            if launches[form] == 0 or launches[other]:
+                fail(f"{what}: launches {launches}")
+            paths[f"mesh {nshards} shards R-MAT {scale} {name} {exchange}, "
+                  "card vs CPU"] = launches
+            line.append(f"{exchange} {card_s:.2f} s, {launches[form]} "
+                        f"{form}")
+        print(f"  {name}: {len(one.phases)} phases, iterations "
+              f"{[p.iterations for p in one.phases]}, Q "
+              f"{one.modularity:.9f}; card = CPU = one shard under both "
+              f"exchanges ({'; '.join(line)})")
+    kw = {"coloring": 8, "exchange": "sparse"}
+    full = louvain_phases(g, mesh=mesh, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        part = louvain_phases(g, mesh=mesh, checkpoint_dir=tmp, max_phases=1,
+                              **kw)
+        res = louvain_phases(g, mesh=mesh, checkpoint_dir=tmp, resume=True,
+                             **kw)
+    if len(part.phases) != 1 or len(full.phases) < 2:
+        fail(f"R-MAT {scale} checkpoint: {len(part.phases)} and "
+             f"{len(full.phases)} phases")
+    check_same_run(f"R-MAT {scale} {nshards} shards coloring=8 sparse, "
+                   "resumed vs uninterrupted", res, full)
+    print(f"  coloring=8 sparse stopped after phase 0 (max_phases=1) and "
+          f"resumed from its checkpoint: {len(res.phases)} phases, labels, "
+          "iterations and Q equal to the uninterrupted run")
+    return paths
+
+
+def check_mesh_class_sweeps(g, scale: int, nshards: int,
+                            n: int = 8) -> dict:
+    """Phase 35: one coloring iteration's class plans on a mesh of
+    ``nshards`` shards of one card against the same plans on the CPU, both
+    exchanges: the classes of R-MAT --scale's coloring (``n`` hashes' worth),
+    shard 1's vertices of class 0 moved to the last class so that class 0
+    has no row there.  Two iterations from the identity (refreshed tables,
+    then vertex ordering's frozen ones): each class step's targets,
+    counter0 and overflow and the iteration's Q pass bit-equal, card
+    against CPU.  Returns the card steps' launches by exchange."""
+    import torch
+
+    from cuvite_tpu_torch.comm.exchange import ExchangePlan
+    from cuvite_tpu_torch.comm.mesh import make_mesh, shard_1d
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.louvain.bucketed import (
+        MeshPlan,
+        build_mesh_class_plans,
+        sharded_bucketed_modularity,
+        sharded_bucketed_step,
+    )
+    from cuvite_tpu_torch.louvain.driver import _color_classes
+
+    t0 = time.perf_counter()
+    dg = DistGraph.build(g, nshards)
+    nv = dg.nv_pad
+    cls, n_classes = _color_classes(g, dg, n, "cuda", False)
+    sub = cls[nv:2 * nv]
+    sub[sub == 0] = n_classes - 1
+    const = 1.0 / dg.graph.total_edge_weight_twice()
+    vdeg_np = dg.padded_weighted_degrees().astype(np.float32)
+    paths = {}
+    print(f"  {n_classes} classes; class 0 emptied on shard 1; colored "
+          f"and laid out in {time.perf_counter() - t0:.2f} s")
+    for exchange in ("replicated", "sparse"):
+        t0 = time.perf_counter()
+        xplan = ExchangePlan.build(dg) if exchange == "sparse" else None
+        host = build_mesh_class_plans(dg, cls, n_classes,
+                                      exchange_plan=xplan)
+        plan_s = time.perf_counter() - t0
+        meshes = {}
+        for dev in ("cuda", "cpu"):
+            mesh = make_mesh(devices=[torch.device(dev)] * nshards)
+            vdeg = shard_1d(mesh, vdeg_np)
+            mps = []
+            for plans in host:
+                mps.append(MeshPlan.upload(
+                    plans, mesh, nv, vdeg, exchange=exchange, xplan=xplan,
+                    budget=min(max(128, nv // 4), nv),
+                    shared=mps[0] if mps else None))
+            meshes[dev] = (mesh, vdeg, mps)
+        empty = meshes["cpu"][2][0].plans[1]
+        if empty.buckets or empty.heavy is not None:
+            fail("class 0 still has rows on shard 1")
+        hubs = sum(int(mp.heavy_edges[i][0].numel() > 0
+                       if exchange == "sparse"
+                       else mp.plans[i].heavy is not None)
+                   for mp in meshes["cpu"][2] for i in range(nshards))
+        works = {d: shard_1d(meshes[d][0],
+                             np.arange(nshards * nv, dtype=np.int32))
+                 for d in meshes}
+        launches = {}
+        card_s = cpu_s = 0.0
+        for it, frozen in ((0, False), (1, True)):
+            info = dict(works) if frozen else {d: None for d in works}
+            mods = {}
+            for d in meshes:
+                mesh, vdeg, mps = meshes[d]
+                mods[d] = [float(x) for x in sharded_bucketed_modularity(
+                    mps, works[d], vdeg, const)]
+            if mods["cuda"] != mods["cpu"]:
+                fail(f"{exchange} class sweep {it}: Q pass {mods}")
+            moved = 0
+            for c in range(n_classes):
+                out = {}
+                for d in meshes:
+                    mesh, vdeg, mps = meshes[d]
+                    if d == "cuda":
+                        torch.cuda.synchronize()
+                        zero_kernel_counts()
+                    t1 = time.perf_counter()
+                    out[d] = sharded_bucketed_step(
+                        mps[c], works[d], vdeg, const, info_comms=info[d])
+                    if d == "cuda":
+                        torch.cuda.synchronize()
+                        card_s += time.perf_counter() - t1
+                        for k, v in kernel_counts().items():
+                            launches[k] = launches.get(k, 0) + v
+                    else:
+                        cpu_s += time.perf_counter() - t1
+                rg, rc = out["cuda"], out["cpu"]
+                for a, b, what in ((rg.targets, rc.targets, "targets"),
+                                   (rg.counter0, rc.counter0, "counter0")):
+                    if not all(torch.equal(x.cpu(), y)
+                               for x, y in zip(a, b)):
+                        fail(f"{exchange} class {c} of {n_classes}, "
+                             f"iteration {it}: {what} differ card vs CPU")
+                if bool(rg.overflow) != bool(rc.overflow) or \
+                        int(rg.n_moved) != int(rc.n_moved):
+                    fail(f"{exchange} class {c}, iteration {it}: overflow "
+                         "or moves differ card vs CPU")
+                moved += int(rc.n_moved)
+                works = {"cuda": rg.targets, "cpu": rc.targets}
+            print(f"  {exchange} class sweep {it} "
+                  f"({'frozen' if frozen else 'refreshed'} tables): "
+                  f"{n_classes} class steps, {moved} moves, Q "
+                  f"{mods['cpu'][0]:.9f}; targets, counter0, overflow and "
+                  "Q bit-equal on card and CPU")
+        form = "row_argmax_sized" if exchange == "sparse" else "row_argmax"
+        if launches.get(form, 0) == 0 or (
+                exchange == "replicated" and hubs
+                and launches.get("heavy_bincount", 0) == 0):
+            fail(f"{exchange} class sweeps: launches {launches}")
+        print(f"  {exchange}: plans built in {plan_s:.2f} s, {hubs} "
+              f"(class, shard) plans with hubs; the {2 * n_classes} class "
+              f"steps {card_s:.3f} s on the card (synchronized per step), "
+              f"{cpu_s:.3f} s on the twins; launches {launches}")
+        paths[f"mesh {nshards} shards class sweeps R-MAT {scale} "
+              f"{exchange}, card vs CPU"] = launches
+    return paths
+
+
+def run_mesh_schedule_full(g, scale: int, nshards: int, kw: dict,
+                           one=None) -> tuple:
+    """Phase 35: a schedule at full width on ``nshards`` shards of one
+    card, launch counts zeroed just before and read just after; per
+    phase the stages; fails unless Q is within 1e-6 of the host f64
+    modularity and (given ``one``) the labels equal one shard's.  Returns
+    (launches, wall s, LouvainResult)."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * nshards)
+    name = _kw_name(kw)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = louvain_phases(g, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    for p in res.phases:
+        st = " ".join(f"{k} {v:.3f}" for k, v in p.stages.items())
+        print(f"    phase {p.phase}: nv {p.num_vertices} ne {p.num_edges} "
+              f"iterations {p.iterations} Q {p.modularity:.9f} seconds "
+              f"{p.seconds:.3f} ({st})")
+    print(f"  {name} on {nshards} shards of one card, R-MAT {scale}: "
+          f"{wall:.3f} s, {res.total_iterations} sweeps, {len(res.phases)} "
+          f"phases, Q {res.modularity:.9f}; launches {launches}")
+    q_host = modularity(g, res.communities)
+    if abs(q_host - res.modularity) > 1e-6:
+        fail(f"{name} mesh: reported Q {res.modularity} vs host f64 "
+             f"{q_host}")
+    if one is not None and not np.array_equal(res.communities,
+                                              one.communities):
+        fail(f"{name} mesh: labels differ from one shard's (phase 14)")
+    form = ("row_argmax_sized" if kw.get("exchange") == "sparse"
+            else "row_argmax")
+    if launches[form] == 0:
+        fail(f"{name} mesh: {form} never launched")
+    return launches, wall, res
+
+
+# ---------------------------------------------------------------------------
 # Phase 32: the native host runtime against its numpy paths.
 
 
@@ -3587,20 +3849,24 @@ def rank_worker(spec_json: str) -> int:
         else:
             g = generate_rmat(spec["scale"])
         rec["load_s"] = time.perf_counter() - t0
-        for exchange in spec["exchanges"]:
+        for i, (name, kw) in enumerate(spec["runs"]):
+            kw = dict(kw)
+            if "checkpoint_dir" in kw:   # shared by the ranks
+                kw["checkpoint_dir"] = os.path.join(spec["out"],
+                                                    kw["checkpoint_dir"])
             log = ExchangeLog()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             zero_sent_bytes()
             zero_kernel_counts()
             t0 = time.perf_counter()
-            res = louvain_phases(g, nshards=spec["nshards"],
-                                 exchange=exchange, tracer=log)
+            res = louvain_phases(g, nshards=spec["nshards"], tracer=log,
+                                 **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            np.save(os.path.join(spec["out"], f"{exchange}-rank{r}.npy"),
+            np.save(os.path.join(spec["out"], f"run{i}-rank{r}.npy"),
                     res.communities)
-            rec["runs"][exchange] = {
+            rec["runs"][name] = {
                 "wall_s": wall, "launches": kernel_counts(),
                 "sent_bytes": sent_bytes(),
                 "iterations": [p.iterations for p in res.phases],
@@ -3652,9 +3918,9 @@ def run_world(what: str, cards: list, spec: dict) -> list:
         for r in range(len(cards)):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 rec = json.load(f)
-            rec["labels"] = {ex: np.load(os.path.join(tmp,
-                                                      f"{ex}-rank{r}.npy"))
-                             for ex in spec["exchanges"]}
+            rec["labels"] = {name: np.load(os.path.join(
+                tmp, f"run{i}-rank{r}.npy"))
+                for i, (name, _) in enumerate(spec["runs"])}
             recs.append(rec)
     print(f"  {what}: world of {len(cards)} on cards {cards} "
           f"({recs[0]['card']}), {wall:.1f} s with process start and load")
@@ -3711,7 +3977,7 @@ def check_world(what: str, recs: list, one_process: dict,
                   f"{run['sent_bytes']} over {sweeps} sweeps, "
                   f"{run['sent_bytes'] / sweeps:.0f} a sweep; peak "
                   f"{run['max_memory_allocated']} B")
-        want = {k: v for k, v in launches.items() if v}
+        want = {k: v for k, v in (launches or total).items() if v}
         if {k: v for k, v in total.items() if v} != want:
             fail(f"{what} {ex}: launches over the ranks {total} vs one "
                  f"process {launches}")
@@ -3744,7 +4010,7 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
     nv_pad = next_pow2(-(-g.num_vertices // nshards))
     recs = run_world(f"R-MAT {scale}", cards[:world], {
         "scale": scale, "nshards": nshards, "path": None,
-        "exchanges": ["replicated", "sparse"],
+        "runs": [[ex, {"exchange": ex}] for ex in ("replicated", "sparse")],
         "collectives": [nv_pad, block]})
     for ex, tot in check_world(f"R-MAT {scale}", recs, one_process,
                                nshards).items():
@@ -3767,9 +4033,15 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
         write_vite(path, g, bits64=False)
         print(f"  wrote {os.path.getsize(path)} B (32-bit Vite) in "
               f"{time.perf_counter() - t1:.2f} s")
+        color = {"exchange": "sparse", "coloring": 8}
         recs = run_world(f"DistVite R-MAT {scale}", cards[:world], {
             "scale": scale, "nshards": nshards, "path": path,
-            "exchanges": ["sparse"]})
+            "runs": [["sparse", {"exchange": "sparse"}],
+                     [COLOR_RUN, color],
+                     [COLOR_RUN + ", checkpointed",
+                      dict(color, max_phases=1, checkpoint_dir="ck")],
+                     [COLOR_RUN + ", resumed",
+                      dict(color, resume=True, checkpoint_dir="ck")]]})
     per = nshards // world
     for rec in recs:
         r = rec["rank"]
@@ -3781,10 +4053,18 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
         print(f"  rank {r}: shards {rec['held']}, read {rec['bytes_read']} "
               f"B of {rec['file_bytes']} B in {rec['load_s']:.2f} s")
     print_inits(recs)
-    tot = check_world(f"DistVite R-MAT {scale}", recs,
-                      {"sparse": one_process["sparse"]}, nshards)
-    paths[f"world {world} DistVite, {nshards} shards R-MAT {scale} "
-          "sparse"] = tot["sparse"]
+    for rec in recs:
+        part = rec["runs"][COLOR_RUN + ", checkpointed"]
+        if len(part["iterations"]) != 1:
+            fail(f"DistVite rank {rec['rank']}: the checkpointed run ran "
+                 f"{len(part['iterations'])} phases, not 1")
+    res, launches, wall = one_process[COLOR_RUN]
+    tot = check_world(f"DistVite R-MAT {scale}", recs, {
+        "sparse": one_process["sparse"], COLOR_RUN: one_process[COLOR_RUN],
+        COLOR_RUN + ", resumed": (res, None, wall)}, nshards)
+    for name, t in tot.items():
+        paths[f"world {world} DistVite, {nshards} shards R-MAT {scale} "
+              f"{name}"] = t
     print(f"  phase 34 took {time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -3804,6 +4084,11 @@ def run_multiprocess_only(args, cards: list) -> int:
     for ex in ("replicated", "sparse"):
         launches, wall, res = run_mesh_full(g, args.scale, S, ex, None)
         one_process[ex] = (res, launches, wall)
+    print(f"[35] R-MAT {args.scale} {COLOR_RUN} on {S} shards of one card, "
+          "the one-process reference of phase 34's colored runs")
+    launches, wall, res = run_mesh_schedule_full(
+        g, args.scale, S, {"coloring": 8, "exchange": "sparse"})
+    one_process[COLOR_RUN] = (res, launches, wall)
     run_multiprocess(g, args.scale, S, cards, one_process)
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -3833,8 +4118,9 @@ def main() -> int:
                     help="R-MAT scale of phase 32's generation and "
                          "weighted-builder and Vite checks")
     ap.add_argument("--only-multiprocess", action="store_true",
-                    help="run phases 1, 30, 33 and 34 only (the one-rank-"
-                         "per-card world spans min(visible cards, 4))")
+                    help="run phases 1, 30, 35's colored sparse run, 33 "
+                         "and 34 only (the one-rank-per-card world spans "
+                         "min(visible cards, 4))")
     ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
@@ -3982,7 +4268,10 @@ def main() -> int:
     print(f"[14] ET and coloring on R-MAT {args.schedule_scale}")
     if args.schedule_scale != args.scale:
         g_rmat = generate_rmat(args.schedule_scale)
-    paths.update(run_schedule_paths(g_rmat, args.schedule_scale))
+    sched = {}
+    paths.update(run_schedule_paths(g_rmat, args.schedule_scale, sched))
+    if args.schedule_scale != args.scale:
+        sched = {}       # phase 35 compares at --scale
     check_class_sweeps(g_rmat, args.schedule_scale)
     del g_rmat
     print(f"  phases 11-14 took {time.perf_counter() - t11:.1f} s")
@@ -4171,6 +4460,32 @@ def main() -> int:
     t32 = time.perf_counter()
     check_native(args.scale, args.native_rmat_scale, main_res)
     print(f"  phase 32 took {time.perf_counter() - t32:.1f} s")
+
+    t35 = time.perf_counter()
+    print(f"[35] ET, the color schedules and checkpoints on {S} shards of "
+          "one card (before phases 33-34, which hold their colored runs "
+          "against it)")
+    paths.update(check_mesh_schedules(args.check_scale, S))
+    print(f"  R-MAT {args.check_scale} runs took "
+          f"{time.perf_counter() - t35:.1f} s")
+    paths.update(check_mesh_class_sweeps(g_rmat, args.scale, S))
+    walls = []
+    for kw in ({"coloring": 8, "exchange": "sparse"},
+               {"et_mode": 3, "exchange": "replicated"}):
+        one_name = _kw_name({k: v for k, v in kw.items()
+                             if k != "exchange"})
+        one, one_s = sched.get(one_name, (None, None))
+        launches, wall, res = run_mesh_schedule_full(g_rmat, args.scale, S,
+                                                     kw, one)
+        paths[f"mesh {S} shards R-MAT {args.scale} {_kw_name(kw)}"] = \
+            launches
+        walls.append(f"{_kw_name(kw)} {wall:.3f} s on {S} shards"
+                     + (f" vs {one_s:.3f} s on one shard (phase 14)"
+                        if one_s is not None else ""))
+        if kw.get("coloring"):
+            one_process[COLOR_RUN] = (res, launches, wall)
+    print(f"  R-MAT {args.scale} walls: {'; '.join(walls)}")
+    print(f"  phase 35 took {time.perf_counter() - t35:.1f} s")
 
     paths.update(run_multiprocess(g_rmat, args.scale, S, cards,
                                   one_process))

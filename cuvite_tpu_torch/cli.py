@@ -54,9 +54,11 @@ then to torchrun's variables.  Rank 0 alone prints and writes files
 ``--metrics-out``, ``--profile-dir``, ``--dist-stats``); every rank
 computes the same result.  ``--dist-ingest`` reads only this rank's
 shards' edge ranges of ``--file`` (``io/dist_ingest.py``; the sparse
-exchange and the bucketed engine).  Refused by name, not ported yet
-(``ROADMAP.md`` A7): ``--mesh`` (the two-level exchange) and
-``--diag-prefix``.
+exchange and the bucketed engine).  ``-t``/``-a``, ``-c``, ``-d`` and
+``--checkpoint-dir``/``--resume`` run with ``--shards``, ``--distributed``
+and ``--dist-ingest`` too (rank 0 alone writes the checkpoints).  Refused
+by name, not ported yet: ``--mesh`` (the two-level exchange,
+``ROADMAP.md`` A7.3) and ``--diag-prefix`` (A7.5).
 """
 
 from __future__ import annotations
@@ -181,17 +183,12 @@ def build_parser() -> argparse.ArgumentParser:
 def validate(args) -> None:
     """The reference's checks (``cuvite_tpu/cli.py:169``) for the flags
     the port has, and the refusal of those it has not."""
-    for flag in ("mesh", "diag_prefix"):
+    for flag, item in (("mesh", "A7.3"), ("diag_prefix", "A7.5")):
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
-                             "cuvite_tpu_torch yet (ROADMAP.md A7)")
+                             f"cuvite_tpu_torch yet (ROADMAP.md {item})")
     if args.shards < 1:
         raise SystemExit("--shards must be >= 1")
-    if args.shards > 1 and (args.early_term or args.coloring
-                            or args.vertex_ordering or args.checkpoint_dir):
-        raise SystemExit("--early-term, --coloring, --vertex-ordering and "
-                         "--checkpoint-dir are not ported to --shards > 1 "
-                         "yet (ROADMAP.md A7)")
     if not args.file and args.generate is None and args.rmat is None:
         raise SystemExit("Must specify --file, --generate or --rmat")
     if sum(x is not None for x in (args.file, args.generate, args.rmat)) > 1:

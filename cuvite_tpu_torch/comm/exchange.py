@@ -34,9 +34,13 @@ sums in f32 (or double-single pairs).  The ghost pull moves its three
 channels in one all_to_all, floats by their bits, as the reference does.
 On the exactness domain the values are the reference's bit for bit.
 
+``sparse_env(..., info=)`` takes vertex ordering's frozen assignment: the
+degree and size tables come from grouping it, the requests and the
+attachment from the current communities, at the cost of one more
+key-only all_to_all (the request route).
+
 Not ported: the grouped plan and the two-level env (``build_grouped``,
-``twolevel_env``), and the frozen ``info`` assignment of vertex ordering
-on a mesh (``ROADMAP.md`` A7).
+``twolevel_env``; ``ROADMAP.md`` A7.3).
 """
 
 from __future__ import annotations
@@ -242,39 +246,53 @@ def _group_by_community(vec: torch.Tensor, nv_pad: int, S: int, budget: int,
 
 
 def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
-               mesh, *, budget: int) -> list:
+               mesh, *, budget: int, info: list | None = None) -> list:
     """The local shards' :class:`SparseEnv` for the sweep of ``comms``.
 
     ``comms`` [nv_pad] int32 and ``vdegs`` [nv_pad] f32 per local shard
     are the owned slices; ``send_idx``/``ghost_sel`` the plan's per-shard
-    tensors (:meth:`ExchangePlan.to_mesh`)."""
+    tensors (:meth:`ExchangePlan.to_mesh`).  ``info``: per local shard the
+    frozen assignment of vertex ordering (reference ``exchange.py:349``):
+    the tables are accumulated by grouping it, while the requests and the
+    attachment follow ``comms``; its grouping's overflow joins the
+    flag."""
     S = mesh.size
     nv_pad = comms[0].shape[0]
     oob = S * budget
-    groups, deg_local, size_local, fwd = [], [], [], []
-    for s, comm, vdeg in zip(mesh.shard_ids, comms, vdegs):
+    groups, overflows, deg_local, size_local, fwd, req = [], [], [], [], \
+        [], []
+    for i, (s, comm, vdeg) in enumerate(zip(mesh.shard_ids, comms, vdegs)):
         dev = comm.device
         base = s * nv_pad
         gr = _group_by_community(comm, nv_pad, S, budget, base)
         groups.append(gr)
+        acc = gr
+        if info is not None:
+            acc = _group_by_community(info[i], nv_pad, S, budget, base)
+            # The request route: the current grouping's keys, alone.
+            rkey = torch.full((oob + 1,), SENTINEL, dtype=torch.int32,
+                              device=dev)
+            rkey[torch.where(gr.ok, gr.slot, oob)] = gr.uk
+            req.append(rkey[:oob].view(S, budget))
+        overflows.append(gr.overflow | acc.overflow)
         pdeg = torch.zeros(nv_pad, dtype=torch.float64, device=dev)
-        pdeg.index_add_(0, gr.run_id, vdeg[gr.order].double())
+        pdeg.index_add_(0, acc.run_id, vdeg[acc.order].double())
         psize = torch.zeros(nv_pad, dtype=torch.int32, device=dev)
-        psize.index_add_(0, gr.run_id,
+        psize.index_add_(0, acc.run_id,
                          torch.ones(nv_pad, dtype=torch.int32, device=dev))
         # Self-owned communities: accumulated here, no communication.
-        self_idx = torch.where(gr.is_self, gr.uk.long() - base, nv_pad)
+        self_idx = torch.where(acc.is_self, acc.uk.long() - base, nv_pad)
         dl = torch.zeros(nv_pad + 1, dtype=torch.float64, device=dev)
-        dl.index_add_(0, self_idx, torch.where(gr.is_self, pdeg, 0.0))
+        dl.index_add_(0, self_idx, torch.where(acc.is_self, pdeg, 0.0))
         sl = torch.zeros(nv_pad + 1, dtype=torch.int32, device=dev)
-        sl.index_add_(0, self_idx, torch.where(gr.is_self, psize, 0))
+        sl.index_add_(0, self_idx, torch.where(acc.is_self, psize, 0))
         deg_local.append(dl)
         size_local.append(sl)
         # Remote-owned: (key, partial degree, partial size) to the owner,
         # slots past the budget dropped.
-        sslot = torch.where(gr.ok, gr.slot, oob)
+        sslot = torch.where(acc.ok, acc.slot, oob)
         key = torch.full((oob + 1,), SENTINEL, dtype=torch.int32, device=dev)
-        key[sslot] = gr.uk
+        key[sslot] = acc.uk
         sdeg = torch.zeros(oob + 1, dtype=torch.float64, device=dev)
         sdeg[sslot] = pdeg
         ssize = torch.zeros(oob + 1, dtype=torch.int32, device=dev)
@@ -284,9 +302,10 @@ def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
     recv_key = all_to_all([f[0] for f in fwd], mesh)
     recv_deg = all_to_all([f[1] for f in fwd], mesh)
     recv_size = all_to_all([f[2] for f in fwd], mesh)
+    recv_req = recv_key if info is None else all_to_all(req, mesh)
 
     # Owners add the partials they received (sentinel keys drop) and reply
-    # with the totals over the transposed routing.
+    # with the totals of the requested keys over the transposed routing.
     rep_deg, rep_size = [], []
     for i, s in enumerate(mesh.shard_ids):
         base = s * nv_pad
@@ -296,7 +315,8 @@ def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
         size_local[i].index_add_(0, lk_in, recv_size[i].reshape(-1))
         deg_local[i] = deg_local[i][:nv_pad]
         size_local[i] = size_local[i][:nv_pad]
-        lk_safe = lk.clamp(0, nv_pad - 1)
+        lk_safe = (recv_req[i].reshape(-1).long() - base).clamp(0,
+                                                                nv_pad - 1)
         rep_deg.append(deg_local[i][lk_safe].view(S, budget))
         rep_size.append(size_local[i][lk_safe].view(S, budget))
     back_deg = all_to_all(rep_deg, mesh)
@@ -324,7 +344,7 @@ def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
     return [SparseEnv(comm_ext=comm_ext[i], cdeg_ext=cdeg_ext[i],
                       csize_ext=csize_ext[i], cdeg_v=cdeg_v[i],
                       csize_v=csize_v[i], deg_local=deg_local[i],
-                      overflow=groups[i].overflow)
+                      overflow=overflows[i])
             for i in range(len(groups))]
 
 

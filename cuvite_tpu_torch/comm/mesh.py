@@ -20,7 +20,7 @@ both; per-shard lists hold the LOCAL shards, entry i being shard
 
 Not ported: the hybrid (dcn, ici) mesh of the two-level exchange
 (``make_hybrid_mesh``, ``hybrid_shape``, ``shard_outer``; ``ROADMAP.md``
-A7).
+A7.3) and the batch axis of ``louvain_many`` (A7.4).
 """
 
 from __future__ import annotations

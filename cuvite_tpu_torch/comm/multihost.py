@@ -232,6 +232,13 @@ def _gather_rows(t: torch.Tensor, group) -> list:
     return out
 
 
+def barrier() -> None:
+    """Wait until every rank has reached this call (over the host group);
+    nothing outside a distributed run."""
+    if is_distributed():
+        dist.barrier(group=_host_group())
+
+
 def allreduce_sum_host(x):
     """Sum a small host value (scalar or array) across the ranks, in rank
     order."""

@@ -15,14 +15,16 @@ reference application's degree Allreduce) and the coarse graphs of
 phases >= 1 (assembled by all-gathering each rank's aggregated coarse
 edges, the counterpart of send_newEdges).
 
-Not ported: ``content_fingerprint``, the per-shard checkpoint
-fingerprint; it waits for checkpoints on a mesh (``ROADMAP.md`` A7).
+A checkpoint of a run on a DistVite carries its
+:meth:`DistVite.content_fingerprint`, a hash of the partitioned layout
+combined across the ranks, equal to the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import zlib
 
 import numpy as np
 
@@ -197,6 +199,29 @@ class DistVite:
         return dv
 
     # ---- whole-graph stand-ins (reductions across the ranks) ------------
+
+    def content_fingerprint(self) -> int:
+        """The checkpoint fingerprint of the input (reference
+        ``io/dist_ingest.py:193-227``, bit for bit): a CRC of each local
+        shard's (base, bound, edge count, src, dst, w), the ranks'
+        per-shard digests all-gathered and chained in shard order, with
+        the vertex count.  It covers the partitioned layout, so a resume
+        with another nshards or balanced setting is refused as another
+        graph.  Collective: every rank calls it."""
+        digests = []
+        for s in range(self.local_lo, self.local_hi):
+            sh = self.shards[s]
+            n = int(sh.n_real_edges)
+            h = zlib.crc32(np.asarray([sh.base, sh.bound, n],
+                                      dtype=np.int64).tobytes())
+            for a in (sh.src, sh.dst, sh.w):
+                h = zlib.crc32(np.ascontiguousarray(a[:n]).view(np.uint8), h)
+            digests.append(h)
+        h = 0
+        for v in np.concatenate(allgather_varlen(
+                np.asarray(digests, dtype=np.int64))):
+            h = zlib.crc32(np.int64(v).tobytes(), h)
+        return (h << 16) ^ (self.num_vertices & 0xFFFF)
 
     def _local_edges(self):
         """(padded src, padded dst, w) of each local shard's real edges."""

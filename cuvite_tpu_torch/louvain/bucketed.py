@@ -43,13 +43,18 @@ kernel) or the sparse ghost exchange (extended-local tails against
 ``comm/exchange.sparse_env``; the rows on the row kernel's size form,
 ``row_argmax_sized``, which carries the winner's size to the singleton
 guard, and the hubs on the reference's sorted path with sizes, in plain
-PyTorch, as the reference has no size-tracking heavy kernel).  Not
-ported on a mesh: the class plans of the color schedules with their mod
-pass (``make_sharded_bucketed_mod``) and the two-level exchange
-(``ROADMAP.md`` A7).  Coarse phases of the per-graph driver build their
-plan on the card (``coarsen/rebin.py``) where the reference does; the
-host build here stays its bit-parity oracle and the path for the other
-phases.
+PyTorch, as the reference has no size-tracking heavy kernel).  The color
+schedules run there too: :func:`build_mesh_class_plans` gives each color
+class its own per-shard plans (under the sparse exchange all over the
+phase's one routing), ``sharded_bucketed_step(..., info_comms=)`` is a
+class step (``make_sharded_class_step``) and
+:func:`sharded_bucketed_modularity` the iteration's Q pass
+(``make_sharded_bucketed_mod``).  A shard with no row in a class still
+takes part in every collective of its step.  Not ported on a mesh: the
+two-level exchange (``ROADMAP.md`` A7.3).  Coarse phases of the
+per-graph driver build their plan on the card (``coarsen/rebin.py``)
+where the reference does; the host build here stays its bit-parity
+oracle and the path for the other phases.
 
 Numbers: the community degrees are summed in float64 and rounded once to
 float32 for the kernels, and the in-loop Q is float64 end to end; the
@@ -268,12 +273,13 @@ def _build_native(src, dst, w, nv_local: int, base: int):
 
 def build_class_plans(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                       classes: np.ndarray, n_classes: int,
-                      nv_local: int) -> list:
+                      nv_local: int, base: int = 0) -> list:
     """One :class:`BucketPlan` per class, each equal array for array to
     ``BucketPlan.build`` over the slab with every row of another class's
     vertex turned into padding (the reference's per-class build,
     ``cuvite_tpu/louvain/driver.py:1011-1026``).  ``classes`` [nv_local]
-    gives each vertex's class in [0, n_classes).
+    gives each vertex's class in [0, n_classes); ``base`` as in
+    ``BucketPlan.build``.
 
     One stable sort of the rows by their source's class makes each class's
     rows a slice in slab order -- the rows the masked build keeps -- so
@@ -289,7 +295,7 @@ def build_class_plans(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     for c in range(n_classes):
         rows = order[bounds[c]:bounds[c + 1]]
         plans.append(BucketPlan.build(src[rows], dst[rows], w[rows],
-                                      nv_local=nv_local))
+                                      nv_local=nv_local, base=base))
     return plans
 
 
@@ -520,20 +526,32 @@ def bucketed_modularity(plans, comm: torch.Tensor, vdeg: torch.Tensor,
     dev = comm.device
     le = torch.zeros((), dtype=torch.float64, device=dev)
     for plan in plans:
-        for verts, dst, w, _deg in plan.buckets:
-            # Padding slots (the row's own vertex, weight 0) add nothing.
-            same = comm[dst.long()] == comm[verts.long()][:, None]
-            le = le + torch.where(same, w, 0.0).sum(dtype=torch.float64)
-        lay = plan.heavy
-        if lay is not None:
-            hub = torch.repeat_interleave(
-                lay.verts, lay.offsets[1:] - lay.offsets[:-1],
-                output_size=lay.dst.numel())
-            same = comm[lay.dst.long()] == comm[hub.long()]
-            le = le + torch.where(same, lay.w, 0.0).sum(dtype=torch.float64)
+        le = le + _inside_weight(plan, comm, comm)
     comm_deg64 = seg.segment_sum(vdeg.double(), comm, nv_total)
     return seg.modularity_terms(le.reshape(1), comm_deg64,
                                 TenantConstants.of(constant, dev))
+
+
+def _inside_weight(plan: DevicePlan, comm_v: torch.Tensor,
+                   comm_d: torch.Tensor) -> torch.Tensor:
+    """The f64 weight of the plan's edges that stay inside a community:
+    ``comm_v`` indexed by the rows' and hubs' vertex ids, ``comm_d`` by
+    their tails (the same vector on one device and under the replicated
+    exchange; the owned slice and the extended-local one under the
+    sparse exchange)."""
+    le = torch.zeros((), dtype=torch.float64, device=comm_v.device)
+    for verts, dst, w, _deg in plan.buckets:
+        # Padding slots (the row's own vertex, weight 0) add nothing.
+        same = comm_d[dst.long()] == comm_v[verts.long()][:, None]
+        le = le + torch.where(same, w, 0.0).sum(dtype=torch.float64)
+    lay = plan.heavy
+    if lay is not None:
+        hub = torch.repeat_interleave(
+            lay.verts, lay.offsets[1:] - lay.offsets[:-1],
+            output_size=lay.dst.numel())
+        same = comm_d[lay.dst.long()] == comm_v[hub.long()]
+        le = le + torch.where(same, lay.w, 0.0).sum(dtype=torch.float64)
+    return le
 
 
 # ---------------------------------------------------------------------------
@@ -554,15 +572,43 @@ def build_stacked_plans(dg, exchange_plan=None, shard_ids=None) -> list:
     nvl = dg.nv_pad
     plans = []
     for s in (range(dg.nshards) if shard_ids is None else shard_ids):
-        sh = dg.shards[s]
-        if exchange_plan is None:
-            plans.append(BucketPlan.build(sh.src, sh.dst, sh.w,
-                                          nv_local=nvl, base=s * nvl))
-        else:
-            ext = exchange_plan.remap_dst(s, sh.src, sh.dst).astype(
-                sh.dst.dtype)
-            plans.append(BucketPlan.build(sh.src, ext, sh.w, nv_local=nvl))
+        src, dst, w = _shard_rows(dg, s, exchange_plan)
+        plans.append(BucketPlan.build(
+            src, dst, w, nv_local=nvl,
+            base=s * nvl if exchange_plan is None else 0))
     return plans
+
+
+def _shard_rows(dg, s: int, exchange_plan) -> tuple:
+    """Shard s's real (local src, tail, w) rows, tails extended-local
+    under ``exchange_plan`` and padded-global without."""
+    sh = dg.shards[s]
+    real = sh.src < dg.nv_pad
+    dst = sh.dst
+    if exchange_plan is not None:
+        dst = exchange_plan.remap_dst(s, sh.src, sh.dst).astype(sh.dst.dtype)
+    return sh.src[real], dst[real], sh.w[real]
+
+
+def build_mesh_class_plans(dg, class_of: np.ndarray, n_classes: int,
+                           exchange_plan=None, shard_ids=None) -> list:
+    """The color classes' plans on a mesh (the reference's
+    ``build_stacked_plans(class_of=, class_id=)`` for every class): a list
+    over the classes of the shards' plans, each keeping only its class's
+    vertices' rows, as :func:`build_stacked_plans` lays them out.
+    ``class_of`` [total padded vertices] gives each vertex's class; the
+    routing does not depend on it.  One pass over each shard's slab
+    (:func:`build_class_plans`)."""
+    nvl = dg.nv_pad
+    by_shard = []
+    for s in (range(dg.nshards) if shard_ids is None else shard_ids):
+        src, dst, w = _shard_rows(dg, s, exchange_plan)
+        by_shard.append(build_class_plans(
+            src, dst, w, np.asarray(class_of)[s * nvl:(s + 1) * nvl],
+            n_classes, nv_local=nvl,
+            base=s * nvl if exchange_plan is None else 0))
+    return [list(c) for c in zip(*by_shard)] if by_shard else \
+        [[] for _ in range(n_classes)]
 
 
 @dataclasses.dataclass
@@ -596,11 +642,14 @@ class MeshPlan:
     @staticmethod
     def upload(host_plans: list, mesh, nv_pad: int, vdegs: list, *,
                exchange: str = "replicated", xplan=None,
-               budget: int = 0) -> "MeshPlan":
+               budget: int = 0, shared: "MeshPlan | None" = None
+               ) -> "MeshPlan":
         """Place the local shards' ``host_plans``
         (:func:`build_stacked_plans`) on ``mesh``; ``vdegs`` are their
         [nv_pad] f32 degrees on their devices; ``xplan`` and ``budget``
-        for the sparse exchange."""
+        for the sparse exchange.  ``shared``: a plan of the same phase
+        (another color class) whose routing or gathered degrees this one
+        reuses instead of placing its own."""
         S = mesh.size
         nv_total = S * nv_pad
         sparse = exchange == "sparse"
@@ -622,10 +671,13 @@ class MeshPlan:
                       plans=plans, self_loops=sls)
         if sparse:
             mp.heavy_edges = heavy
-            mp.send_idx, mp.ghost_sel = xplan.to_mesh(mesh)
+            mp.send_idx, mp.ghost_sel = (
+                xplan.to_mesh(mesh) if shared is None
+                else (shared.send_idx, shared.ghost_sel))
             mp.budget = int(budget)
         else:
-            mp.vdeg_full = all_gather(vdegs, mesh)
+            mp.vdeg_full = (all_gather(vdegs, mesh) if shared is None
+                            else shared.vdeg_full)
             mp.sl_full = all_gather(sls, mesh)
         return mp
 
@@ -639,25 +691,30 @@ class ShardedResult(NamedTuple):
 
 
 def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
-                          constant: float) -> ShardedResult:
+                          constant: float,
+                          info_comms: list | None = None) -> ShardedResult:
     """One sweep over the local shards of the mesh (reference
     ``bucketed_step`` under ``make_sharded_bucketed_step``,
     ``bucketed.py:842-1150,1251``).  ``comms``/``vdegs``: the local shards'
     [nv_pad] owned slices; ``constant`` = 1/(2m), rounded to f32 for the
-    gains."""
+    gains.  ``info_comms``: vertex ordering's frozen assignment, per local
+    shard, from which the community degree and size tables come (the
+    class step of ``make_sharded_class_step``; Q is then not the Q of
+    ``comms``)."""
     mesh, nv = mp.mesh, mp.nv_pad
     nv_total = mp.nv_total
     c32 = float(torch.tensor(constant, dtype=torch.float32))
     sparse = mp.exchange == "sparse"
     if sparse:
         envs = sparse_env(comms, vdegs, mp.send_idx, mp.ghost_sel, mesh,
-                          budget=mp.budget)
+                          budget=mp.budget, info=info_comms)
     else:
         comm_full = all_gather(comms, mesh)
         deg_parts, size_parts = [], []
-        for comm, vdeg in zip(comms, vdegs):
-            deg_parts.append(seg.segment_sum(vdeg.double(), comm, nv_total))
-            size_parts.append(seg.segment_sum(torch.ones_like(comm), comm,
+        for info, vdeg in zip(comms if info_comms is None else info_comms,
+                              vdegs):
+            deg_parts.append(seg.segment_sum(vdeg.double(), info, nv_total))
+            size_parts.append(seg.segment_sum(torch.ones_like(info), info,
                                               nv_total))
         comm_deg64 = psum(deg_parts, mesh)
         comm_size = psum(size_parts, mesh)
@@ -706,6 +763,50 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
     return ShardedResult(targets=targets, modularity=q,
                          n_moved=psum(moved, mesh)[0], overflow=overflow,
                          counter0=counter0s)
+
+
+def sharded_bucketed_modularity(mps: list, comms: list, vdegs: list,
+                                constant: float) -> tuple:
+    """Q of ``comms`` alone, with no argmax, over the mesh plans ``mps``
+    whose rows together hold every edge once (a phase's color-class plans;
+    reference ``bucketed_modularity`` under ``make_sharded_bucketed_mod``,
+    the Q of a class-scheduled iteration at its start).  Replicated: each
+    shard's in-community weight against the all-gathered communities and
+    the psum'd f64 degree table.  Sparse: against ``sparse_env``'s
+    extended-local communities, the a^2 term by owner
+    (:func:`comm.exchange.sparse_modularity`), and the env's budget
+    overflow.  Returns (0-dim f64 Q, 0-dim bool overflow) on the first
+    local shard's device."""
+    mp0 = mps[0]
+    mesh, nv_total = mp0.mesh, mp0.nv_total
+    if mp0.exchange == "sparse":
+        envs = sparse_env(comms, vdegs, mp0.send_idx, mp0.ghost_sel, mesh,
+                          budget=mp0.budget)
+        les = []
+        for i, (comm, env) in enumerate(zip(comms, envs)):
+            le = torch.zeros((), dtype=torch.float64, device=comm.device)
+            for mp in mps:
+                le = le + _inside_weight(mp.plans[i], comm, env.comm_ext)
+                hs, hd, hw = mp.heavy_edges[i]
+                same = env.comm_ext[hd.long()] == comm[hs.long()]
+                le = le + torch.where(same, hw, 0.0).sum(
+                    dtype=torch.float64)
+            les.append(le)
+        q = sparse_modularity(les, [e.deg_local for e in envs], constant,
+                              mesh)
+        return q, psum([e.overflow.long() for e in envs], mesh)[0] > 0
+    comm_full = all_gather(comms, mesh)
+    les = []
+    for i, comm in enumerate(comms):
+        le = torch.zeros((), dtype=torch.float64, device=comm.device)
+        for mp in mps:
+            le = le + _inside_weight(mp.plans[i], comm_full[i], comm_full[i])
+        les.append(le)
+    comm_deg64 = psum([seg.segment_sum(v.double(), c, nv_total)
+                       for c, v in zip(comms, vdegs)], mesh)[0]
+    le = psum(les, mesh)[0]
+    q = le * constant - comm_deg64.square().sum() * constant * constant
+    return q, torch.zeros((), dtype=torch.bool, device=mesh.devices[0])
 
 
 def _sparse_hubs(edges, env, comm, vdeg, sl, c32, best_c, best_gain,

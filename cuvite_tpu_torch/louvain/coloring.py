@@ -15,8 +15,10 @@ The hashes are the reference's uint32 Jenkins mix.  Torch has little
 uint32 arithmetic, so :func:`jenkins_mix` computes in int64 and masks to
 32 bits after every step: the values and so the colors are bit-identical
 to the reference's.  A round is one edge-parallel pass on the graph's
-device; the round loop reads one count per round on the host.  Not
-ported: the per-host-ingest ``multi_hash_coloring_dist``.
+device; the round loop reads one count per round on the host.
+:func:`multi_hash_coloring_dist` colors a per-rank partition
+(``io/dist_ingest.DistVite``) with the same result: each round runs over
+the rank's own edges, then the ranks' owned slices are all-gathered.
 """
 
 from __future__ import annotations
@@ -99,13 +101,25 @@ def multi_hash_coloring(src, dst, nv: int, n_hash: int = 4,
     device = resolve_device(device)
     src_t = torch.as_tensor(np.asarray(src)).to(device)
     dst_t = torch.as_tensor(np.asarray(dst)).to(device)
+
+    def round_fn(color, seed_, next_color):
+        return _coloring_round(src_t, dst_t, color, seed_, next_color,
+                               n_hash=n_hash, nv=nv)
+
+    return _round_loop(round_fn, nv, n_hash, target_percent,
+                       single_iteration, seed, device)
+
+
+def _round_loop(round_fn, nv: int, n_hash: int, target_percent: int,
+                single_iteration: bool, seed: int, device) -> tuple:
+    """The rounds of coloring.cpp:41-58 over ``round_fn(color, seed,
+    next_color)`` -> (new colors, count of colored vertices)."""
     color = torch.full((nv,), UNCOLORED, dtype=torch.int32, device=device)
     next_color = 0
     target = (nv * target_percent) // 100
     last = 0
     while True:
-        color, count = _coloring_round(src_t, dst_t, color, seed, next_color,
-                                       n_hash=n_hash, nv=nv)
+        color, count = round_fn(color, seed, next_color)
         count = int(count)
         next_color += 2 * n_hash
         if single_iteration or count >= target or count == last:
@@ -113,6 +127,50 @@ def multi_hash_coloring(src, dst, nv: int, n_hash: int = 4,
         seed = jenkins_mix(seed, 0)
         last = count
     return color.cpu().numpy(), next_color
+
+
+def multi_hash_coloring_dist(dv, n_hash: int = 4,
+                             target_percent: int = MAX_COVG,
+                             single_iteration: bool = False,
+                             seed: int = 1012, device=None) -> tuple:
+    """:func:`multi_hash_coloring` of a per-rank partition ``dv``
+    (``io/dist_ingest.DistVite``), bit-identical to it on the whole edge
+    list (reference ``coloring.py:164-221``, the counterpart of the
+    reference application's ghost color exchange, coloring.cpp:204-420).
+    Every rank keeps the whole [nv] color vector; each round runs over the
+    rank's own edges, then the ranks' owned vertex ranges, contiguous in
+    rank order, are all-gathered (``multihost.allgather_varlen``) into the
+    next vector.  A vertex's new color depends only on its own edges, all
+    of which its owner holds, and on the previous vector.  Collective:
+    every rank calls it.  Returns (colors [nv] int32 numpy in original
+    ids, the number of colors' upper bound), the same on every rank."""
+    from cuvite_tpu_torch.comm.multihost import allgather_varlen
+
+    device = resolve_device(device)
+    nv = dv.num_vertices
+    srcs, dsts = [], []
+    for s in range(dv.local_lo, dv.local_hi):
+        sh = dv.shards[s]
+        real = sh.src < dv.nv_pad
+        srcs.append(sh.src[real].astype(np.int64) + int(dv.parts[s]))
+        dsts.append(dv.pad_to_old[sh.dst[real].astype(np.int64)])
+    src_t, dst_t = (torch.from_numpy(np.concatenate(a) if a else
+                                     np.zeros(0, dtype=np.int64)).to(device)
+                    for a in (srcs, dsts))
+    lo, hi = int(dv.parts[dv.local_lo]), int(dv.parts[dv.local_hi])
+
+    def round_fn(color, seed_, next_color):
+        new, _ = _coloring_round(src_t, dst_t, color, seed_, next_color,
+                                 n_hash=n_hash, nv=nv)
+        full = np.concatenate(allgather_varlen(new[lo:hi].cpu().numpy()))
+        if len(full) != nv:
+            raise RuntimeError(f"gathered {len(full)} colors for {nv} "
+                               "vertices")
+        return (torch.from_numpy(full).to(device),
+                int(np.count_nonzero(full != UNCOLORED)))
+
+    return _round_loop(round_fn, nv, n_hash, target_percent,
+                       single_iteration, seed, device)
 
 
 def count_conflicts(src, dst, nv, colors) -> int:

@@ -495,6 +495,90 @@ def test_mesh_across_cards_matches_one_card(cards, exchange):
         assert abs(rm.modularity - r.modularity) <= 1e-9
 
 
+def _class_mesh_graph():
+    """A 9,000-vertex graph with one hub of degree 8,400 (above the widest
+    bucket) and random color classes over 4 shards, one of them with no
+    vertex of class 3 on shard 1."""
+    from cuvite_tpu_torch import Graph
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+
+    rng = np.random.default_rng(3)
+    nv = 9000
+    src = np.concatenate([np.zeros(8400, np.int64),
+                          rng.integers(1, nv, 12000)])
+    dst = np.concatenate([rng.choice(np.arange(1, nv), 8400, replace=False),
+                          rng.integers(1, nv, 12000)])
+    dg = DistGraph.build(Graph.from_edges(nv, src, dst), 4)
+    cls = rng.integers(0, 4, dg.total_padded_vertices).astype(np.int32)
+    cls[dg.nv_pad:2 * dg.nv_pad][cls[dg.nv_pad:2 * dg.nv_pad] == 3] = 2
+    return dg, cls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["replicated", "sparse"])
+def test_mesh_class_sweep_on_card_matches_cpu(cuda_device, exchange):
+    """Four shards on one card against four on the CPU: two iterations of
+    the color schedule's class sweep (refreshed tables, then vertex
+    ordering's frozen ones), targets bit-equal and Q, moves and overflow
+    equal, with a class empty on one shard and the hub on the heavy
+    kernel (replicated) or the sorted path (sparse); then ET mode 3 and
+    coloring 8 through louvain_phases, card against CPU and one shard."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.louvain.driver import MeshPhaseRunner
+
+    dg, cls = _class_mesh_graph()
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        mesh = make_mesh(devices=[dev] * 4)
+        out = []
+        for ordering in (False, True):
+            r = MeshPhaseRunner(dg, mesh, exchange=exchange,
+                                classes=(cls, 4), ordering=ordering)
+            comms = r.comm0
+            for _ in range(2):
+                t, q, moved, ovf = r.class_sweep(comms)
+                out.append((torch.cat([x.cpu() for x in t]), float(q),
+                            int(moved), bool(ovf)))
+                comms = t
+        runs[dev.type] = out
+    for (tg, qg, mg, og), (tc, qc, mc, oc) in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(tg, tc)
+        assert (qg, mg, og) == (qc, mc, oc) and mg > 0
+    n = row_argmax_sized.launches
+    g = generate_rmat(11)
+    for kw in ({"et_mode": 3}, {"coloring": 8}):
+        rg = louvain_phases(g, mesh=make_mesh(devices=[cuda_device] * 4),
+                            exchange=exchange, **kw)
+        for r in (louvain_phases(g, nshards=4, device="cpu",
+                                 exchange=exchange, **kw),
+                  louvain_phases(g, device=cuda_device, **kw)):
+            assert np.array_equal(rg.communities, r.communities)
+            assert [p.iterations for p in rg.phases] == \
+                [p.iterations for p in r.phases]
+    assert (row_argmax_sized.launches > n) == (exchange == "sparse")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["replicated", "sparse"])
+def test_mesh_schedules_across_cards_match_one_card(cards, exchange):
+    """One shard per card (up to four) with ET mode 3, coloring 8 and
+    vertex ordering 8 against one shard: identical labels and sweeps."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    n = min(len(cards), 4)
+    g = generate_rmat(12)
+    for kw in ({"et_mode": 3}, {"coloring": 8}, {"vertex_ordering": 8}):
+        rm = louvain_phases(g, mesh=make_mesh(n), exchange=exchange, **kw)
+        r1 = louvain_phases(g, device=cards[0], **kw)
+        assert np.array_equal(rm.communities, r1.communities), kw
+        assert [p.iterations for p in rm.phases] == \
+            [p.iterations for p in r1.phases]
+
+
 NCCL_RANK = r"""
 import json, sys
 import numpy as np

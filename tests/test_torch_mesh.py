@@ -4,7 +4,8 @@ and stacked plans array for array, one sharded bucketed sweep under both
 exchanges and one sharded sort sweep against the reference's shard_map'd
 steps (with a hub on the heavy kernel's twin and on the sorted path),
 whole runs against the port's one shard and the reference at the same
-shard count, the refusals, and the command line.
+shard count, the mesh options that run (ET, coloring, ordering and
+checkpoints) and those refused, and the command line.
 
 JAX runs on the conftest's 8 virtual CPU devices, the port on
 make_mesh(devices=["cpu"] * S).  Every graph has integer weights (the
@@ -332,16 +333,22 @@ def test_size_form_inside_sharded_step_matches_sort(rmat10, monkeypatch):
         assert r.modularity == ref.modularity
 
 
-def test_mesh_refusals_and_fallbacks(rmat9):
-    """ET, coloring, vertex ordering and checkpoints on a mesh raise and
-    name the roadmap; so do an unknown exchange and a mesh/nshards
-    conflict.  engine='fused' warns and runs bucketed; engine='sort' with
-    exchange='sparse' warns and runs the replicated exchange."""
+def test_mesh_refusals_and_fallbacks(rmat9, tmp_path):
+    """ET, coloring, vertex ordering and checkpoints run on a mesh and give
+    one shard's labels (ROADMAP.md A7.1); the two-level exchange and a
+    mesh/nshards conflict raise.  engine='fused' warns and runs bucketed;
+    engine='sort' with exchange='sparse' warns and runs the replicated
+    exchange."""
     g = _port_graph(rmat9)
     for kw in ({"et_mode": 3}, {"coloring": 8}, {"vertex_ordering": 8},
-               {"checkpoint_dir": "unused"}):
-        with pytest.raises(ValueError, match="ROADMAP.md A7"):
-            louvain_phases(g, nshards=2, device="cpu", **kw)
+               {"checkpoint_dir": str(tmp_path / "ck")}):
+        one = louvain_phases(g, device="cpu", **{
+            k: v for k, v in kw.items() if k != "checkpoint_dir"})
+        mesh_run = louvain_phases(g, nshards=2, device="cpu", **kw)
+        assert np.array_equal(mesh_run.communities, one.communities), kw
+        assert [p.iterations for p in mesh_run.phases] == \
+            [p.iterations for p in one.phases]
+    assert (tmp_path / "ck").is_dir()
     with pytest.raises(ValueError, match="two-level"):
         louvain_phases(g, nshards=2, device="cpu", exchange="twolevel")
     with pytest.raises(ValueError, match="conflicts"):
@@ -386,5 +393,12 @@ def test_cli_shards_matches_library(rmat9, tmp_path, capsys):
         main(["--file", path, "--device", "cpu", "--dist-ingest"])
     with pytest.raises(SystemExit, match="need --distributed"):
         main(["--file", path, "--device", "cpu", "--process-id", "0"])
-    with pytest.raises(SystemExit, match="A7"):
-        main(["--file", path, "--device", "cpu", "--shards", "2", "-t", "1"])
+    # -t 1 (and the other schedules) run on the mesh: the summary equals
+    # the library's ET run on the same shards.
+    assert main(["--file", path, "--device", "cpu", "--shards", "2", "-t",
+                 "1", "--json", "--quiet"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    lib = louvain_phases(g, nshards=2, device="cpu", et_mode=1)
+    assert rec["modularity"] == modularity(g, lib.communities)
+    assert (rec["communities"], rec["iterations"], rec["phases"]) == \
+        (lib.num_communities, lib.total_iterations, len(lib.phases))

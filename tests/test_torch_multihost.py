@@ -13,7 +13,10 @@ labels and iterations equal the reference's, Q to 1e-9 (both report the
 host f64 oracle).  Also: a budget of 1 overflows and is retried on every
 rank alike, a rank that raises ends the whole world non-zero within the
 timeout, and ``--distributed`` in the CLI has rank 0 alone write the
-communities file, equal to the one-process ``--shards S`` run's.
+communities file, equal to the one-process ``--shards S`` run's.  ET,
+coloring and a checkpoint resume run in a world too, and ranks that load
+different checkpoint states from a directory that is not shared all
+raise instead of waiting on each other.
 """
 
 import json
@@ -281,3 +284,66 @@ def test_host_collectives_and_mesh_view(tmp_path, monkeypatch):
         multihost.local_device()
     with pytest.raises(RuntimeError, match="world size or rank"):
         main(["--rmat", "8", "--distributed", "--device", "cpu"])
+
+
+def test_world_schedules_and_checkpoints(graphs, tmp_path):
+    """A world of 2 on R-MAT 10, 4 shards: et_mode 3 under the replicated
+    exchange, coloring 8 under the sparse one, and coloring 8 stopped
+    after one phase, then resumed from the shared checkpoint directory
+    (rank 0 alone writes); every rank's labels, iterations and Q bits
+    equal the one-process mesh's, and the resumed run the uninterrupted
+    one's."""
+    jg, path = graphs["rmat10"]
+    g = _port_graph(jg)
+    ck = str(tmp_path / "ck")
+    runs = [dict(nshards=4, exchange="replicated", et_mode=3),
+            dict(nshards=4, exchange="sparse", coloring=8),
+            dict(nshards=4, exchange="sparse", coloring=8, max_phases=1,
+                 checkpoint_dir=ck),
+            dict(nshards=4, exchange="sparse", coloring=8, resume=True,
+                 checkpoint_dir=ck)]
+    want = [louvain_phases(g, device="cpu", **kw) for kw in runs[:2]]
+    outs, wall = _world(tmp_path, 2, {"file": path, "out": str(tmp_path),
+                                      "runs": runs})
+    _ok(outs)
+    assert wall < TIMEOUT
+    for r in range(2):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        for res, mine in zip(got[:2] + got[3:], want + want[1:]):
+            assert np.array_equal(res["labels"], mine.communities)
+            assert res["iters"] == [p.iterations for p in mine.phases]
+            assert res["q"] == mine.modularity.hex()
+        assert len(got[2]["iters"]) == 1
+
+
+MISMATCH_RANK = r"""
+import sys
+import numpy as np
+from cuvite_tpu_torch.comm import multihost
+multihost.initialize(device="cpu", timeout=60)
+with multihost.fail_together():
+    from cuvite_tpu_torch.io.vite import read_vite
+    from cuvite_tpu_torch.louvain.driver import louvain_phases
+    g = read_vite(sys.argv[1], bits64=False)
+    louvain_phases(g, nshards=4, checkpoint_dir=sys.argv[2 + multihost.rank()],
+                   resume=True)
+    multihost.shutdown()
+"""
+
+
+def test_ranks_that_load_different_checkpoints_raise(graphs, tmp_path):
+    """Rank 0 resumes from a directory holding a checkpoint, rank 1 from
+    an empty one (a directory that is not shared): the all-gather of
+    [phase, fingerprint] refuses on both ranks, both exit 1 with the
+    message, and neither waits for the other."""
+    jg, path = graphs["rmat10"]
+    ck0, ck1 = tmp_path / "ck0", tmp_path / "ck1"
+    ck1.mkdir()
+    louvain_phases(_port_graph(jg), device="cpu", nshards=4, max_phases=1,
+                   checkpoint_dir=str(ck0))
+    outs, wall = _world(tmp_path, 2, None, argv=[
+        sys.executable, "-c", MISMATCH_RANK, path, str(ck0), str(ck1)])
+    assert [rc for rc, _, _ in outs] == [1, 1], outs
+    for _, _, err in outs:
+        assert "shared storage" in err
+    assert wall < TIMEOUT / 2
