@@ -6,7 +6,9 @@
                           [--fused-check-scale 12] [--fused-shrink 4096]
                           [--schedule-scale 20] [--native-rmat-scale 18]
     python3 chip_smoke.py --only-multiprocess    # phases 1, 30, 35's
-                                                 # colored run, 33, 34
+                                                 # colored run, 36's 2x2
+                                                 # run, 33, 34 (and 36's
+                                                 # batch over the cards)
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -262,6 +264,23 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    width with coloring=8 sparse and et_mode=3 replicated: per phase the
    stages, the walls beside phase 14's one-shard runs, the launches,
    labels equal to phase 14's, Q within 1e-6 of the host f64 modularity.
+36. (run after 35, before 33-34) the two-level exchange and the batch
+   axis: R-MAT --check-scale on 2x2 and 4x1 hybrid meshes of 4 shards
+   on the card, labels, phases, iterations and Q bits equal to the same
+   mesh on the CPU, the flat sparse mesh and one shard, the size form
+   alone launched; et_mode=3, a checkpoint resume and a budget of 1
+   (the runner overflows, the driver retries up to the group window) on
+   2x2; the CLI's --mesh 2x2 --json --diag-prefix (its exchange block
+   and one line a shard and phase); R-MAT --scale on 2x2 at full width
+   as phase 30 (walls, stages, ghosts a group, block, budget, group
+   table bytes, launches), equal to phase 30's sparse run and phase 5;
+   B=64 synth 65536 on two blocks of the card (make_batch_mesh), both
+   engines, every tenant equal to mesh=None and to its block's own
+   batch, walls, jobs/s and launches side by side; with two or more
+   cards a child with every offered card (up to four) visible runs the
+   same batch with mesh="auto" against card 0 alone.  Phase 33's world
+   also runs the 2x2 mesh against phase 36's run, and each rank times
+   the ICI all-gather and the DCN ghost-pull all_to_all.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -3270,17 +3289,19 @@ def check_mesh_card_vs_cpu(scale: int, nshards: int) -> dict:
 
 
 def run_mesh_full(g, scale: int, nshards: int, exchange: str,
-                  main_res) -> tuple:
-    """Phase 30: one full-width mesh run on one card, launch counts zeroed
-    just before and read just after.  Returns (launches, wall s, the
-    LouvainResult)."""
+                  main_res, shape=None) -> tuple:
+    """Phase 30 (and phase 36's two-level run, ``shape`` = (dcn, ici)):
+    one full-width mesh run on one card, launch counts zeroed just before
+    and read just after.  Returns (launches, wall s, the LouvainResult)."""
     import torch
 
     from cuvite_tpu_torch import louvain_phases
-    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.comm.mesh import make_hybrid_mesh, make_mesh
     from cuvite_tpu_torch.evaluate.modularity import modularity
 
-    mesh = make_mesh(devices=[torch.device("cuda", 0)] * nshards)
+    devs = [torch.device("cuda", 0)] * nshards
+    mesh = (make_mesh(devices=devs) if shape is None
+            else make_hybrid_mesh(*shape, devices=devs))
     log = ExchangeLog()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3294,16 +3315,20 @@ def run_mesh_full(g, scale: int, nshards: int, exchange: str,
         st = " ".join(f"{k} {v:.3f}" for k, v in p.stages.items())
         plan = ev["plan"] or {}
         budget = ev["budget"] or 0
-        route = 5 * nshards * budget * 4   # fwd key/deg/size, reply x2
+        # fwd key/deg/size and the reply's two, per peer plan shard
+        route = 5 * plan.get("nshards", nshards) * budget * 4
         print(f"  phase {p.phase}: nv {p.num_vertices} ne {p.num_edges} "
               f"iterations {p.iterations} Q {p.modularity:.9f} seconds "
               f"{p.seconds:.3f} ({st}); exchange {ev['mode']}"
-              + (f", ghosts per shard {plan['ghosts_per_shard']}, block "
-                 f"{plan['block']}, ghost_pad {plan['ghost_pad']}, budget "
-                 f"{budget}, bytes a sweep per shard: ghost pull "
+              + (f", ghosts per plan shard {plan['ghosts_per_shard']}, "
+                 f"block {plan['block']}, ghost_pad {plan['ghost_pad']}, "
+                 f"budget {budget}, bytes a sweep per shard: ghost pull "
                  f"{plan['ghost_bytes']} + owner route {route}"
+                 + (f", group tables {plan['table_bytes_per_device']} B"
+                    if "table_bytes_per_device" in plan else "")
                  if plan else ""))
-    print(f"  R-MAT {scale}, {nshards} shards on one card, {exchange}: "
+    print(f"  R-MAT {scale}, {nshards} shards on one card, {exchange}"
+          f"{'' if shape is None else ' %dx%d' % shape}: "
           f"{wall:.3f} s, {res.total_iterations} sweeps, launches "
           f"{launches}, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B, exchange_stats "
@@ -3315,11 +3340,11 @@ def run_mesh_full(g, scale: int, nshards: int, exchange: str,
     if main_res is not None and not np.array_equal(res.communities,
                                                    main_res.communities):
         fail(f"{exchange} mesh: labels differ from one shard's (phase 5)")
-    if launches["row_argmax_sized" if exchange == "sparse"
-                else "row_argmax"] == 0:
+    sized = exchange in ("sparse", "twolevel")
+    if launches["row_argmax_sized" if sized else "row_argmax"] == 0:
         fail(f"{exchange} mesh: the row kernel's form never launched")
-    if exchange == "sparse" and launches["row_argmax"]:
-        fail("sparse mesh: the non-size row kernel launched")
+    if sized and launches["row_argmax"]:
+        fail(f"{exchange} mesh: the non-size row kernel launched")
     return launches, wall, res
 
 
@@ -3748,6 +3773,316 @@ MAX_WORLD = 4
 WORLD_TIMEOUT_S = 900
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: the two-level exchange on a hybrid mesh and the batch axis.
+
+TWOLEVEL_RUN = "twolevel 2x2"
+HYBRID = (2, 2)
+
+
+def check_twolevel_card_vs_cpu(scale: int, nshards: int, work: str
+                               ) -> dict:
+    """Phase 36 at R-MAT --check-scale on 4 shards of the card: the 2x2
+    and 4x1 hybrid meshes against the flat sparse mesh, the CPU and one
+    shard; ET mode 3, a checkpoint resume and a budget of 1 on 2x2; the
+    CLI's --mesh 2x2 --json --diag-prefix.  Returns the runs' launches."""
+    import tempfile
+
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_hybrid_mesh, make_mesh
+    from cuvite_tpu_torch.core.distgraph import DistGraph
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.louvain.driver import MeshPhaseRunner
+
+    g = generate_rmat(scale)
+    devs = [torch.device("cuda", 0)] * nshards
+    one = louvain_phases(g, device="cuda")
+    flat = louvain_phases(g, mesh=make_mesh(devices=devs), exchange="sparse")
+    check_same_run(f"R-MAT {scale} flat sparse vs one shard", flat, one)
+    paths, runs = {}, {}
+    for shape in (HYBRID, (4, 1)):
+        name = "%dx%d" % shape
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        rg = louvain_phases(g, mesh=make_hybrid_mesh(*shape, devices=devs))
+        card_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        t0 = time.perf_counter()
+        rc = louvain_phases(g, mesh_shape=shape, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check_same_run(f"R-MAT {scale} {name} card vs CPU", rg, rc)
+        for other, r in (("flat sparse", flat), ("one shard", one)):
+            check_same_run(f"R-MAT {scale} {name} vs {other}", rg, r)
+        if rg.modularity != flat.modularity or \
+                rc.modularity != flat.modularity:
+            fail(f"R-MAT {scale} {name}: Q bits differ from the flat sparse "
+                 "run's")
+        mode = rg.exchange_stats["mode"]
+        if mode != ("twolevel" if shape[1] > 1 else "sparse"):
+            fail(f"R-MAT {scale} {name}: exchange {mode}")
+        if launches["row_argmax_sized"] == 0 or launches["row_argmax"]:
+            fail(f"R-MAT {scale} {name}: launches {launches}")
+        paths[f"mesh {name} R-MAT {scale}, card vs CPU"] = launches
+        runs[name] = rg
+        print(f"  R-MAT {scale}, {name} on one card: {len(rg.phases)} "
+              f"phases, {rg.total_iterations} sweeps, Q {rg.modularity!r}, "
+              f"exchange {rg.exchange_stats}; equal to the CPU, the flat "
+              f"sparse mesh and one shard ({card_s:.2f} s card, "
+              f"{cpu_s:.2f} s CPU); launches {launches}")
+    hyb = make_hybrid_mesh(*HYBRID, devices=devs)
+    zero_kernel_counts()
+    et = louvain_phases(g, mesh=hyb, et_mode=3)
+    paths[f"mesh 2x2 R-MAT {scale} et_mode=3"] = kernel_counts()
+    for other, kw in (("flat sparse", {"mesh": make_mesh(devices=devs),
+                                       "exchange": "sparse"}),
+                      ("CPU 2x2", {"mesh_shape": HYBRID, "device": "cpu"})):
+        check_same_run(f"R-MAT {scale} 2x2 et_mode=3 vs {other}", et,
+                       louvain_phases(g, et_mode=3, **kw))
+    with tempfile.TemporaryDirectory() as ck:
+        part = louvain_phases(g, mesh=hyb, max_phases=1, checkpoint_dir=ck)
+        resumed = louvain_phases(g, mesh=hyb, checkpoint_dir=ck,
+                                 resume=True)
+    if len(part.phases) != 1:
+        fail(f"2x2 checkpointed run ran {len(part.phases)} phases")
+    check_same_run(f"R-MAT {scale} 2x2 resumed vs uninterrupted", resumed,
+                   runs["2x2"])
+    r = MeshPhaseRunner(DistGraph.build(g, nshards), hyb,
+                        exchange="twolevel", budget=1)
+    comm, seen = r.comm0, 0
+    for _ in range(4):
+        res = r.step(comm)
+        seen += bool(res.overflow)
+        comm = res.targets
+    if not seen:
+        fail("2x2 budget 1 never overflowed")
+    log = ExchangeLog()
+    zero_kernel_counts()
+    rt = louvain_phases(g, mesh=hyb, exchange_budget=1, tracer=log)
+    paths[f"mesh 2x2 budget-1 retry R-MAT {scale}"] = kernel_counts()
+    budgets = [e["budget"] for e in log.events]
+    check_same_run(f"R-MAT {scale} 2x2 budget 1 vs one shard", rt, one)
+    if not 1 < budgets[0] <= r.budget_cap:
+        fail(f"2x2 budget 1: budgets {budgets}, group window "
+             f"{r.budget_cap}")
+    print(f"  2x2: et_mode=3 equal to the flat sparse and CPU runs; a "
+          f"max_phases=1 run resumed from its checkpoint equal to the "
+          f"uninterrupted run; budget 1: {seen} of 4 runner sweeps "
+          f"overflowed, the driver's budgets by phase {budgets} (group "
+          f"window {r.budget_cap}), labels equal to one shard's")
+    prefix = os.path.join(work, "diag2x2", "rmat")
+    out = cli_child(["-m", "cuvite_tpu_torch.cli", "--rmat", str(scale),
+                     "--mesh", "2x2", "--device", "cuda:0", "--json",
+                     "--quiet", "--diag-prefix", prefix], work)
+    rec = json.loads(out.strip().splitlines()[-1])
+    want = {k: runs["2x2"].exchange_stats[k] for k in (
+        "mode", "dcn", "ici", "table_bytes_per_device", "ghost_bytes")}
+    if rec.get("exchange") != want:
+        fail(f"CLI --mesh 2x2: exchange block {rec.get('exchange')} vs "
+             f"{want}")
+    if (rec["communities"], rec["iterations"]) != (
+            runs["2x2"].num_communities, runs["2x2"].total_iterations):
+        fail(f"CLI --mesh 2x2: {rec} vs the library's 2x2 run")
+    n_lines = len(runs["2x2"].convergence)
+    for sh in range(nshards):
+        with open(f"{prefix}.{sh}") as f:
+            lines = f.read().splitlines()
+        if len(lines) != n_lines or not lines[0].startswith(
+                "phase 0: owned="):
+            fail(f"--diag-prefix shard {sh}: {lines[:2]} ({len(lines)} "
+                 f"lines, want {n_lines})")
+    with open(f"{prefix}.0") as f:
+        first = f.readline().strip()
+    print(f"  CLI --mesh 2x2 --json: exchange {rec['exchange']}; one line "
+          f"a shard and phase, {prefix}.0 begins: {first}")
+    return paths
+
+
+def check_batch_mesh(gs, kind: str) -> dict:
+    """Phase 36's batch axis: ``kind``'s jobs on two blocks of the card
+    (``make_batch_mesh(64, devices=[cuda:0] * 2)``), both engines, against
+    the same batch with ``mesh=None`` and each block against its own
+    B/2 batch: labels and Q equal; walls, jobs/s and launches side by
+    side."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.louvain.batched import make_batch_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = make_batch_mesh(len(gs), devices=[dev] * 2)
+    if mesh is None or mesh.size != 2:
+        fail(f"make_batch_mesh({len(gs)}, 2 devices) gave {mesh}")
+    half = len(gs) // 2
+    paths = {}
+    for engine in ("bucketed", "fused"):
+        out = {}
+        for name, kw, jobs in (("one block", {"mesh": None}, gs),
+                               ("two blocks", {"mesh": mesh}, gs),
+                               ("block 0 alone", {"mesh": None}, gs[:half]),
+                               ("block 1 alone", {"mesh": None},
+                                gs[half:])):
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            br = louvain_many(jobs, engine=engine, **kw)
+            torch.cuda.synchronize()
+            out[name] = (br, time.perf_counter() - t0, kernel_counts())
+        one, two = out["one block"][0], out["two blocks"][0]
+        halves = out["block 0 alone"][0].results + \
+            out["block 1 alone"][0].results
+        for k, (a, b, c) in enumerate(zip(two.results, one.results,
+                                          halves)):
+            for other, r in (("mesh=None", b), ("its block alone", c)):
+                if not np.array_equal(a.communities, r.communities) or \
+                        a.modularity != r.modularity:
+                    fail(f"{kind} {engine} two blocks: tenant {k} differs "
+                         f"from {other}")
+        paths[f"{kind} {engine}, two blocks of the card"] = \
+            out["two blocks"][2]
+        print(f"  {kind} {engine}: "
+              + "; ".join(f"{name} wall {wall:.3f} s "
+                          f"({br.n_jobs / wall:.1f} jobs/s), engines "
+                          f"{br.phase_engines}, launches {la}"
+                          for name, (br, wall, la) in out.items())
+              + "; every tenant of the two blocks equal to mesh=None and "
+              "to its block's own batch")
+    return paths
+
+
+def batch_worker(spec_json: str) -> int:
+    """``chip_smoke.py --batch-worker SPEC``: with every offered card
+    visible, the spec's serving batch on card 0 alone and with
+    mesh="auto" (one block a card), both engines, each run once to load
+    and once timed; prints one JSON record."""
+    spec = json.loads(spec_json)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.louvain.batched import make_batch_mesh
+
+    gs = serving_jobs(spec["kind"])
+    n = torch.cuda.device_count()
+    mesh = make_batch_mesh(len(gs))
+    rec = {"cards": n, "blocks": mesh.size if mesh else 1, "runs": {}}
+
+    def sync():
+        for i in range(n):
+            torch.cuda.synchronize(i)
+
+    for engine in ("bucketed", "fused"):
+        res = {}
+        for name, kw in (("card 0", {"mesh": None}),
+                         ("auto", {"mesh": "auto"})):
+            louvain_many(gs, engine=engine, **kw)
+            sync()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            br = louvain_many(gs, engine=engine, **kw)
+            sync()
+            wall = time.perf_counter() - t0
+            res[name] = br
+            rec["runs"][f"{engine} {name}"] = {
+                "wall_s": wall, "jobs_per_s": br.n_jobs / wall,
+                "pack_s": br.pack_s, "launches": kernel_counts()}
+        rec["runs"][f"{engine} equal"] = all(
+            np.array_equal(a.communities, b.communities)
+            and a.modularity == b.modularity
+            for a, b in zip(res["auto"].results, res["card 0"].results))
+    print(json.dumps(rec))
+    return 0
+
+
+def run_batch_auto(cards: list, kind: str) -> dict:
+    """Phase 36 on a host of several cards: :func:`batch_worker` in a
+    child that sees up to four of them."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    use = cards[:MAX_WORLD]
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES=",".join(use))
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--batch-worker", json.dumps({"kind": kind})],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode:
+        fail(f"batch worker exit {out.returncode}: {out.stderr[-3000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    if rec["blocks"] != len(use):
+        fail(f"mesh='auto' over {len(use)} cards made {rec['blocks']} "
+             "blocks")
+    paths = {}
+    for engine in ("bucketed", "fused"):
+        if not rec["runs"][f"{engine} equal"]:
+            fail(f"{kind} {engine}: mesh='auto' over {len(use)} cards "
+                 "differs from card 0 alone")
+        a, b = rec["runs"][f"{engine} auto"], rec["runs"][f"{engine} card 0"]
+        paths[f"{kind} {engine}, mesh='auto' over {len(use)} cards"] = \
+            a["launches"]
+        print(f"  {kind} {engine}, mesh='auto' over {len(use)} cards: "
+              f"{a['wall_s']:.3f} s, {a['jobs_per_s']:.1f} jobs/s (pack "
+              f"{a['pack_s']:.3f} s) vs card 0 alone {b['wall_s']:.3f} s, "
+              f"{b['jobs_per_s']:.1f} jobs/s (pack {b['pack_s']:.3f} s); "
+              f"launches {a['launches']} vs {b['launches']}; labels equal")
+    return paths
+
+
+def time_hybrid_collectives(nshards: int, nv_pad: int, block: int) -> dict:
+    """On a rank of phase 33: the two-level exchange's two collectives on
+    the 2x2 mesh at R-MAT --scale's phase-0 shapes, timed with CUDA
+    events on this rank's card (20 calls after 3): the ICI group's tiled
+    all-gather of each shard's [nv_pad] community vector, and the DCN
+    column's ghost-pull all_to_all of [dcn, B, 3] int32 blocks at group
+    scale.  Bytes sent are the rank's own payload to process groups
+    (none for a view whose shards are all on this rank)."""
+    import torch
+
+    from cuvite_tpu_torch.comm.collectives import (
+        all_gather,
+        all_to_all,
+        sent_bytes,
+        zero_sent_bytes,
+    )
+    from cuvite_tpu_torch.comm.mesh import make_hybrid_mesh
+
+    dcn, ici = HYBRID
+    mesh = make_hybrid_mesh(dcn, ici)
+    dev = mesh.devices[0]
+    cases = {
+        "ICI all_gather of the community vector": (
+            all_gather, mesh.ici_views,
+            lambda: torch.ones(nv_pad, dtype=torch.int32, device=dev)),
+        "DCN all_to_all ghost pull": (
+            all_to_all, mesh.dcn_views,
+            lambda: torch.ones(dcn, block, 3, dtype=torch.int32,
+                               device=dev)),
+    }
+    out = {}
+    for name, (fn, views, make) in cases.items():
+        xs = [[make() for _ in pos] for _, pos in views]
+
+        def call():
+            for (view, _), x in zip(views, xs):
+                fn(x, view)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize(dev)
+        zero_sent_bytes()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(20):
+            call()
+        t1.record()
+        torch.cuda.synchronize(dev)
+        out[name] = {"ms": t0.elapsed_time(t1) / 20,
+                     "sent_bytes": sent_bytes() // 20,
+                     "views": [list(view.shard_ids) for view, _ in views],
+                     "group": [view.group is not None for view, _ in views]}
+    return out
+
+
 def world_cards(visible) -> list:
     """The cards this host offers, as CUDA_VISIBLE_DEVICES entries: the
     caller's list, else every index nvidia-smi reports."""
@@ -3878,6 +4213,9 @@ def rank_worker(spec_json: str) -> int:
         if spec.get("collectives"):
             rec["collectives"] = time_collectives(spec["nshards"],
                                                   *spec["collectives"])
+        if spec.get("hybrid_collectives"):
+            rec["hybrid_collectives"] = time_hybrid_collectives(
+                spec["nshards"], *spec["hybrid_collectives"])
         with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
             json.dump(rec, f)
         multihost.shutdown()
@@ -4008,10 +4346,16 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
     # The sparse exchange's phase-0 block on this graph (phase 30).
     block = one_process["sparse"][0].exchange_stats["block"]
     nv_pad = next_pow2(-(-g.num_vertices // nshards))
+    runs = [[ex, {"exchange": ex}] for ex in ("replicated", "sparse")]
+    hybrid = None
+    if TWOLEVEL_RUN in one_process:
+        # Phase 36's one-process 2x2 run is the reference of this one.
+        runs.append([TWOLEVEL_RUN, {"mesh_shape": list(HYBRID)}])
+        hybrid = [nv_pad, one_process[TWOLEVEL_RUN][0].exchange_stats[
+            "block"]]
     recs = run_world(f"R-MAT {scale}", cards[:world], {
-        "scale": scale, "nshards": nshards, "path": None,
-        "runs": [[ex, {"exchange": ex}] for ex in ("replicated", "sparse")],
-        "collectives": [nv_pad, block]})
+        "scale": scale, "nshards": nshards, "path": None, "runs": runs,
+        "collectives": [nv_pad, block], "hybrid_collectives": hybrid})
     for ex, tot in check_world(f"R-MAT {scale}", recs, one_process,
                                nshards).items():
         paths[f"world {world}, {nshards} shards R-MAT {scale} {ex}"] = tot
@@ -4022,6 +4366,11 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
                   f"{block}): {c['ms']:.4f} ms, sent {c['sent_bytes']} B, "
                   f"received {c['recv_bytes']} B, "
                   f"{c['recv_gb_per_s']:.1f} GB/s received")
+        for name, c in (rec.get("hybrid_collectives") or {}).items():
+            print(f"  rank {rec['rank']} 2x2 {name} (nv_pad {nv_pad}, "
+                  f"group block {hybrid[1]}): {c['ms']:.4f} ms, sent "
+                  f"{c['sent_bytes']} B a call, views {c['views']}, over a "
+                  f"process group {c['group']}")
     print(f"  phase 33 took {time.perf_counter() - t0:.1f} s")
 
     print(f"[34] per-rank ingest: R-MAT {scale} read by DistVite, world "
@@ -4070,8 +4419,9 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
 
 
 def run_multiprocess_only(args, cards: list) -> int:
-    """``--only-multiprocess``: phase 30's one-process runs as the
-    reference, then phases 33-34."""
+    """``--only-multiprocess``: phase 30's, 35's colored and 36's 2x2
+    one-process runs as the reference, then phases 33-34, then on a host
+    of several cards phase 36's ``mesh="auto"`` batch."""
     import torch
 
     from cuvite_tpu_torch.io.generate import generate_rmat
@@ -4089,7 +4439,15 @@ def run_multiprocess_only(args, cards: list) -> int:
     launches, wall, res = run_mesh_schedule_full(
         g, args.scale, S, {"coloring": 8, "exchange": "sparse"})
     one_process[COLOR_RUN] = (res, launches, wall)
+    print(f"[36] R-MAT {args.scale} on a 2x2 hybrid mesh of one card, the "
+          "one-process reference of phase 33's two-level run")
+    launches, wall, res = run_mesh_full(g, args.scale, S, "twolevel", None,
+                                        shape=HYBRID)
+    one_process[TWOLEVEL_RUN] = (res, launches, wall)
     run_multiprocess(g, args.scale, S, cards, one_process)
+    if len(cards) >= 2:
+        print("[36] the batch axis over the cards: mesh='auto'")
+        run_batch_auto(cards, "serving 65536")
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4118,13 +4476,18 @@ def main() -> int:
                     help="R-MAT scale of phase 32's generation and "
                          "weighted-builder and Vite checks")
     ap.add_argument("--only-multiprocess", action="store_true",
-                    help="run phases 1, 30, 35's colored sparse run, 33 "
-                         "and 34 only (the one-rank-per-card world spans "
-                         "min(visible cards, 4))")
+                    help="run phases 1, 30, 35's colored sparse run, 36's "
+                         "2x2 run, 33 and 34, and with several cards "
+                         "36's mesh='auto' batch, only (the one-rank-per-"
+                         "card world spans min(visible cards, 4))")
     ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--batch-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         return rank_worker(args.rank_worker)
+    if args.batch_worker:
+        return batch_worker(args.batch_worker)
 
     # The run uses one card: show torch only that one, so the device count
     # on the last line is the count the run used.  Phases 33-34 start their
@@ -4486,6 +4849,35 @@ def main() -> int:
             one_process[COLOR_RUN] = (res, launches, wall)
     print(f"  R-MAT {args.scale} walls: {'; '.join(walls)}")
     print(f"  phase 35 took {time.perf_counter() - t35:.1f} s")
+
+    t36 = time.perf_counter()
+    print(f"[36] the two-level exchange on a {HYBRID[0]}x{HYBRID[1]} hybrid "
+          f"mesh of one card, and the batch axis (before phases 33-34, "
+          "which hold their two-level run against it)")
+    paths.update(check_twolevel_card_vs_cpu(args.check_scale, S, work))
+    print(f"  R-MAT {args.check_scale} runs took "
+          f"{time.perf_counter() - t36:.1f} s")
+    tl_launches, tl_s, tl_res = run_mesh_full(
+        g_rmat, args.scale, S, "twolevel", main_res, shape=HYBRID)
+    paths[f"mesh 2x2 R-MAT {args.scale} twolevel"] = tl_launches
+    one_process[TWOLEVEL_RUN] = (tl_res, tl_launches, tl_s)
+    check_same_run(f"R-MAT {args.scale} 2x2 vs the flat sparse mesh "
+                   "(phase 30)", tl_res, mesh_res)
+    if tl_res.modularity != mesh_res.modularity:
+        fail(f"R-MAT {args.scale} 2x2: Q bits differ from phase 30's sparse "
+             "run")
+    print(f"  R-MAT {args.scale} walls in this call: 2x2 two-level "
+          f"{tl_s:.3f} s, {S} shards flat sparse {mesh_s:.3f} s and "
+          f"replicated {rep_s:.3f} s (phase 30), one shard "
+          f"{bucketed_s:.3f} s (phase 5)")
+    gs = serving_jobs("serving 65536")
+    paths.update(check_batch_mesh(gs, "serving 65536"))
+    del gs
+    if len(cards) >= 2:
+        paths.update(run_batch_auto(cards, "serving 65536"))
+    else:
+        print("  one card on this host: no mesh='auto' run over cards")
+    print(f"  phase 36 took {time.perf_counter() - t36:.1f} s")
 
     paths.update(run_multiprocess(g_rmat, args.scale, S, cards,
                                   one_process))

@@ -36,9 +36,10 @@ sparse one runs the row kernel's size form.  After
 ``comm.multihost.initialize`` (``--distributed`` in the CLI, or torchrun)
 the same call runs one rank per card over ``torch.distributed``, each
 rank sweeping its own shards; ``io.dist_ingest.DistVite`` has each rank
-read only its shards' edges.  Not ported yet: the two-level exchange,
-the color and ET schedules on a mesh, and the concurrency checker's
-scheduler.
+read only its shards' edges.  ``mesh_shape=(dcn, ici)`` runs the
+two-level exchange on a hybrid mesh, ET and the color schedules run on a
+mesh, and ``louvain_many`` shards a batch's rows over the visible cards
+(``mesh="auto"``).  Not ported yet: the concurrency checker's scheduler.
 
 The package imports torch, numpy and scipy only; it never imports JAX
 or ``cuvite_tpu``.

@@ -38,6 +38,16 @@ cuda:0`` puts four shards on one card, ``--device cpu`` on the CPU);
 community exchange and ``--dist-stats`` prints the partition's edge
 distribution.
 
+    python -m cuvite_tpu_torch.cli --rmat 20 --mesh 2x2 --device cuda:0 \
+        --json --diag-prefix diag/rmat20
+
+``--mesh DxI`` runs the two-level exchange on a hybrid mesh of D groups
+of I shards (``--exchange twolevel``; ``1xN`` is ``--shards N``):
+community tables replicated only inside a group, ghosts between groups.
+``--diag-prefix PREFIX`` writes one line per shard and phase to
+``PREFIX.<shard>``; the ``--json`` line of a mesh run carries the
+reference's ``exchange`` block.
+
     torchrun --nproc-per-node 4 -m cuvite_tpu_torch.cli --rmat 20 \
         --shards 4 --distributed [--exchange sparse]
     torchrun --nproc-per-node 2 -m cuvite_tpu_torch.cli --file g.bin \
@@ -56,9 +66,9 @@ computes the same result.  ``--dist-ingest`` reads only this rank's
 shards' edge ranges of ``--file`` (``io/dist_ingest.py``; the sparse
 exchange and the bucketed engine).  ``-t``/``-a``, ``-c``, ``-d`` and
 ``--checkpoint-dir``/``--resume`` run with ``--shards``, ``--distributed``
-and ``--dist-ingest`` too (rank 0 alone writes the checkpoints).  Refused
-by name, not ported yet: ``--mesh`` (the two-level exchange,
-``ROADMAP.md`` A7.3) and ``--diag-prefix`` (A7.5).
+and ``--dist-ingest`` too (rank 0 alone writes the checkpoints), and
+``--mesh`` with ``--distributed`` (not with ``--dist-ingest``, coloring or
+vertex ordering, as in the reference).
 """
 
 from __future__ import annotations
@@ -115,19 +125,24 @@ def build_parser() -> argparse.ArgumentParser:
                           "--device when given)")
     run.add_argument("--balanced", "-b", action="store_true",
                      help="edge-balanced partition")
+    run.add_argument("--mesh", metavar="DCNxICI",
+                     help="2-D hybrid mesh 'dcn x ici' (e.g. 2x4) for the "
+                          "two-level exchange: community tables replicate "
+                          "only inside each ICI group, cross-group traffic "
+                          "rides the sparse ghost protocol on the DCN "
+                          "axis; 1xN is --shards N")
     run.add_argument("--exchange", default="auto",
-                     choices=["auto", "replicated", "sparse"],
+                     choices=["auto", "replicated", "sparse", "twolevel"],
                      help="community exchange of a mesh: 'sparse' = "
                           "per-phase ghost routing, O(owned + ghosts) a "
                           "sweep; 'replicated' = all_gather of the whole "
-                          "community vector; 'auto' picks by graph size "
-                          "per phase")
+                          "community vector; 'twolevel' = ICI-group "
+                          "tables + DCN ghost routing (requires --mesh "
+                          "with dcn > 1); 'auto' picks by graph size per "
+                          "phase")
     run.add_argument("--dist-ingest", action="store_true",
                      help="each rank reads only its shards' edge ranges "
                           "of --file (sparse exchange, bucketed engine)")
-    for flag in ("--mesh", "--diag-prefix"):
-        run.add_argument(flag, nargs="?", const=True, default=None,
-                         help=argparse.SUPPRESS)
 
     dist = p.add_argument_group("distributed (one rank per card)")
     dist.add_argument("--distributed", action="store_true",
@@ -163,6 +178,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="emit a machine-readable summary line")
     out.add_argument("--dist-stats", action="store_true",
                      help="print the partition's edge distribution")
+    out.add_argument("--diag-prefix", metavar="PREFIX",
+                     help="write per-shard diagnostic files "
+                          "PREFIX.<shard> (the reference application's "
+                          "dat.out.<rank> streams)")
     out.add_argument("--trace", action="store_true",
                      help="print the stage-time breakdown, counters, TEPS "
                           "and RSS high-water")
@@ -182,11 +201,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def validate(args) -> None:
     """The reference's checks (``cuvite_tpu/cli.py:169``) for the flags
-    the port has, and the refusal of those it has not."""
-    for flag, item in (("mesh", "A7.3"), ("diag_prefix", "A7.5")):
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
-                             f"cuvite_tpu_torch yet (ROADMAP.md {item})")
+    the port has."""
     if args.shards < 1:
         raise SystemExit("--shards must be >= 1")
     if not args.file and args.generate is None and args.rmat is None:
@@ -218,17 +233,48 @@ def validate(args) -> None:
                          "need --distributed")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
+    if args.mesh:
+        try:
+            d, _, i = args.mesh.lower().replace("\u00d7", "x").partition("x")
+            dcn, ici = int(d), int(i)
+        except ValueError:
+            raise SystemExit(f"--mesh must be DCNxICI (e.g. 2x4), "
+                             f"got {args.mesh!r}") from None
+        if dcn < 1 or ici < 1:
+            raise SystemExit("--mesh factors must be >= 1")
+        if args.shards not in (1, dcn * ici):
+            raise SystemExit(f"--shards {args.shards} conflicts with "
+                             f"--mesh {args.mesh} ({dcn * ici} devices)")
+        if dcn > 1:
+            if args.coloring or args.vertex_ordering:
+                raise SystemExit("--mesh with dcn > 1 (two-level exchange) "
+                                 "is incompatible with --coloring/"
+                                 "--vertex-ordering")
+            if args.engine in ("sort", "fused"):
+                raise SystemExit("--mesh with dcn > 1 requires the "
+                                 "bucketed engine")
+            if args.dist_ingest:
+                raise SystemExit("--mesh with dcn > 1 does not support "
+                                 "--dist-ingest yet")
+            if args.exchange == "replicated":
+                raise SystemExit("--mesh with dcn > 1 runs the two-level "
+                                 "exchange; --exchange replicated needs a "
+                                 "flat mesh")
+    elif args.exchange == "twolevel":
+        raise SystemExit("--exchange twolevel requires --mesh DCNxICI "
+                         "with dcn > 1")
     if args.checkpoint_dir and args.one_phase:
         raise SystemExit("--checkpoint-dir is incompatible with --one-phase")
 
 
 # What rank 0 alone does: each flag that prints a report or writes a file,
 # with its value on the other ranks (the reference's list,
-# cuvite_tpu/cli.py:255-266).
+# cuvite_tpu/cli.py:255-266).  The driver also writes --diag-prefix on
+# rank 0 alone.
 _RANK0_ONLY = {"quiet": True, "output": False, "json": False,
                "ground_truth": None, "trace": False, "dist_stats": False,
-               "write_graph": None, "trace_out": None, "metrics_out": None,
-               "profile_dir": None}
+               "diag_prefix": None, "write_graph": None, "trace_out": None,
+               "metrics_out": None, "profile_dir": None}
 
 
 def main(argv=None) -> int:
@@ -317,9 +363,11 @@ def _run(args) -> int:
                              vertex_ordering=args.vertex_ordering or 0,
                              checkpoint_dir=args.checkpoint_dir,
                              resume=args.resume, tracer=tracer,
-                             nshards=args.shards, balanced=args.balanced,
+                             nshards=args.shards, mesh_shape=args.mesh,
+                             balanced=args.balanced,
                              exchange=args.exchange,
-                             dist_stats=args.dist_stats)
+                             dist_stats=args.dist_stats,
+                             diag_prefix=args.diag_prefix)
     if args.trace:
         print(tracer.report())
     if args.trace_out and not args.quiet:
@@ -357,6 +405,14 @@ def _run(args) -> int:
         "seconds": res.total_seconds,
         "teps": teps,
     }
+    if res.exchange_stats:
+        # The mesh run's exchange (reference cli.py:404-414): its mode,
+        # and on a two-level run dcn, ici and the per-device bytes.
+        xs = res.exchange_stats
+        summary["exchange"] = {
+            k: xs[k] for k in ("mode", "dcn", "ici",
+                               "table_bytes_per_device", "ghost_bytes")
+            if k in xs}
     if args.json:
         print(json.dumps(summary))
     if args.metrics_out:

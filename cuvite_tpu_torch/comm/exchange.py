@@ -1,5 +1,5 @@
-"""The sparse ghost exchange of a vertex mesh (port of
-``cuvite_tpu/comm/exchange.py:57-164,217-496,534-564``).
+"""The sparse ghost exchange of a vertex mesh, and its two-level form
+(port of ``cuvite_tpu/comm/exchange.py``).
 
 The counterpart of the reference application's three-part protocol
 (exchangeVertexReqs, fillRemoteCommunities, updateRemoteCommunities):
@@ -39,8 +39,17 @@ degree and size tables come from grouping it, the requests and the
 attachment from the current communities, at the cost of one more
 key-only all_to_all (the request route).
 
-Not ported: the grouped plan and the two-level env (``build_grouped``,
-``twolevel_env``; ``ROADMAP.md`` A7.3).
+The two-level exchange of a hybrid mesh (``comm/mesh.make_hybrid_mesh``):
+:meth:`ExchangePlan.build_grouped` routes between the DCN groups of
+``ici`` consecutive shards -- the plan's "shards" are the groups, its
+``nv_pad`` the group window ``ici * shard_nv_pad``, its ghosts the ids
+referenced from outside the whole group -- and :func:`twolevel_env`
+gathers each shard's community and degree vectors over its ICI group,
+then runs :func:`sparse_env`, unchanged, at group scale over its DCN
+column.  Every member of a group computes the same group tables; the
+community tables a shard holds are O(nv_total / dcn) instead of
+O(nv_total).  :func:`sparse_modularity` then sums the a^2 term over the
+DCN column only.
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cuvite_tpu_torch.comm.collectives import all_to_all, psum
+from cuvite_tpu_torch.comm.collectives import all_gather, all_to_all, psum
+from cuvite_tpu_torch.comm.mesh import shard_outer
 from cuvite_tpu_torch.core.types import next_pow2
 
 SENTINEL = int(np.iinfo(np.int32).max)
@@ -75,6 +85,8 @@ class ExchangePlan:
     ghost_sel: np.ndarray      # [S, G] int32
     ghost_ids: list            # list[np.ndarray] per shard
     max_ghosts: int
+    ici: int = 1               # device shards a plan shard (DCN group)
+    shard_nv_pad: int = 0      # a device shard's window (0: nv_pad)
 
     @staticmethod
     def build(dg, shard_ids=None) -> "ExchangePlan":
@@ -95,19 +107,48 @@ class ExchangePlan:
             owned = (d >= s * nvp) & (d < (s + 1) * nvp)
             ghost_ids.append(np.unique(d[~owned]))
         if shard_ids is not None:
-            from cuvite_tpu_torch.comm.multihost import allgather_varlen
+            ghost_ids = _gather_ghost_lists(ghost_ids, S)
+        return ExchangePlan._lay_out(ghost_ids, nvp)
 
-            lens = np.array([len(g) for g in ghost_ids], dtype=np.int64)
-            flat = (np.concatenate(ghost_ids) if ghost_ids
-                    else np.zeros(0, dtype=np.int64))
-            ghost_ids = []
-            for ls, fl in zip(allgather_varlen(lens),
-                              allgather_varlen(flat)):
-                ghost_ids += np.split(fl, np.cumsum(ls)[:-1])
-            if len(ghost_ids) != S:
-                raise RuntimeError(
-                    f"ghost exchange gathered {len(ghost_ids)} shard "
-                    f"lists for {S} shards")
+    @staticmethod
+    def build_grouped(dg, n_dcn: int, shard_ids=None) -> "ExchangePlan":
+        """The two-level plan (reference ``exchange.py:165-215``): routing
+        between the ``n_dcn`` groups of ``ici = dg.nshards // n_dcn``
+        consecutive shards, group g owning the window ``[g * nv_grp,
+        (g + 1) * nv_grp)``, ``nv_grp = ici * dg.nv_pad``.  Group g's
+        ghosts are the ids its member shards reference outside that
+        window.  ``shard_ids`` as in :meth:`build`: a rank finds its own
+        shards' references and all-gathers the lists.  At ici = 1 it is
+        :meth:`build`'s plan."""
+        S, nvp = dg.nshards, dg.nv_pad
+        if getattr(dg, "local_only", False):
+            raise NotImplementedError(
+                "two-level exchange does not support per-host ingest yet")
+        if n_dcn < 1 or S % n_dcn:
+            raise ValueError(f"dcn={n_dcn} must divide nshards={S}")
+        ici = S // n_dcn
+        nv_grp = ici * nvp
+        refs = []
+        for s in (range(S) if shard_ids is None else shard_ids):
+            sh = dg.shards[s]
+            real = np.asarray(sh.src) < nvp
+            d = np.asarray(sh.dst)[real].astype(np.int64)
+            g = s // ici
+            refs.append(np.unique(
+                d[(d < g * nv_grp) | (d >= (g + 1) * nv_grp)]))
+        if shard_ids is not None:
+            refs = _gather_ghost_lists(refs, S)
+        ghost_ids = [np.unique(np.concatenate(refs[g * ici:(g + 1) * ici]))
+                     for g in range(n_dcn)]
+        plan = ExchangePlan._lay_out(ghost_ids, nv_grp)
+        plan.ici, plan.shard_nv_pad = ici, nvp
+        return plan
+
+    @staticmethod
+    def _lay_out(ghost_ids: list, nvp: int) -> "ExchangePlan":
+        """The static all_to_all layout of every plan shard's sorted
+        ghost list, plan shard t owning ``[t * nvp, (t + 1) * nvp)``."""
+        S = len(ghost_ids)
         bounds = [np.searchsorted(g, np.arange(S + 1) * nvp)
                   for g in ghost_ids]
         max_g = max((len(g) for g in ghost_ids), default=0)
@@ -138,9 +179,11 @@ class ExchangePlan:
         """Plan-shape digest (the reference's ``exchange`` event and
         ``LouvainResult.exchange_stats``): ``ghost_bytes`` is the
         three-channel ghost pull of 4-byte values sent per shard and
-        sweep."""
-        return {
-            "mode": "sparse",
+        sweep; a two-level plan adds ``dcn``, ``ici`` and
+        ``table_bytes_per_device``, the group-window community and degree
+        vectors each shard holds."""
+        out = {
+            "mode": "twolevel" if self.ici > 1 else "sparse",
             "nshards": self.nshards,
             "block": self.block,
             "ghost_pad": self.ghost_pad,
@@ -148,29 +191,55 @@ class ExchangePlan:
             "ghosts_per_shard": [len(g) for g in self.ghost_ids],
             "ghost_bytes": 3 * self.nshards * self.block * 4,
         }
+        if self.ici > 1:
+            out["dcn"] = self.nshards
+            out["ici"] = self.ici
+            out["table_bytes_per_device"] = 2 * self.nv_pad * 4
+        return out
 
     def remap_dst(self, s: int, src: np.ndarray,
                   dst: np.ndarray) -> np.ndarray:
-        """Shard s's padded-global dst ids in its extended-local space
-        [0, nv_pad + ghost_pad); padding edges map to 0."""
+        """Device shard s's padded-global dst ids in its extended-local
+        space [0, nv_pad + ghost_pad); padding edges map to 0.  On a
+        two-level plan the space is group ``s // ici``'s: owned means
+        owned by the group, and shard s's own vertex v lands at
+        ``(s % ici) * shard_nv_pad + v``."""
         nvp = self.nv_pad
+        g = s // self.ici
         d = dst.astype(np.int64)
         out = np.zeros(len(d), dtype=np.int64)
-        real = src < nvp
-        owned = real & (d >= s * nvp) & (d < (s + 1) * nvp)
-        out[owned] = d[owned] - s * nvp
+        real = src < (self.shard_nv_pad or nvp)
+        owned = real & (d >= g * nvp) & (d < (g + 1) * nvp)
+        out[owned] = d[owned] - g * nvp
         ghost = real & ~owned
-        out[ghost] = nvp + np.searchsorted(self.ghost_ids[s], d[ghost])
+        out[ghost] = nvp + np.searchsorted(self.ghost_ids[g], d[ghost])
         return out
 
     def to_mesh(self, mesh) -> tuple:
         """(send_idx, ghost_sel) of the mesh's local shards as int64
-        tensors on their devices: shard t's [S, B] send rows and [G]
-        ghost selection."""
-        return ([torch.from_numpy(self.send_idx[t].astype(np.int64)).to(d)
-                 for t, d in zip(mesh.shard_ids, mesh.devices)],
-                [torch.from_numpy(self.ghost_sel[t].astype(np.int64)).to(d)
-                 for t, d in zip(mesh.shard_ids, mesh.devices)])
+        tensors on their devices: the [S, B] send rows and [G] ghost
+        selection of each shard's plan shard (its group's on a two-level
+        plan, ``comm/mesh.shard_outer``)."""
+        return (shard_outer(mesh, self.send_idx.astype(np.int64), self.ici),
+                shard_outer(mesh, self.ghost_sel.astype(np.int64), self.ici))
+
+
+def _gather_ghost_lists(local: list, S: int) -> list:
+    """Every shard's ghost (or reference) list, from each rank's lists of
+    its own shards (``multihost.allgather_varlen``), in shard order."""
+    from cuvite_tpu_torch.comm.multihost import allgather_varlen
+
+    lens = np.array([len(g) for g in local], dtype=np.int64)
+    flat = (np.concatenate(local) if local
+            else np.zeros(0, dtype=np.int64))
+    out = []
+    for ls, fl in zip(allgather_varlen(lens), allgather_varlen(flat)):
+        out += np.split(fl, np.cumsum(ls)[:-1])
+    if len(out) != S:
+        raise RuntimeError(
+            f"ghost exchange gathered {len(out)} shard lists for {S} "
+            "shards")
+    return out
 
 
 class SparseEnv(NamedTuple):
@@ -348,11 +417,62 @@ def sparse_env(comms: list, vdegs: list, send_idx: list, ghost_sel: list,
             for i in range(len(groups))]
 
 
+def twolevel_env(comms: list, vdegs: list, send_idx: list,
+                 ghost_sel: list, mesh, *, n_dcn: int, budget: int,
+                 info: list | None = None) -> list:
+    """The local shards' :class:`SparseEnv` under the two-level exchange
+    of a hybrid mesh (reference ``exchange.py:497-531``).  A tiled
+    all-gather over each ICI group gives every member the group's
+    [nv_grp] community and degree vectors (and ``info``'s); then
+    :func:`sparse_env` runs unchanged at group scale over each DCN
+    column, with the grouped plan's per-shard ``send_idx``/``ghost_sel``
+    (every member of a group holds the same rows and computes the same
+    bits).  The ``*_ext`` fields and ``deg_local`` are group-scale;
+    ``cdeg_v`` and ``csize_v`` are sliced back to the shard's own window
+    at ``(s % ici) * nv_pad``."""
+    n = len(comms)
+    nv_pad = comms[0].shape[0]
+    ici = mesh.size // n_dcn
+
+    def over_ici(xs):
+        out = [None] * n
+        for view, pos in mesh.ici_views:
+            for p, x in zip(pos, all_gather([xs[p] for p in pos], view)):
+                out[p] = x
+        return out
+
+    comm_g, vdeg_g = over_ici(comms), over_ici(vdegs)
+    info_g = None if info is None else over_ici(info)
+    envs = [None] * n
+    for view, pos in mesh.dcn_views:
+        col = sparse_env([comm_g[p] for p in pos], [vdeg_g[p] for p in pos],
+                         [send_idx[p] for p in pos],
+                         [ghost_sel[p] for p in pos], view, budget=budget,
+                         info=None if info_g is None
+                         else [info_g[p] for p in pos])
+        for p, env in zip(pos, col):
+            envs[p] = env
+    out = []
+    for s, env in zip(mesh.shard_ids, envs):
+        off = (s % ici) * nv_pad
+        out.append(env._replace(cdeg_v=env.cdeg_v[off:off + nv_pad],
+                                csize_v=env.csize_v[off:off + nv_pad]))
+    return out
+
+
 def sparse_modularity(counter0: list, deg_local: list, constant: float,
-                      mesh) -> torch.Tensor:
+                      mesh, *, twolevel: bool = False) -> torch.Tensor:
     """Q = e*c - a^2*c^2 in f64, the a^2 term from each shard's OWNED
-    community degrees so that every community counts once.  Returns the
-    0-dim f64 Q on the first local shard's device."""
+    community degrees so that every community counts once.  Under the
+    two-level exchange (``twolevel``) ``deg_local`` is a group's, the
+    same on every member, so the a^2 term sums over the DCN columns only
+    while the e term sums over every shard.  Returns the 0-dim f64 Q on
+    the first local shard's device."""
     le = psum([c.double().sum() for c in counter0], mesh)[0]
-    la2 = psum([d.double().square().sum() for d in deg_local], mesh)[0]
+    sq = [d.double().square().sum() for d in deg_local]
+    if twolevel:
+        view, pos = next((v, p) for v, p in mesh.dcn_views if 0 in p)
+        la2 = psum([sq[p] for p in pos], view)[pos.index(0)]
+    else:
+        la2 = psum(sq, mesh)[0]
     return le * constant - la2 * constant * constant

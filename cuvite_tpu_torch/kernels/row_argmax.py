@@ -292,7 +292,7 @@ def _argmax_rows(c, w, ay, sz, curr, vd, ax, sl, cst, deg):
 
 def row_argmax_sized(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
                      vdeg, self_loop, constant, deg=None, vinfo=None,
-                     sinfo=None):
+                     sinfo=None, own: int = 0):
     """Best move of every bucket row under the sparse exchange (the size
     form, module note).
 
@@ -303,12 +303,14 @@ def row_argmax_sized(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
     [n_ext] int32 the degree and size of that community; cdeg_v, vdeg,
     self_loop [nv] f32.  ``vinfo``/``sinfo``: the
     :func:`attached_vertex_table` and :func:`slot_table` when the caller
-    has them.  Returns (best_c, best_gain, counter0, best_size [N]
-    int32)."""
+    has them.  ``own``: where the rows' own vertices start in the
+    extended tables (the two-level exchange's group-extended tables put
+    shard s's at ``(s % ici) * nv``; 0 otherwise).  Returns (best_c,
+    best_gain, counter0, best_size [N] int32)."""
     nv = vdeg.numel()
     consts = tenant_constants(constant, dst.device)
-    shift = _validate(dst, w, verts, comm_ext[:nv], cdeg_v, vdeg, self_loop,
-                      consts, deg)
+    shift = _validate(dst, w, verts, comm_ext[own:own + nv], cdeg_v, vdeg,
+                      self_loop, consts, deg)
     for name, t, dt in (("comm_ext", comm_ext, torch.int32),
                         ("cdeg_ext", cdeg_ext, torch.float32),
                         ("csize_ext", csize_ext, torch.int32),
@@ -318,19 +320,21 @@ def row_argmax_sized(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
             raise ValueError(f"row_argmax_sized: {name} must be a "
                              f"contiguous 1-d {dt} tensor on {dst.device}")
     n_ext = comm_ext.numel()
-    if not (cdeg_ext.numel() == csize_ext.numel() == n_ext >= nv
-            and cdeg_v.numel() == nv):
+    if not (cdeg_ext.numel() == csize_ext.numel() == n_ext >= own + nv
+            and cdeg_v.numel() == nv and own >= 0):
         raise ValueError("row_argmax_sized: comm_ext/cdeg_ext/csize_ext "
-                         "must be one length >= nv, cdeg_v of length nv")
+                         "must be one length >= own + nv, cdeg_v of "
+                         "length nv")
     if dst.device.type == "cpu":
         return row_argmax_sized_plain(dst, w, verts, comm_ext, cdeg_ext,
                                       csize_ext, cdeg_v, vdeg, self_loop,
-                                      consts, deg)
+                                      consts, deg, own=own)
     if dst.device.type != "cuda":
         raise ValueError(f"row_argmax_sized: no kernel for device "
                          f"{dst.device}")
     if vinfo is None:
-        vinfo = attached_vertex_table(comm_ext[:nv], cdeg_v, vdeg, self_loop)
+        vinfo = attached_vertex_table(comm_ext[own:own + nv], cdeg_v, vdeg,
+                                      self_loop)
     if sinfo is None:
         sinfo = slot_table(comm_ext, cdeg_ext, csize_ext)
     for name, t, rows in (("vinfo", vinfo, nv), ("sinfo", sinfo, n_ext)):
@@ -363,7 +367,8 @@ row_argmax_sized.launches = 0
 
 
 def row_argmax_sized_plain(dst, w, verts, comm_ext, cdeg_ext, csize_ext,
-                           cdeg_v, vdeg, self_loop, constant, deg=None):
+                           cdeg_v, vdeg, self_loop, constant, deg=None,
+                           own: int = 0):
     """Plain PyTorch twin of :func:`row_argmax_sized`: the per-row sort of
     :func:`row_argmax_plain` with the per-slot degree and size read
     through ``dst``."""
@@ -376,7 +381,8 @@ def row_argmax_sized_plain(dst, w, verts, comm_ext, cdeg_ext, csize_ext,
                               verts[i:i + chunk], comm_ext, cdeg_ext,
                               csize_ext, cdeg_v, vdeg, self_loop, consts,
                               shift,
-                              None if deg is None else deg[i:i + chunk])
+                              None if deg is None else deg[i:i + chunk],
+                              own)
             for i in range(0, n, chunk)]
     if not outs:
         e = dst.new_empty(0)
@@ -385,9 +391,9 @@ def row_argmax_sized_plain(dst, w, verts, comm_ext, cdeg_ext, csize_ext,
 
 
 def _rows_sized_plain(dst, w, verts, comm_ext, cdeg_ext, csize_ext, cdeg_v,
-                      vdeg, self_loop, consts, shift, deg):
+                      vdeg, self_loop, consts, shift, deg, own):
     v = verts.clamp(max=vdeg.numel() - 1).long()
     d = dst.long()
     return _argmax_rows(comm_ext[d], w, cdeg_ext[d], csize_ext[d],
-                        comm_ext[v], vdeg[v], cdeg_v[v] - vdeg[v],
+                        comm_ext[own + v], vdeg[v], cdeg_v[v] - vdeg[v],
                         self_loop[v], consts[v >> shift][:, None], deg)

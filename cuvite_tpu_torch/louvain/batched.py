@@ -1,5 +1,5 @@
-"""Batched multi-tenant Louvain on one device (port of
-``cuvite_tpu/louvain/batched.py``).
+"""Batched multi-tenant Louvain on one device or a batch-axis mesh (port
+of ``cuvite_tpu/louvain/batched.py``).
 
 Serving many small graphs: B graphs of one slab class (``core/batch.py``)
 run as one batch.  Every tenant is folded into one id space -- tenant b's
@@ -45,14 +45,29 @@ What does not carry over, by design:
   contract, ``bucket_shape`` padding for compile stability): eager PyTorch
   has no trace to reuse.  ``bucket_shape`` is still accepted, and a batch
   that does not fit it is refused.
-- Sharding the batch axis over several devices (``make_batch_mesh``,
-  ``BATCH_AXIS``): multi-GPU work, ``ROADMAP.md`` A7.4.  ``mesh=None``
-  and ``mesh="auto"`` resolve to the one device; any other value raises.
 - The accumulator binning of ``accum_class_of``: the port sums in f64 for
   every graph, so every graph is one class (``"float64"``).  The serving
   queue still bins by the reference's tag (``serve/queue.py::
   accum_tag``), which now decides binning only.
 - The ``msd``/``hash`` coalesce engines.
+
+The batch axis over several devices (reference ``:531-550, 713-730,
+809-817``).  :func:`make_batch_mesh` spans the largest power-of-two
+device count that divides the batch's rows and fits the visible cards
+(None with one card or one row).  ``mesh="auto"``, the default of every
+entry point, resolves through it for a batch on the card (on the CPU it
+is the one device), ``mesh=None`` pins ``device``, and a mesh from
+:func:`make_batch_mesh` may list a device more than once (two blocks on
+``cuda:0``, or on the CPU).  :func:`prepare_batch` splits the batch into
+equal contiguous row blocks, one a device, each prepared as a batch of
+its own (its slab, its phase-0 plans, its upload stream and event);
+:func:`execute_prepared` runs the blocks in lock step, phase by phase,
+as the reference's shard_map does: each sweep is enqueued on every block
+that still has running rows before any block's flags are read, so that
+the cards overlap, and each block stops on its own rows.  The coarse
+class and each phase's engine are decided over the whole batch; the
+coarsenings run per block.  Launch counts are then the blocks' sum, and
+``BatchResult.coalesce`` lists each block's coarsenings.
 
 Merged batches (``pack_subrow_many``, ``prepare_packed``,
 ``cluster_packed``, reference ``:239-470, 772-822, 1038-1170,
@@ -107,6 +122,7 @@ from cuvite_tpu_torch.coarsen.rebin import (
     device_rebin_enabled,
     rebin_eligible,
 )
+from cuvite_tpu_torch.comm.mesh import Mesh
 from cuvite_tpu_torch.core.batch import (
     BATCH_ENGINES,
     BatchedSlab,
@@ -144,15 +160,49 @@ def _coarse_class(nv_pad: int, ne_pad: int) -> tuple:
             max(ne_pad // 4, BATCH_COARSE_MIN_NE))
 
 
-def _resolve_mesh(mesh) -> None:
-    """``None`` and ``"auto"`` mean the one device; a batch-axis mesh over
-    several devices is not ported."""
+# The batch-axis mesh dimension (tenant-parallel; orthogonal to the vertex
+# mesh of comm/mesh.py).
+BATCH_AXIS = "batch"
+
+
+def make_batch_mesh(b_pad: int, devices=None):
+    """A batch-axis mesh over the largest power-of-two device count that
+    divides ``b_pad`` and is at most the device count (reference
+    ``make_batch_mesh``): ``devices`` lists them, repeats allowed, and
+    defaults to the visible CUDA cards.  None when one device or one row
+    makes sharding pointless."""
+    devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if devices is None else [torch.device(d) for d in devices])
+    if b_pad <= 1 or len(devs) <= 1:
+        return None
+    cap = 1 << (len(devs).bit_length() - 1)     # largest pow2 <= ndev
+    nd = min(b_pad & -b_pad, cap)               # largest pow2 | b_pad
+    if nd <= 1:
+        return None
+    return Mesh(devices=tuple(devs[:nd]), axis_name=BATCH_AXIS)
+
+
+def _check_mesh(mesh) -> None:
     if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
         return
-    raise ValueError(
-        f"mesh={mesh!r}: sharding the batch axis over several devices is "
-        "not ported (ROADMAP.md A7.4, multi-GPU); pass "
-        "mesh=None or mesh='auto' for the one device")
+    if not (isinstance(mesh, Mesh) and mesh.axis_name == BATCH_AXIS):
+        raise ValueError(
+            f"mesh={mesh!r}: pass None (one device), 'auto' or a batch "
+            "mesh from make_batch_mesh")
+
+
+def _resolve_mesh(mesh, b_pad: int, device):
+    """The batch mesh a batch of ``b_pad`` rows runs on, or None for the
+    one device ``device`` (module note)."""
+    _check_mesh(mesh)
+    if isinstance(mesh, str):
+        if resolve_device(device).type != "cuda":
+            return None
+        mesh = make_batch_mesh(b_pad)
+    if mesh is not None and b_pad % mesh.size:
+        raise ValueError(f"a batch of {b_pad} rows does not split into "
+                         f"{mesh.size} equal blocks")
+    return mesh
 
 
 @dataclasses.dataclass
@@ -185,48 +235,65 @@ class _Slab:
         return fold_slab(self.src, self.dst, self.w, nv_pad=self.nv_pad)
 
 
-def _phase_loop(sweep, b: int, nv_pad: int, running: np.ndarray,
-                threshold: float, device) -> tuple:
+def _phase_loop(sweeps: list, sizes: list, nv_pad: int,
+                running: np.ndarray, threshold: float, devices: list
+                ) -> tuple:
     """Every running tenant's phase from the identity assignment: the
     batched ``loop.phase_loop`` (reference ``_run_phase_loop`` under
-    ``jax.vmap``).  ``sweep(comm)`` returns (target [B * nv_pad] int32,
-    Q [B] f64, moved [B]).  One host read per sweep.
+    ``jax.vmap``), over the batch's blocks, block k holding the next
+    ``sizes[k]`` tenants on ``devices[k]``.  ``sweeps[k](comm)`` returns
+    (target [b_k * nv_pad] int32, Q [b_k] f64, moved [b_k]).  Each sweep
+    is enqueued on every block that still has running rows before any
+    block's values are read (one host read a block and sweep).
 
-    The sweeps see folded ids (tenant b's community c is b * nv_pad + c).
-    Returns (past [B, nv_pad] int32 in each tenant's own ids, Q of past
-    [B] f64 numpy, sweeps [B] numpy, per-tenant (qs, moved) convergence
-    rows)."""
-    comm = torch.arange(b * nv_pad, dtype=torch.int32,
-                        device=device).view(b, nv_pad)
-    base = comm[:, :1].clone()
-    past = comm.clone()
+    The sweeps see folded ids (tenant b's community c is b * nv_pad + c
+    within its block).  Returns (past [b_k, nv_pad] int32 of each block
+    in each tenant's own ids, Q of past [B] f64 numpy, sweeps [B] numpy,
+    per-tenant (qs, moved) convergence rows)."""
+    b = int(sum(sizes))
+    los = np.cumsum([0] + list(sizes))
+    comms, bases, pasts = [], [], []
+    for bk, dev in zip(sizes, devices):
+        comm = torch.arange(bk * nv_pad, dtype=torch.int32,
+                            device=dev).view(bk, nv_pad)
+        comms.append(comm)
+        bases.append(comm[:, :1].clone())
+        pasts.append(comm.clone())
     prev = np.full(b, -1.0)
     iters = np.zeros(b, dtype=np.int64)
     rows = [([], []) for _ in range(b)]
     run = running.copy()
     while run.any():
-        target, mod, moved = sweep(comm.reshape(-1))
-        read = torch.stack([mod, moved.double()]).tolist()
-        advance = np.zeros(b, dtype=bool)
-        for i in np.flatnonzero(run):
-            q = read[0][i]
-            iters[i] += 1
-            stop = (q - prev[i]) < threshold
-            qs, mv = rows[i]
-            if len(qs) < CONV_ROWS_CAP:
-                qs.append(q)
-                mv.append(0 if stop else int(read[1][i]))
-            if stop:
-                run[i] = False
-                continue
-            prev[i] = max(q, -1.0)
-            advance[i] = True
-            if iters[i] >= MAX_TOTAL_ITERATIONS:
-                run[i] = False
-        adv = torch.from_numpy(advance).to(device)[:, None]
-        past = torch.where(adv, comm, past)
-        comm = torch.where(adv, target.view(b, nv_pad), comm)
-    return past - base, prev, iters, rows
+        pending = []
+        for k, sweep in enumerate(sweeps):
+            if run[los[k]:los[k + 1]].any():
+                target, mod, moved = sweep(comms[k].reshape(-1))
+                pending.append((k, target, torch.stack([mod,
+                                                        moved.double()])))
+        for k, target, flags in pending:
+            read = flags.tolist()
+            lo, bk = los[k], sizes[k]
+            advance = np.zeros(bk, dtype=bool)
+            for j in np.flatnonzero(run[lo:lo + bk]):
+                i = lo + j
+                q = read[0][j]
+                iters[i] += 1
+                stop = (q - prev[i]) < threshold
+                qs, mv = rows[i]
+                if len(qs) < CONV_ROWS_CAP:
+                    qs.append(q)
+                    mv.append(0 if stop else int(read[1][j]))
+                if stop:
+                    run[i] = False
+                    continue
+                prev[i] = max(q, -1.0)
+                advance[j] = True
+                if iters[i] >= MAX_TOTAL_ITERATIONS:
+                    run[i] = False
+            adv = torch.from_numpy(advance).to(devices[k])[:, None]
+            pasts[k] = torch.where(adv, comms[k], pasts[k])
+            comms[k] = torch.where(adv, target.view(bk, nv_pad), comms[k])
+    return [p - base for p, base in zip(pasts, bases)], prev, iters, rows
 
 
 def _constants(tw2: np.ndarray, device) -> TenantConstants:
@@ -380,7 +447,7 @@ class PreparedBatch:
     tw2: np.ndarray
     engine: str
     device: torch.device
-    slab: _Slab
+    slab: _Slab | None
     plan: DevicePlan | None = None   # phase-0 folded plan, bucketed only
     pack_s: float = 0.0
     # The upload's event on the side stream (card only, module note).
@@ -389,6 +456,13 @@ class PreparedBatch:
     # fields above describe the fold of its sub-rows).
     layout: SubRowLayout | None = None
     rows: int = 0
+    # A batch on a batch mesh: one prepared batch a block, in row order
+    # (this one then holds no slab, plan or event of its own).
+    parts: list | None = None
+
+    @property
+    def blocks(self) -> list:
+        return self.parts or [self]
 
 
 # One upload stream per card (module note), made on first use.
@@ -412,12 +486,44 @@ def prepare_batch(batch: BatchedSlab, *, mesh="auto", engine: str = "fused",
     """The pack half of :func:`run_batched`: the phase-0 plans
     (``engine='bucketed'``, built on the host and folded) and the upload
     of the slab and the plans (``side_stream`` on the card: pinned
-    memory, a side stream and an event, module note)."""
+    memory, a side stream and an event, module note).  On a batch mesh
+    (``mesh``, module note) every row block is prepared so on its own
+    device."""
     if engine not in BATCH_ENGINES:
         raise ValueError(f"unknown batched engine {engine!r}; "
                          f"use one of {BATCH_ENGINES}")
-    _resolve_mesh(mesh)
-    dev = resolve_device(device)
+    bm = _resolve_mesh(mesh, batch.b_pad, device)
+    if bm is None:
+        return _prepare_block(batch, engine, bucket_shape,
+                              resolve_device(device), tracer, side_stream)
+    t0 = time.perf_counter()
+    per = batch.b_pad // bm.size
+    parts = [_prepare_block(_rows(batch, k * per, (k + 1) * per), engine,
+                            bucket_shape, dev, tracer, side_stream)
+             for k, dev in enumerate(bm.devices)]
+    return PreparedBatch(
+        b_pad=batch.b_pad, nv_pad=batch.nv_pad, ne_pad=batch.ne_pad,
+        n_jobs=batch.n_jobs, slab_class=batch.slab_class,
+        nv_real=batch.nv_real.copy(), ne_real=batch.ne_real.copy(),
+        row_valid=batch.row_valid.copy(), tw2=batch.tw2.copy(),
+        engine=engine, device=parts[0].device, slab=None,
+        pack_s=time.perf_counter() - t0, parts=parts)
+
+
+def _rows(batch: BatchedSlab, lo: int, hi: int) -> BatchedSlab:
+    """Rows [lo, hi) of a batch as a batch of their own."""
+    return BatchedSlab(
+        src=batch.src[lo:hi], dst=batch.dst[lo:hi], w=batch.w[lo:hi],
+        real_mask=batch.real_mask[lo:hi], constant=batch.constant[lo:hi],
+        row_valid=batch.row_valid[lo:hi], nv_real=batch.nv_real[lo:hi],
+        ne_real=batch.ne_real[lo:hi], tw2=batch.tw2[lo:hi],
+        nv_pad=batch.nv_pad, ne_pad=batch.ne_pad,
+        n_jobs=min(max(batch.n_jobs - lo, 0), hi - lo))
+
+
+def _prepare_block(batch: BatchedSlab, engine: str, bucket_shape, dev,
+                   tracer, side_stream: bool) -> PreparedBatch:
+    """One device's prepared batch (:func:`prepare_batch`)."""
     tracer = tracer if tracer is not None else NullTracer()
     t0 = time.perf_counter()
     nv_pad = batch.nv_pad
@@ -477,8 +583,9 @@ def execute_prepared(prep: PreparedBatch, *, threshold: float = 1.0e-6,
     merged batch (``prep.layout``) runs as the fold of its sub-rows and
     reports the packed geometry."""
     tracer = tracer if tracer is not None else NullTracer()
-    if prep.ready is not None:
-        torch.cuda.current_stream(prep.device).wait_event(prep.ready)
+    for blk in prep.blocks:
+        if blk.ready is not None:
+            torch.cuda.current_stream(blk.device).wait_event(blk.ready)
     with tracer.stage("iterate"):
         br = _execute_fold(prep, threshold=threshold,
                            max_phases=max_phases, verbose=verbose,
@@ -496,18 +603,21 @@ def execute_prepared(prep: PreparedBatch, *, threshold: float = 1.0e-6,
 
 def _execute_fold(prep: PreparedBatch, *, threshold: float,
                   max_phases: int, verbose: bool, tracer) -> BatchResult:
-    """The phases of a prepared batch over its folded tenants.  Each
-    phase books its live buffers to the tracer's memory ledger and counts
-    ``traversed_edges`` (each active tenant's edges x sweeps, from the
-    host values the phase already read), as the reference does
-    (``batched.py:934-990``)."""
+    """The phases of a prepared batch over its folded tenants, its blocks
+    in lock step (module note).  Each phase books its live buffers to the
+    tracer's memory ledger and counts ``traversed_edges`` (each active
+    tenant's edges x sweeps, from the host values the phase already
+    read), as the reference does (``batched.py:934-990``)."""
     from cuvite_tpu_torch.louvain.driver import LouvainResult, PhaseStats
 
     t0 = time.perf_counter()
     b = prep.b_pad
-    dev = prep.device
-    consts = _constants(prep.tw2, dev)
-    slab = prep.slab
+    blocks = prep.blocks
+    devs = [blk.device for blk in blocks]
+    sizes = [blk.b_pad for blk in blocks]
+    los = np.cumsum([0] + sizes)
+    consts = [_constants(blk.tw2, blk.device) for blk in blocks]
+    slabs = [blk.slab for blk in blocks]
     coarse_class = None
     active = prep.row_valid.copy()
     prev_mod = np.full(b, -1.0)
@@ -523,25 +633,38 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
     while active.any() and phase < max_phases:
         t1 = time.perf_counter()
         tracer.ledger_phase_begin()
-        tracer.track("slab", slab.src, slab.dst, slab.w)
-        tracer.track("tables", slab.real_mask, consts)
+        for slab, c in zip(slabs, consts):
+            tracer.track("slab", slab.src, slab.dst, slab.w)
+            tracer.track("tables", slab.real_mask, c)
         if phase == 0 and prep.engine == "bucketed":
-            tracer.track("plans", prep.plan)
+            tracer.track("plans", *[blk.plan for blk in blocks])
             eng = "bucketed"
-            sweep = _bucketed_phase_body(prep.plan, slab, consts)
+            body = None
         else:
-            eng = _coarse_engine(prep.engine, slab.nv_pad, slab.ne_pad)
-            sweep = (_rebinned_phase_body(slab, consts) if eng == "rebinned"
-                     else _phase_body(slab, consts))
+            eng = _coarse_engine(prep.engine, slabs[0].nv_pad,
+                                 slabs[0].ne_pad)
+            body = (_rebinned_phase_body if eng == "rebinned"
+                    else _phase_body)
+        # A block none of whose tenants still clusters gets no phase.
+        bodies = [None if not active[los[k]:los[k + 1]].any()
+                  else _bucketed_phase_body(blk.plan, slabs[k], consts[k])
+                  if body is None else body(slabs[k], consts[k])
+                  for k, blk in enumerate(blocks)]
         phase_engines.append(eng)
-        past, mod, iters, rows = _phase_loop(sweep, b, slab.nv_pad, active,
-                                             threshold, dev)
-        del sweep
+        pasts, mod, iters, rows = _phase_loop(
+            bodies, sizes, slabs[0].nv_pad, active, threshold, devs)
+        del bodies
         sweeps.append(int(iters.max()))
-        slab, gained, nc, ne2, ceng = _phase_tail(slab, past, mod, prev_mod,
-                                                  active, threshold)
-        if ceng is not None:
-            coalesce.append(ceng)
+        gained, nc, ne2 = (np.zeros(b, dtype=bool), np.zeros(b, np.int64),
+                           np.zeros(b, np.int64))
+        for k, past in enumerate(pasts):
+            lo, hi = los[k], los[k + 1]
+            slabs[k], gained[lo:hi], nc[lo:hi], ne2[lo:hi], ceng = \
+                _phase_tail(slabs[k], past, mod[lo:hi], prev_mod[lo:hi],
+                            active[lo:hi], threshold)
+            if ceng is not None:
+                coalesce.append(ceng)
+        del pasts
         phase_wall = time.perf_counter() - t1
         share = phase_wall / max(int(active.sum()), 1)
         traversed = 0
@@ -569,17 +692,19 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
                   f"{iters[:prep.n_jobs].tolist()}")
         if phase == 0 and prep.engine == "bucketed":
             # One-notch serving-coarse shrink (reference :996-1010): iff
-            # every tenant still clustering fits.
-            cnv, cne = _coarse_class(slab.nv_pad, slab.ne_pad)
-            if (active.any() and (cnv, cne) != (slab.nv_pad, slab.ne_pad)
+            # every tenant still clustering, in every block, fits.
+            cur = (slabs[0].nv_pad, slabs[0].ne_pad)
+            cnv, cne = _coarse_class(*cur)
+            if (active.any() and (cnv, cne) != cur
                     and int(nc[active].max()) <= cnv
                     and int(ne2[active].max()) <= cne):
-                slab = _shrink_batch(slab, cnv, cne)
+                slabs = [_shrink_batch(slab, cnv, cne) for slab in slabs]
                 coarse_class = (cnv, cne)
         phase += 1
 
-    # The one final label gather.
-    comm_all = slab.comm_all.cpu().numpy()
+    # The one final label gather (one a block).
+    comm_all = np.concatenate([slab.comm_all.cpu().numpy()
+                               for slab in slabs])
     device_s = time.perf_counter() - t0
     results = []
     for i in range(prep.n_jobs):
@@ -606,7 +731,10 @@ def prepare_packed(packed: PackedSubRows, *, mesh="auto",
     """The pack half of a merged batch: the packed rows as the fold of
     their sub-rows -- ``b_pad * n_sub`` tenants of the sub class, each
     sub-row's ids and padding back at its own offset 0 -- prepared as a
-    plain batch of ``engine``, with the layout recorded."""
+    plain batch of ``engine``, with the layout recorded.  A batch mesh
+    splits the packed rows (``mesh="auto"`` resolves on their count), so
+    that a block holds whole rows."""
+    bm = _resolve_mesh(mesh, packed.b_pad, device)
     lay = packed.layout
     n_sub, (nv_sub, ne_sub) = lay.n_sub, lay.sub_class
     bt = packed.b_pad * n_sub
@@ -625,7 +753,7 @@ def prepare_packed(packed: PackedSubRows, *, mesh="auto",
         ne_real=packed.ne_real.reshape(bt),
         tw2=packed.tw2.reshape(bt),
         nv_pad=nv_sub, ne_pad=ne_sub, n_jobs=packed.n_jobs)
-    prep = prepare_batch(batch, mesh=mesh, engine=engine, device=device,
+    prep = prepare_batch(batch, mesh=bm, engine=engine, device=device,
                          tracer=tracer, side_stream=side_stream)
     prep.layout = lay
     prep.rows = packed.b_pad
@@ -683,7 +811,7 @@ def pack_many(graphs, *, b_pad: int | None = None,
         if engine not in BATCH_ENGINES:
             raise ValueError(f"unknown batched engine {engine!r}; "
                              f"use one of {BATCH_ENGINES}")
-        _resolve_mesh(mesh)
+        _check_mesh(mesh)
         resolve_device(device)
     return PreparedMany(graphs_nv=[g.num_vertices for g in graphs],
                         edgeless=edgeless, prep=prep)
@@ -711,7 +839,7 @@ def pack_subrow_many(graphs, layout: SubRowLayout, *,
                               device=device, tracer=tracer,
                               side_stream=side_stream)
     else:
-        _resolve_mesh(mesh)
+        _check_mesh(mesh)
         resolve_device(device)
     return PreparedMany(graphs_nv=[g.num_vertices for g in graphs],
                         edgeless=edgeless, prep=prep)

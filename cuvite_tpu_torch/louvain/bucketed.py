@@ -50,8 +50,12 @@ phase's one routing), ``sharded_bucketed_step(..., info_comms=)`` is a
 class step (``make_sharded_class_step``) and
 :func:`sharded_bucketed_modularity` the iteration's Q pass
 (``make_sharded_bucketed_mod``).  A shard with no row in a class still
-takes part in every collective of its step.  Not ported on a mesh: the
-two-level exchange (``ROADMAP.md`` A7.3).  Coarse phases of the
+takes part in every collective of its step.  The two-level exchange of
+a hybrid mesh (``exchange='twolevel'``) is the sparse path over the
+grouped plan: tails group-extended, each shard's self-loops found at its
+offset ``(s % ici) * nv_pad`` in its group's window, the environment
+from ``comm/exchange.twolevel_env`` and the a^2 term of Q summed over
+the DCN columns.  Coarse phases of the
 per-graph driver build their plan on the card (``coarsen/rebin.py``)
 where the reference does; the host build here stays its bit-parity
 oracle and the path for the other phases.
@@ -73,7 +77,11 @@ import torch
 
 from cuvite_tpu_torch import native
 from cuvite_tpu_torch.comm.collectives import all_gather, psum
-from cuvite_tpu_torch.comm.exchange import sparse_env, sparse_modularity
+from cuvite_tpu_torch.comm.exchange import (
+    sparse_env,
+    sparse_modularity,
+    twolevel_env,
+)
 from cuvite_tpu_torch.kernels.heavy_bincount import (
     HeavyLayout,
     build_heavy_layout,
@@ -567,16 +575,26 @@ def build_stacked_plans(dg, exchange_plan=None, shard_ids=None) -> list:
     shard launches its own plan, so there is nothing to pad and no
     ``StackedPlan``.  With ``exchange_plan`` (``comm/exchange.ExchangePlan``)
     each shard's tails are remapped into its extended-local space and
-    self-loops are found locally (base 0); without, tails stay
-    padded-global (base s * nv_pad)."""
-    nvl = dg.nv_pad
+    self-loops are found at the shard's own window there (base 0; under
+    a grouped plan ``(s % ici) * nv_pad``, reference
+    ``bucketed.py:404-420``); without, tails stay padded-global (base
+    s * nv_pad)."""
     plans = []
     for s in (range(dg.nshards) if shard_ids is None else shard_ids):
         src, dst, w = _shard_rows(dg, s, exchange_plan)
         plans.append(BucketPlan.build(
-            src, dst, w, nv_local=nvl,
-            base=s * nvl if exchange_plan is None else 0))
+            src, dst, w, nv_local=dg.nv_pad,
+            base=_plan_base(dg, s, exchange_plan)))
     return plans
+
+
+def _plan_base(dg, s: int, exchange_plan) -> int:
+    """Where shard s's own vertices start in the id space of its plan's
+    tails: s * nv_pad padded-global, 0 extended-local, and its offset in
+    its group's window under a grouped (two-level) plan."""
+    if exchange_plan is None:
+        return s * dg.nv_pad
+    return (s % exchange_plan.ici) * dg.nv_pad
 
 
 def _shard_rows(dg, s: int, exchange_plan) -> tuple:
@@ -606,7 +624,7 @@ def build_mesh_class_plans(dg, class_of: np.ndarray, n_classes: int,
         by_shard.append(build_class_plans(
             src, dst, w, np.asarray(class_of)[s * nvl:(s + 1) * nvl],
             n_classes, nv_local=nvl,
-            base=s * nvl if exchange_plan is None else 0))
+            base=_plan_base(dg, s, exchange_plan)))
     return [list(c) for c in zip(*by_shard)] if by_shard else \
         [[] for _ in range(n_classes)]
 
@@ -621,7 +639,8 @@ class MeshPlan:
     degrees and self-loops on every shard (gathered once a phase).
     'sparse': rows by local id, tails extended-local, hubs as raw edges
     (``heavy_edges``: local src, extended-local dst, w) and the routing
-    (``send_idx``, ``ghost_sel``, ``budget``)."""
+    (``send_idx``, ``ghost_sel``, ``budget``).  'twolevel': as 'sparse'
+    over a grouped plan, tails group-extended, ``n_dcn`` its groups."""
 
     mesh: object
     nv_pad: int
@@ -634,10 +653,32 @@ class MeshPlan:
     send_idx: list | None = None
     ghost_sel: list | None = None
     budget: int = 0
+    n_dcn: int = 1
 
     @property
     def nv_total(self) -> int:
         return self.mesh.size * self.nv_pad
+
+    @property
+    def sparse(self) -> bool:
+        """Whether the sweeps ride a ghost routing (sparse or two-level)."""
+        return self.exchange in ("sparse", "twolevel")
+
+    def env(self, comms: list, vdegs: list, info: list | None = None
+            ) -> list:
+        """The local shards' exchange environment of a sweep."""
+        if self.exchange == "twolevel":
+            return twolevel_env(comms, vdegs, self.send_idx, self.ghost_sel,
+                                self.mesh, n_dcn=self.n_dcn,
+                                budget=self.budget, info=info)
+        return sparse_env(comms, vdegs, self.send_idx, self.ghost_sel,
+                          self.mesh, budget=self.budget, info=info)
+
+    def own(self, s: int) -> int:
+        """Where shard s's own vertices start in its extended tables."""
+        if self.exchange != "twolevel":
+            return 0
+        return (s % (self.mesh.size // self.n_dcn)) * self.nv_pad
 
     @staticmethod
     def upload(host_plans: list, mesh, nv_pad: int, vdegs: list, *,
@@ -647,12 +688,12 @@ class MeshPlan:
         """Place the local shards' ``host_plans``
         (:func:`build_stacked_plans`) on ``mesh``; ``vdegs`` are their
         [nv_pad] f32 degrees on their devices; ``xplan`` and ``budget``
-        for the sparse exchange.  ``shared``: a plan of the same phase
-        (another color class) whose routing or gathered degrees this one
-        reuses instead of placing its own."""
+        for the sparse and two-level exchanges.  ``shared``: a plan of the
+        same phase (another color class) whose routing or gathered degrees
+        this one reuses instead of placing its own."""
         S = mesh.size
         nv_total = S * nv_pad
-        sparse = exchange == "sparse"
+        sparse = exchange in ("sparse", "twolevel")
         plans, sls, heavy = [], [], []
         for s, p, dev in zip(mesh.shard_ids, host_plans, mesh.devices):
             if sparse:
@@ -675,6 +716,7 @@ class MeshPlan:
                 xplan.to_mesh(mesh) if shared is None
                 else (shared.send_idx, shared.ghost_sel))
             mp.budget = int(budget)
+            mp.n_dcn = S // xplan.ici
         else:
             mp.vdeg_full = (all_gather(vdegs, mesh) if shared is None
                             else shared.vdeg_full)
@@ -704,10 +746,9 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
     mesh, nv = mp.mesh, mp.nv_pad
     nv_total = mp.nv_total
     c32 = float(torch.tensor(constant, dtype=torch.float32))
-    sparse = mp.exchange == "sparse"
+    sparse = mp.sparse
     if sparse:
-        envs = sparse_env(comms, vdegs, mp.send_idx, mp.ghost_sel, mesh,
-                          budget=mp.budget, info=info_comms)
+        envs = mp.env(comms, vdegs, info_comms)
     else:
         comm_full = all_gather(comms, mesh)
         deg_parts, size_parts = [], []
@@ -732,7 +773,7 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
             parts = [row_argmax_sized(dst, w, verts, env.comm_ext,
                                       env.cdeg_ext, env.csize_ext,
                                       env.cdeg_v, vdeg, sl, c32, deg, vinfo,
-                                      sinfo)
+                                      sinfo, own=mp.own(s))
                      for verts, dst, w, deg in plan.buckets]
             best_c, best_gain, counter0, best_size = _assemble(
                 parts, plan.perm, (SENTINEL, float("-inf"), 0.0, 0))
@@ -753,7 +794,8 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
         moved.append(move.sum())
     if sparse:
         q = sparse_modularity(counter0s, [e.deg_local for e in envs],
-                              constant, mesh)
+                              constant, mesh,
+                              twolevel=mp.exchange == "twolevel")
         overflow = psum([e.overflow.long() for e in envs], mesh)[0] > 0
     else:
         le = psum([c.double().sum() for c in counter0s], mesh)[0]
@@ -772,16 +814,15 @@ def sharded_bucketed_modularity(mps: list, comms: list, vdegs: list,
     reference ``bucketed_modularity`` under ``make_sharded_bucketed_mod``,
     the Q of a class-scheduled iteration at its start).  Replicated: each
     shard's in-community weight against the all-gathered communities and
-    the psum'd f64 degree table.  Sparse: against ``sparse_env``'s
-    extended-local communities, the a^2 term by owner
-    (:func:`comm.exchange.sparse_modularity`), and the env's budget
+    the psum'd f64 degree table.  Sparse and two-level: against the
+    exchange environment's extended-local communities, the a^2 term by
+    owner (:func:`comm.exchange.sparse_modularity`), and the env's budget
     overflow.  Returns (0-dim f64 Q, 0-dim bool overflow) on the first
     local shard's device."""
     mp0 = mps[0]
     mesh, nv_total = mp0.mesh, mp0.nv_total
-    if mp0.exchange == "sparse":
-        envs = sparse_env(comms, vdegs, mp0.send_idx, mp0.ghost_sel, mesh,
-                          budget=mp0.budget)
+    if mp0.sparse:
+        envs = mp0.env(comms, vdegs)
         les = []
         for i, (comm, env) in enumerate(zip(comms, envs)):
             le = torch.zeros((), dtype=torch.float64, device=comm.device)
@@ -793,7 +834,7 @@ def sharded_bucketed_modularity(mps: list, comms: list, vdegs: list,
                     dtype=torch.float64)
             les.append(le)
         q = sparse_modularity(les, [e.deg_local for e in envs], constant,
-                              mesh)
+                              mesh, twolevel=mp0.exchange == "twolevel")
         return q, psum([e.overflow.long() for e in envs], mesh)[0] > 0
     comm_full = all_gather(comms, mesh)
     les = []

@@ -95,10 +95,20 @@ runs the bucketed engine.  ET, coloring, vertex ordering and checkpoints
 run on a mesh under both exchanges (reference ``driver.py:739-795,
 1203-1279``): ET on the shards' lists of ``loop.phase_loop``, the color
 schedules on one mesh plan per class (``MeshPhaseRunner(classes=)``).
-Not ported: the two-level exchange, the batch-axis mesh of
-``louvain_many`` and ``diag_prefix`` (``ROADMAP.md`` A7.3-A7.5).
+``mesh_shape=(dcn, ici)`` (or ``"DxI"``, or a ``mesh`` from
+``comm.mesh.make_hybrid_mesh``) runs the two-level exchange on a hybrid
+mesh of dcn groups of ici shards (reference ``driver.py:1815-1863``):
+community tables replicated only inside a group, the groups' ghosts on
+the sparse protocol, every phase under ``exchange='twolevel'`` on the
+bucketed engine, ET and checkpoints included; ``dcn == 1`` is the flat
+mesh.  As in the reference the two-level exchange refuses coloring,
+vertex ordering, per-rank ingest and the other engines.
 ``LouvainResult.exchange_stats`` digests the first mesh phase's plan,
-and ``dist_stats=True`` prints the partition's edge distribution once.
+``dist_stats=True`` prints the partition's edge distribution once, and
+``diag_prefix`` writes one line per shard and phase to
+``<prefix>.<shard>`` (``utils/trace.ShardDiag``, the reference
+application's ``dat.out.<rank>``; rank 0 alone under a process group).
+The batch-axis mesh of ``louvain_many`` is ``louvain/batched.py``'s.
 
 Several processes, one rank per card (``comm/multihost.initialize``
 first; reference ``driver.py:420-433,1788-1810``): the mesh is this
@@ -148,7 +158,12 @@ from cuvite_tpu_torch.coarsen.rebuild import coarsen_graph, \
 from cuvite_tpu_torch.comm import multihost
 from cuvite_tpu_torch.comm.collectives import psum
 from cuvite_tpu_torch.comm.exchange import ExchangePlan
-from cuvite_tpu_torch.comm.mesh import make_mesh, shard_1d
+from cuvite_tpu_torch.comm.mesh import (
+    hybrid_shape,
+    make_hybrid_mesh,
+    make_mesh,
+    shard_1d,
+)
 from cuvite_tpu_torch.core.device import resolve_device
 from cuvite_tpu_torch.core.distgraph import DistGraph
 from cuvite_tpu_torch.core.graph import Graph
@@ -178,7 +193,11 @@ from cuvite_tpu_torch.louvain.loop import BudgetOverflow, phase_loop
 from cuvite_tpu_torch.louvain.precise import phase_modularity
 from cuvite_tpu_torch.louvain.step import louvain_step_local, sharded_step
 from cuvite_tpu_torch.ops.segment import TenantConstants
-from cuvite_tpu_torch.utils.trace import NullTracer, dist_stats_report
+from cuvite_tpu_torch.utils.trace import (
+    NullTracer,
+    ShardDiag,
+    dist_stats_report,
+)
 
 ENGINES = ("bucketed", "sort", "fused")
 
@@ -380,8 +399,11 @@ class MeshPhaseRunner:
     host (``build_stacked_plans``; under ``exchange='sparse'`` over the
     phase's ``ExchangePlan``) and places each shard's on its device;
     ``engine='sort'`` places each shard's slab (replicated exchange).
-    ``budget``: the sparse exchange's per-peer budget, default
-    max(128, nv_pad // 4), at most nv_pad.
+    ``exchange='twolevel'`` (a hybrid mesh, bucketed engine, plain
+    schedule) plans over ``ExchangePlan.build_grouped``.  ``budget``: the
+    sparse exchange's per-peer budget, default max(128, nv // 4), at most
+    nv, nv the plan's window: a shard's nv_pad, or a group's under the
+    two-level exchange.
 
     ``classes`` = (class of each padded vertex [total padded vertices],
     number of classes) puts the bucketed engine on the color schedule:
@@ -396,6 +418,18 @@ class MeshPhaseRunner:
                  tracer=None, stages: dict | None = None,
                  verbose: bool = False):
         tracer = tracer if tracer is not None else NullTracer()
+        if exchange == "twolevel":
+            if hybrid_shape(mesh)[0] < 2:
+                raise ValueError(
+                    "exchange='twolevel' needs a 2-D hybrid mesh "
+                    "(comm.mesh.make_hybrid_mesh)")
+            if engine != "bucketed":
+                raise ValueError("exchange='twolevel' runs on the bucketed "
+                                 "engine only")
+            if classes is not None:
+                raise ValueError(
+                    "exchange='twolevel' does not support the coloring/"
+                    "ordering schedules yet (use exchange='sparse')")
         self.dg, self.mesh = dg, mesh
         self.exchange = exchange
         self.verbose = verbose
@@ -423,14 +457,18 @@ class MeshPhaseRunner:
                                   mesh.devices)]
         else:
             xplan = None
-            if exchange == "sparse":
+            if exchange in ("sparse", "twolevel"):
                 # A rank finds its own shards' ghosts and gathers the rest.
-                xplan = (ExchangePlan.build(dg) if mesh.group is None
-                         else ExchangePlan.build(dg, mesh.shard_ids))
+                held = () if mesh.group is None else (mesh.shard_ids,)
+                xplan = (ExchangePlan.build(dg, *held) if exchange == "sparse"
+                         else ExchangePlan.build_grouped(
+                             dg, hybrid_shape(mesh)[0], *held))
                 self.xplan_stats = xplan.stats()
                 self.ghost_counts = self.xplan_stats["ghosts_per_shard"]
-                self.budget = min(int(max(128, nv // 4) if budget is None
-                                      else budget), nv)
+                self.budget_cap = xplan.nv_pad
+                self.budget = min(int(max(128, xplan.nv_pad // 4)
+                                      if budget is None else budget),
+                                  xplan.nv_pad)
             if classes is None:
                 plans = build_stacked_plans(dg, exchange_plan=xplan,
                                             shard_ids=mesh.shard_ids)
@@ -495,7 +533,8 @@ class MeshPhaseRunner:
         """One phase from the identity assignment (``loop.phase_loop`` on
         the shards' lists, early termination included); a sparse sweep
         that overflows its budget re-runs the phase with the budget grown
-        to min(nv_pad, max(4 * budget, 512)), where the owner route cannot
+        to min(nv, max(4 * budget, 512)), nv the plan's window (a group's
+        under the two-level exchange), where the owner route cannot
         overflow.  Returns (padded-space labels of every shard as numpy,
         on every rank of a process group: the reference's ``_phase_sync``;
         Q; sweeps)."""
@@ -513,7 +552,8 @@ class MeshPhaseRunner:
                     et_delta=et_delta, real_mask=self.real_mask,
                     host_et=self.class_plans is not None, mesh=self.mesh)
             except BudgetOverflow:
-                self.budget = min(self.dg.nv_pad, max(4 * self.budget, 512))
+                self.budget = min(self.budget_cap,
+                                  max(4 * self.budget, 512))
                 for mp in self.class_plans or [self.plan]:
                     mp.budget = self.budget
                 if self.verbose:
@@ -714,6 +754,8 @@ def louvain_phases(
     exchange: str = "auto",
     exchange_budget: int | None = None,
     dist_stats: bool = False,
+    mesh_shape=None,
+    diag_prefix: str | None = None,
 ) -> LouvainResult:
     """Full multi-phase Louvain (the main.cpp:218-495 loop) on one device
     or a vertex mesh.
@@ -729,8 +771,12 @@ def louvain_phases(
     ``io.dist_ingest.DistVite`` (module note).  ``balanced``: edge-balanced
     vertex ranges (``-b``).  ``exchange``: 'auto', 'replicated' or
     'sparse' (module note); ``exchange_budget``: the sparse exchange's
-    first per-peer budget ('auto' then means sparse).  ``dist_stats``:
-    print the first phase's edge distribution.
+    first per-peer budget ('auto' then means sparse).  ``mesh_shape``:
+    ``(dcn, ici)`` or ``"DxI"``, a hybrid mesh under the two-level
+    exchange (module note; ``exchange`` 'auto' and 'sparse' then mean
+    'twolevel', 'replicated' raises).  ``dist_stats``: print the first
+    phase's edge distribution.  ``diag_prefix``: per-shard diagnostic
+    files ``<prefix>.<shard>``.
     ``engine``: ``'auto'`` (= ``'bucketed'``), ``'bucketed'``, ``'sort'``
     or ``'fused'``.  ``et_mode`` 1-4 and ``et_delta``: early termination
     (reference ``-t``, ``-a``).  ``coloring=N`` / ``vertex_ordering=N``
@@ -744,10 +790,9 @@ def louvain_phases(
             raise ValueError(f"nshards={nshards} conflicts with a mesh of "
                              f"{mesh.size} shards")
         nshards = mesh.size
-    if exchange not in ("auto", "replicated", "sparse"):
-        raise ValueError(f"unknown exchange {exchange!r}: the port has "
-                         "'auto', 'replicated' and 'sparse'; the two-level "
-                         "exchange is not ported (ROADMAP.md A7.3)")
+    if exchange not in ("auto", "replicated", "sparse", "twolevel"):
+        raise ValueError(f"unknown exchange {exchange!r}: use 'auto', "
+                         "'replicated', 'sparse' or 'twolevel'")
     dist_ingest = getattr(graph, "local_only", False)
     if dist_ingest:
         # Per-rank ingest (io/dist_ingest.DistVite): phase 0 runs on the
@@ -770,6 +815,47 @@ def louvain_phases(
                              "host arrays")
     if exchange == "auto" and exchange_budget is not None:
         exchange = "sparse"
+    # The hybrid mesh of the two-level exchange (reference
+    # driver.py:1815-1863).
+    n_dcn = 1
+    if mesh_shape is not None:
+        if isinstance(mesh_shape, str):
+            d_s, _, i_s = mesh_shape.lower().replace(
+                "\u00d7", "x").partition("x")
+            mesh_shape = (int(d_s), int(i_s))
+        n_dcn, n_ici = int(mesh_shape[0]), int(mesh_shape[1])
+        if n_dcn < 1 or n_ici < 1:
+            raise ValueError(f"mesh_shape factors must be >= 1, "
+                             f"got {n_dcn}x{n_ici}")
+        if nshards not in (1, n_dcn * n_ici):
+            raise ValueError(
+                f"nshards={nshards} conflicts with mesh_shape "
+                f"{n_dcn}x{n_ici} ({n_dcn * n_ici} devices)")
+        nshards = n_dcn * n_ici
+        if n_dcn > 1:
+            if dist_ingest:
+                raise ValueError("the two-level exchange does not support "
+                                 "per-host ingest yet")
+            if coloring or vertex_ordering:
+                raise ValueError(
+                    "the two-level exchange does not support coloring/"
+                    "vertex-ordering yet (use a flat mesh)")
+            if engine not in ("auto", "bucketed"):
+                raise ValueError("the two-level exchange runs on the "
+                                 "bucketed engine only")
+    elif mesh is not None:
+        n_dcn = hybrid_shape(mesh)[0]
+    if exchange == "twolevel" and n_dcn <= 1:
+        raise ValueError("exchange='twolevel' requires a hybrid mesh with "
+                         "|dcn| > 1 (pass mesh_shape=(dcn, ici)): the "
+                         "two-level exchange has no flat form")
+    if n_dcn > 1:
+        if exchange == "replicated":
+            raise ValueError("a hybrid mesh runs the two-level exchange; "
+                             "exchange='replicated' needs a flat mesh")
+        # 'auto' and 'sparse' on a hybrid mesh: the grouped plan is the
+        # sparse protocol at group scale.
+        exchange = "twolevel"
     if nshards > 1:
         if engine == "fused":
             warnings.warn(
@@ -819,9 +905,10 @@ def louvain_phases(
         if nshards == 1:
             device = here
     if nshards > 1 and mesh is None:
-        mesh = (make_mesh(nshards)
-                if multihost.is_distributed() or device is None
-                else make_mesh(devices=[torch.device(device)] * nshards))
+        devs = (None if multihost.is_distributed() or device is None
+                else [torch.device(device)] * nshards)
+        mesh = (make_hybrid_mesh(n_dcn, nshards // n_dcn, devices=devs)
+                if n_dcn > 1 else make_mesh(nshards, devices=devs))
     if dist_ingest and (mesh.shard_ids.start, mesh.shard_ids.stop) != (
             graph.local_lo, graph.local_hi):
         raise ValueError(
@@ -862,6 +949,9 @@ def louvain_phases(
     pending = None   # next phase's device-resident DistGraph
     cycling = threshold_cycling and not one_phase
     ck_fp = None     # the original graph's fingerprint, computed once
+    # One writer under a process group, as for checkpoints.
+    diag = (ShardDiag(diag_prefix, nshards)
+            if diag_prefix and multihost.rank() == 0 else None)
     if resume and checkpoint_dir:
         from cuvite_tpu_torch.utils.checkpoint import load_latest
 
@@ -936,7 +1026,7 @@ def louvain_phases(
                     phase_exchange = (
                         "sparse" if dg.total_padded_vertices
                         >= exchange_cutover() else "replicated")
-                if engine == "sort":
+                if engine == "sort" and exchange != "twolevel":
                     phase_exchange = "replicated"
                 runner = MeshPhaseRunner(
                     dg, mesh, engine, phase_exchange, budget=budget,
@@ -963,6 +1053,9 @@ def louvain_phases(
                                       or {"mode": runner.exchange})
         with tracer.stage("evaluate", into=stages):
             curr_mod = _phase_q(dg, comm_pad, runner)
+        if diag is not None:
+            _diag_phase(diag, dg, runner, phase, iters, curr_mod,
+                        time.perf_counter() - t1)
         tot_iters += iters
         tracer.count("traversed_edges", g_ne * iters)
         tracer.ledger_snapshot(phase)
@@ -1058,6 +1151,8 @@ def louvain_phases(
                     seconds=time.perf_counter() - t1))
         tracer.end_span(phase_sid, gained=False)
         break
+    if diag is not None:
+        diag.close()
     tracer.set_phase(None)
     # Final contiguous renumber of the composed labels (main.cpp:374-394).
     dense_all, _ = renumber_communities(comm_all)
@@ -1071,6 +1166,23 @@ def louvain_phases(
         rebinned_phases=rebinned,
         exchange_stats=exchange_stats,
     )
+
+
+def _diag_phase(diag, dg, runner, phase: int, iters: int, q: float,
+                seconds: float) -> None:
+    """One phase's line in every shard's diagnostic file (reference
+    ``driver.py:2266-2273``): the shard's owned vertices and real edges,
+    its ghosts under a ghost routing (its group's under the two-level
+    exchange, whose plan lists them by group), the phase's sweeps, Q and
+    seconds so far.  One shard: the phase's whole graph."""
+    gc = getattr(runner, "ghost_counts", None)
+    shards = ([(sh.bound - sh.base, sh.n_real_edges) for sh in dg.shards]
+              or [(dg.graph.num_vertices, dg.graph.num_edges)])
+    per = len(shards) // len(gc) if gc else 1
+    for s, (owned, edges) in enumerate(shards):
+        diag.write(s, f"phase {phase}: owned={owned} edges={edges}"
+                   f"{f' ghosts={gc[s // per]}' if gc else ''}"
+                   f" iters={iters} Q={q:.6f} t={seconds:.3f}s")
 
 
 def _run_fused(graph: Graph, *, threshold: float, threshold_cycling: bool,

@@ -45,10 +45,10 @@ Streaming: :class:`StreamPool` keeps per-tenant resident
 evicted under ``ServeConfig.stream_budget_bytes``
 (``LouvainServer.streams``).
 
-Not ported: the batch-axis mesh (the batched driver runs on one device).
 This module runs no device code; the batched driver
-(``louvain/batched.py``) places each batch on ``ServeConfig.device``,
-and the pool's sessions live there too.
+(``louvain/batched.py``) places each batch on ``ServeConfig.device``, or
+shards its rows over the batch mesh of ``ServeConfig.mesh`` (``"auto"``:
+every usable card), and the pool's sessions live on the device.
 """
 
 from __future__ import annotations
@@ -109,7 +109,10 @@ class ServeConfig:
     kernels over pack-time plans, coarse phases re-binned on the device)
     or ``'fused'`` (sort sweeps every phase).  Engine choice never changes
     results.  ``device``: where batches run; None is the card, and a
-    server with no injected runner raises without one.
+    server with no injected runner raises without one.  ``mesh``:
+    forwarded to the batched driver (``louvain.batched``: ``"auto"``
+    shards a batch on the card over the visible cards, None pins
+    ``device``, or a ``make_batch_mesh`` mesh).
 
     Robustness knobs: ``admission`` — an
     :class:`~cuvite_tpu_torch.serve.admission.AdmissionConfig` enables
@@ -123,6 +126,7 @@ class ServeConfig:
     threshold: float = 1.0e-6
     max_phases: int = TERMINATION_PHASE_COUNT
     device: object = None   # None: the CUDA card
+    mesh: object = "auto"   # forwarded to the batched driver
     engine: str = "bucketed"
     admission: AdmissionConfig | None = None
     max_retries: int = 3
@@ -1186,7 +1190,7 @@ class LouvainServer:
 
                     packed.prep = pack_subrow_many(
                         [j.graph for j in jobs], packed.layout,
-                        b_pad=b_pad or None,
+                        b_pad=b_pad or None, mesh=self.config.mesh,
                         engine=self.config.engine, device=self.device,
                         tracer=self.tracer,
                         side_stream=self.side_stream_upload)
@@ -1195,7 +1199,7 @@ class LouvainServer:
 
                     packed.prep = pack_many(
                         [j.graph for j in jobs], b_pad=b_pad or None,
-                        engine=self.config.engine,
+                        mesh=self.config.mesh, engine=self.config.engine,
                         bucket_shape=packed.shape, device=self.device,
                         tracer=self.tracer,
                         side_stream=self.side_stream_upload)
@@ -1240,7 +1244,7 @@ class LouvainServer:
                 [j.graph for j in packed.jobs],
                 threshold=self.config.threshold,
                 max_phases=self.config.max_phases,
-                b_pad=packed.b_pad or None,
+                b_pad=packed.b_pad or None, mesh=self.config.mesh,
                 engine=self.config.engine, bucket_shape=packed.shape,
                 tracer=self.tracer)
         from cuvite_tpu_torch.louvain.batched import execute_many

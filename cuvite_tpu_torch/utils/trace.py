@@ -1,6 +1,6 @@
-"""Stage timers, counters and the span/event seam (port of
-``cuvite_tpu/utils/trace.py:21-255``: ``rss_high_water_mb``, ``Tracer``,
-``NullTracer``).
+"""Stage timers, counters, the span/event seam and per-shard diagnostic
+files (port of ``cuvite_tpu/utils/trace.py:21-255``: ``rss_high_water_mb``,
+``Tracer``, ``NullTracer``, ``ShardDiag``).
 
 A :class:`Tracer` accumulates named stage timers (host wall clock) and
 counters, and is the facade over the flight recorder
@@ -13,14 +13,15 @@ drivers thread them unconditionally.  None of them reads a device value:
 ``track`` reads tensor metadata, and the drivers hand counters and events
 host values they already hold.
 
-:func:`dist_stats_report` prints a partition's edge distribution.  Not
-ported: ``ShardDiag`` (per-shard diagnostic files, ``--diag-prefix``).
+:func:`dist_stats_report` prints a partition's edge distribution, and
+:class:`ShardDiag` writes the per-shard files of ``--diag-prefix``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import resource
 import time
 
@@ -192,6 +193,39 @@ class Tracer:
             lines.append(f"  TEPS (wall)      {self.teps():.4g}")
         lines.append(f"  rss high-water   {rss_high_water_mb():.0f} MiB")
         return "\n".join(lines)
+
+
+class ShardDiag:
+    """Per-shard diagnostic text files, the counterpart of the reference
+    application's per-rank ``dat.out.<rank>`` streams: one
+    ``<prefix>.<shard>`` file per shard, a line per :meth:`write`, each
+    file opened (and truncated) at its first line."""
+
+    def __init__(self, prefix: str, nshards: int):
+        self.prefix = prefix
+        self.nshards = nshards
+        self._files: dict = {}
+
+    def write(self, shard: int, line: str) -> None:
+        f = self._files.get(shard)
+        if f is None:
+            d = os.path.dirname(self.prefix)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            f = open(f"{self.prefix}.{shard}", "w", encoding="utf-8")
+            self._files[shard] = f
+        f.write(line.rstrip("\n") + "\n")
+
+    def close(self) -> None:
+        for f in self._files.values():
+            f.close()
+        self._files.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class NullTracer(Tracer):

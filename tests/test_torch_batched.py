@@ -7,8 +7,12 @@ convergence lengths.  Every tenant's labels, phases and iterations equal
 the JAX ``louvain_many``'s, Q is within 1e-6 (the port's in-loop Q is
 f64, the reference's f32), ``phase_engines`` is the same, and every
 tenant equals its own B=1 run bit for bit.  One batched bucketed sweep is
-held against ``jax.vmap`` of the reference's ``bucketed_step``.  Every
-graph has integer weights, the exactness domain of the float sums.
+held against ``jax.vmap`` of the reference's ``bucketed_step``.  The batch
+axis on a mesh of CPU blocks (``make_batch_mesh(B, devices=["cpu"] * n)``)
+gives every tenant the labels of ``mesh=None``, of its B=1 run and of the
+reference's ``louvain_many(mesh="auto")`` on its 8 devices, for
+``louvain_many``, ``cluster_packed`` and the serving queue.  Every graph
+has integer weights, the exactness domain of the float sums.
 """
 
 import jax
@@ -18,6 +22,7 @@ import torch
 
 from cuvite_tpu.core import batch as jbatch
 from cuvite_tpu.io.generate import generate_rmat as jax_rmat
+from cuvite_tpu.louvain import batched as jbatched
 from cuvite_tpu.louvain.driver import louvain_many as jax_many
 from cuvite_tpu.workloads.synth import many_seed as jax_many_seed
 from cuvite_tpu.workloads.synth import synthesize_graph as jax_synth
@@ -262,9 +267,16 @@ def test_hub_tenant_drives_heavy_twin(hub_jobs, monkeypatch):
         assert np.array_equal(solo.communities, m.communities)
 
 
-def test_mesh_and_engine_refusals(jobs):
-    with pytest.raises(ValueError, match="A7.4"):
+def test_mesh_and_engine_refusals(jobs, port_runs):
+    with pytest.raises(ValueError, match="make_batch_mesh"):
         louvain_many(jobs[1], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="equal blocks"):
+        louvain_many(jobs[1], b_pad=6, device="cpu",
+                     mesh=pbatched.make_batch_mesh(8, devices=["cpu"] * 4))
+    two = louvain_many(jobs[1], mesh=pbatched.make_batch_mesh(
+        4, devices=["cpu"] * 2), device="cpu")
+    for a, b in zip(two.results, port_runs["fused"].results):
+        assert np.array_equal(a.communities, b.communities)
     with pytest.raises(ValueError, match="engine"):
         louvain_many(jobs[1], engine="sorted", device="cpu")
     br = louvain_many(jobs[1][:1], mesh=None, device="cpu")
@@ -427,3 +439,80 @@ def test_batched_coalesce_matches_per_tenant_and_jax():
                 assert np.array_equal(x[i].numpy(), np.asarray(r)), e
     assert int(outs["dense"][3][3]) == 0
     assert (outs["dense"][0][3] == nvp).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+def test_make_batch_mesh_matches_jax(n):
+    """The block count of every b_pad over n devices is the reference's
+    (None where it has no mesh)."""
+    for b in (1, 3, 4, 6, 64):
+        ref = jbatched.make_batch_mesh(b, devices=jax.devices()[:n])
+        got = pbatched.make_batch_mesh(b, devices=["cpu"] * n)
+        assert (None if ref is None else ref.devices.size) == \
+            (None if got is None else got.size), (b, n)
+    assert pbatched.make_batch_mesh(64, devices=["cpu"] * n) is None or \
+        pbatched.make_batch_mesh(64, devices=["cpu"] * n).axis_name == \
+        pbatched.BATCH_AXIS
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_batch_mesh_matches_none_b1_and_jax(engine, jobs, port_runs):
+    """louvain_many on 4 CPU blocks (b_pad 4), and on 2 blocks of a b_pad
+    of 6 that 4 does not divide: every tenant's labels, phases and
+    iterations equal mesh=None's, its B=1 run's and the reference's
+    louvain_many(mesh='auto') on 8 devices."""
+    jgs, pgs = jobs
+    ref = jax_many(jgs, engine=engine, mesh="auto")
+    base = port_runs[engine]
+    for b_pad, nd in ((None, 4), (6, 2)):
+        mesh = pbatched.make_batch_mesh(b_pad or 4, devices=["cpu"] * 4)
+        assert mesh.size == nd
+        br = louvain_many(pgs, engine=engine, b_pad=b_pad, mesh=mesh,
+                          device="cpu")
+        assert br.phase_engines == base.phase_engines
+        for k, (mine, none, r) in enumerate(zip(br.results, base.results,
+                                                ref.results)):
+            assert np.array_equal(mine.communities, none.communities), k
+            assert mine.modularity == none.modularity, k
+            assert [p.iterations for p in mine.phases] == \
+                [p.iterations for p in none.phases], k
+            assert np.array_equal(mine.communities, r.communities), k
+    for g, none in zip(pgs, base.results):
+        solo = louvain_many([g], engine=engine, device="cpu").results[0]
+        assert np.array_equal(solo.communities, none.communities)
+
+
+def test_cluster_packed_and_queue_on_a_batch_mesh():
+    """A merged batch on 4 CPU blocks of one packed row each, and a
+    serving queue given a 2-block CPU batch mesh: every tenant's labels
+    and Q equal the runs without a mesh."""
+    from cuvite_tpu_torch import serve as pserve
+    from cuvite_tpu_torch.workloads.synth import (
+        many_seed,
+        synthesize_graph,
+    )
+
+    gs = [synthesize_graph(1024, seed=many_seed(5, k)) for k in range(7)]
+    layout = pbatch.subrow_layout_for((4096, 16384), (8192, 32768))
+    for engine in ENGINES:
+        none = pbatched.cluster_packed(gs, layout, engine=engine,
+                                       device="cpu", mesh=None)
+        four = pbatched.cluster_packed(
+            gs, layout, engine=engine, device="cpu",
+            mesh=pbatched.make_batch_mesh(none.b_pad, devices=["cpu"] * 4))
+        assert (four.b_pad, four.n_sub) == (none.b_pad, none.n_sub) == (4, 2)
+        for a, b in zip(four.results, none.results):
+            assert np.array_equal(a.communities, b.communities)
+            assert a.modularity == b.modularity
+    mesh = pbatched.make_batch_mesh(4, devices=["cpu"] * 2)
+    out = []
+    for m in (mesh, None):
+        srv = pserve.LouvainServer(pserve.ServeConfig(
+            device="cpu", mesh=m, b_max=4, linger_s=0.0))
+        ids = [srv.submit(g) for g in gs[:4]]
+        res = dict(srv.drain())
+        assert srv.stats.batches == 1 and srv.conservation()["ok"]
+        out.append([res[i] for i in ids])
+    for a, b in zip(*out):
+        assert np.array_equal(a.communities, b.communities)
+        assert a.modularity == b.modularity

@@ -579,6 +579,75 @@ def test_mesh_schedules_across_cards_match_one_card(cards, exchange):
             [p.iterations for p in r1.phases]
 
 
+@pytest.mark.cuda
+def test_twolevel_on_one_card_matches_cpu(cuda_device):
+    """A 2x2 hybrid mesh on one card against the same mesh on the CPU,
+    the flat sparse mesh on the card and one shard: identical labels,
+    sweeps and Q bits; the size form launches, the plain row form not."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_hybrid_mesh, make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.kernels.row_argmax import row_argmax
+
+    g = generate_rmat(11)
+    n, n_plain = row_argmax_sized.launches, row_argmax.launches
+    rg = louvain_phases(g, mesh=make_hybrid_mesh(
+        2, 2, devices=[cuda_device] * 4))
+    assert row_argmax_sized.launches > n
+    assert row_argmax.launches == n_plain
+    assert rg.exchange_stats["mode"] == "twolevel"
+    rc = louvain_phases(g, mesh_shape=(2, 2), device="cpu")
+    flat = louvain_phases(g, mesh=make_mesh(devices=[cuda_device] * 4),
+                          exchange="sparse")
+    r1 = louvain_phases(g, device=cuda_device)
+    for r in (rc, flat, r1):
+        assert np.array_equal(rg.communities, r.communities)
+        assert [p.iterations for p in rg.phases] == \
+            [p.iterations for p in r.phases]
+    assert rg.modularity == rc.modularity == flat.modularity
+
+
+@pytest.mark.cuda
+def test_twolevel_across_cards_matches_one_card(cards):
+    """A 2x2 hybrid mesh over the cards (shard s on card s % n, up to
+    four) against the same mesh on card 0: identical labels and Q bits."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_hybrid_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    n = min(len(cards), 4)
+    g = generate_rmat(12)
+    spread = [cards[s % n] for s in range(4)]
+    rm = louvain_phases(g, mesh=make_hybrid_mesh(2, 2, devices=spread))
+    r0 = louvain_phases(g, mesh=make_hybrid_mesh(2, 2,
+                                                 devices=[cards[0]] * 4))
+    assert np.array_equal(rm.communities, r0.communities)
+    assert rm.modularity == r0.modularity
+
+
+@pytest.mark.cuda
+def test_batch_mesh_across_cards_matches_one(cards):
+    """A batch of 8 synth graphs sharded over 2 cards and over 4 (where
+    there are) against the same batch on card 0, both engines: every
+    tenant's labels and Q equal."""
+    from cuvite_tpu_torch import louvain_many
+    from cuvite_tpu_torch.louvain.batched import make_batch_mesh
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    gs = [synthesize_graph(2048, seed=many_seed(9, k)) for k in range(8)]
+    for engine in ("fused", "bucketed"):
+        one = louvain_many(gs, engine=engine, device=cards[0], mesh=None)
+        for nd in (2, 4):
+            if nd > len(cards):
+                continue
+            mesh = make_batch_mesh(8, devices=cards[:nd])
+            assert mesh.size == nd
+            br = louvain_many(gs, engine=engine, mesh=mesh)
+            for a, b in zip(br.results, one.results):
+                assert np.array_equal(a.communities, b.communities)
+                assert a.modularity == b.modularity
+
+
 NCCL_RANK = r"""
 import json, sys
 import numpy as np

@@ -366,8 +366,10 @@ def test_mesh_refusals_and_fallbacks(rmat9, tmp_path):
 
 def test_cli_shards_matches_library(rmat9, tmp_path, capsys):
     """--shards 4 --exchange sparse -b --json equals the library call;
-    --dist-stats prints the partition; the flags not ported are refused
-    by name, and the multi-process ones without what they need."""
+    --dist-stats prints the partition; --mesh 2x2 equals the library's
+    two-level run and --diag-prefix writes its files; the multi-process
+    flags without what they need, a malformed --mesh and --exchange
+    twolevel without --mesh are refused."""
     from cuvite_tpu_torch.cli import main
     from cuvite_tpu_torch.evaluate.modularity import modularity
     from cuvite_tpu_torch.io.vite import write_vite
@@ -386,9 +388,26 @@ def test_cli_shards_matches_library(rmat9, tmp_path, capsys):
     assert rec["modularity"] == modularity(g, lib.communities)
     assert (rec["communities"], rec["iterations"], rec["phases"]) == \
         (lib.num_communities, lib.total_iterations, len(lib.phases))
-    for flag in (["--mesh", "2x2"], ["--diag-prefix", "d"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            main(["--file", path, "--device", "cpu", *flag])
+    # --mesh 2x2 runs the two-level exchange: its summary equals the
+    # library's mesh_shape=(2, 2) run; --diag-prefix writes a file a shard.
+    diag = str(tmp_path / "diag" / "d")
+    assert main(["--file", path, "--device", "cpu", "--mesh", "2x2",
+                 "--json", "--quiet", "--diag-prefix", diag]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    lib = louvain_phases(g, mesh_shape=(2, 2), device="cpu")
+    assert rec["modularity"] == modularity(g, lib.communities)
+    assert (rec["communities"], rec["iterations"], rec["phases"]) == \
+        (lib.num_communities, lib.total_iterations, len(lib.phases))
+    assert rec["exchange"]["mode"] == "twolevel"
+    for s in range(4):
+        lines = (tmp_path / "diag" / f"d.{s}").read_text().splitlines()
+        assert len(lines) == len(lib.convergence)
+        assert lines[0].startswith("phase 0: owned=")
+    with pytest.raises(SystemExit, match="DCNxICI"):
+        main(["--file", path, "--device", "cpu", "--mesh", "2by2"])
+    with pytest.raises(SystemExit, match="--exchange twolevel requires"):
+        main(["--file", path, "--device", "cpu", "--exchange",
+              "twolevel"])
     with pytest.raises(SystemExit, match="--shards >= 2"):
         main(["--file", path, "--device", "cpu", "--dist-ingest"])
     with pytest.raises(SystemExit, match="need --distributed"):
@@ -402,3 +421,52 @@ def test_cli_shards_matches_library(rmat9, tmp_path, capsys):
     assert rec["modularity"] == modularity(g, lib.communities)
     assert (rec["communities"], rec["iterations"], rec["phases"]) == \
         (lib.num_communities, lib.total_iterations, len(lib.phases))
+
+
+@pytest.fixture(scope="module")
+def rmat12_file(tmp_path_factory):
+    """R-MAT 12 as a 32-bit Vite file: 1,024 vertices a shard of 4, the
+    reference driver's floor of 4096 / 4 padded vertices, so that the
+    exchange block's table bytes are one figure in both packages."""
+    from cuvite_tpu_torch.io.vite import write_vite
+
+    jg = jax_rmat(12, edge_factor=8, seed=5)
+    path = str(tmp_path_factory.mktemp("rmat12") / "g.bin")
+    write_vite(path, _port_graph(jg), bits64=False)
+    return path
+
+
+@pytest.mark.parametrize("argv", [["--shards", "4", "--exchange", "sparse"],
+                                  ["--mesh", "2x2"]])
+def test_cli_exchange_block_and_diag_match_jax(rmat12_file, argv, tmp_path,
+                                               capsys):
+    """The --json line's exchange block equals the reference CLI's on the
+    same file, one phase (-p); on the flat 4-shard run the --diag-prefix
+    files equal the reference's line for line with the seconds masked
+    (the reference's own two-level run cannot write them: its per-shard
+    ghost count indexes the plan's per-group list)."""
+    import re
+
+    from cuvite_tpu.cli import main as jax_main
+    from cuvite_tpu_torch.cli import main
+
+    common = ["--file", rmat12_file, "--json", "--quiet", "-p", *argv]
+    flat = argv[0] == "--shards"
+    pre = {k: str(tmp_path / k / "d") for k in ("port", "ref")}
+    assert main([*common, "--device", "cpu"]
+                + (["--diag-prefix", pre["port"]] if flat else [])) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jax_main(common + (["--diag-prefix", pre["ref"]] if flat
+                              else [])) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["exchange"] == want["exchange"]
+    assert got["exchange"]["mode"] == ("sparse" if flat else "twolevel")
+    assert (got["communities"], got["iterations"]) == \
+        (want["communities"], want["iterations"])
+    if flat:
+        def masked(k, s):
+            text = (tmp_path / k / f"d.{s}").read_text()
+            return re.sub(r"t=[0-9.]+s", "t=?s", text)
+
+        for s in range(4):
+            assert masked("port", s) == masked("ref", s)

@@ -16,7 +16,12 @@ timeout, and ``--distributed`` in the CLI has rank 0 alone write the
 communities file, equal to the one-process ``--shards S`` run's.  ET,
 coloring and a checkpoint resume run in a world too, and ranks that load
 different checkpoint states from a directory that is not shared all
-raise instead of waiting on each other.
+raise instead of waiting on each other.  The two-level exchange on a 2x2
+hybrid mesh runs in worlds of 2 (each rank one ICI group, the DCN
+columns across the ranks) and 4 (both axes across the ranks), and in a
+world of 2 on 4x2 (two whole groups a rank), with ET, the budget retry
+and a checkpoint resume, every rank equal to the one-process hybrid
+run.
 """
 
 import json
@@ -314,6 +319,40 @@ def test_world_schedules_and_checkpoints(graphs, tmp_path):
             assert res["iters"] == [p.iterations for p in mine.phases]
             assert res["q"] == mine.modularity.hex()
         assert len(got[2]["iters"]) == 1
+
+
+@pytest.mark.parametrize("nprocs,shape", [(2, (2, 2)), (4, (2, 2)),
+                                          (2, (4, 2))])
+def test_world_twolevel_matches_one_process(graphs, nprocs, shape,
+                                            tmp_path):
+    """The two-level exchange in a world (sub-groups over the ranks of
+    each ICI group and DCN column that spans several): every rank's
+    labels, iterations and Q bits equal the one-process hybrid run's,
+    under ET mode 3 and a budget of 1 (retried alike on every rank) too,
+    and a run stopped after one phase and resumed from the shared
+    checkpoint directory equals the uninterrupted one."""
+    jg, path = graphs["rmat10"]
+    g = _port_graph(jg)
+    ck = str(tmp_path / "ck")
+    runs = [dict(mesh_shape=list(shape)),
+            dict(mesh_shape=list(shape), et_mode=3),
+            dict(mesh_shape=list(shape), exchange_budget=1),
+            dict(mesh_shape=list(shape), max_phases=1, checkpoint_dir=ck),
+            dict(mesh_shape=list(shape), resume=True, checkpoint_dir=ck)]
+    want = [louvain_phases(g, device="cpu", **kw) for kw in runs[:3]]
+    outs, wall = _world(tmp_path, nprocs, {"file": path,
+                                           "out": str(tmp_path),
+                                           "runs": runs})
+    _ok(outs)
+    assert wall < TIMEOUT
+    for r in range(nprocs):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        for res, mine in zip(got[:3] + got[4:], want + want[:1]):
+            assert np.array_equal(res["labels"], mine.communities)
+            assert res["iters"] == [p.iterations for p in mine.phases]
+            assert res["q"] == mine.modularity.hex()
+            assert res["mode"] == "twolevel"
+        assert len(got[3]["iters"]) == 1
 
 
 MISMATCH_RANK = r"""
