@@ -122,9 +122,9 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    CUVITE_DEVICE_REBIN=0; each one's phase-1 re-binned plan equal to the
    host plan and swept twice on kernels and twins, targets equal, counter0
    bit-equal on R-MAT's integer weights and within the f32 reordering
-   bound on RGG's distance weights (the reading printed); RGG --rgg-nv with
-   re-binning on and off, rebin seconds against the host plan seconds
-   they replace.
+   bound on RGG's distance weights (the reading printed); RGG --rgg-nv
+   (phase 9's graph, kept for phases 18 and 37) with re-binning on and
+   off, rebin seconds against the host plan seconds they replace.
 19. sub-row packing: 16 synth 1024 tenants, and the seam pair (hub
    communities at ids 4095 and 4096 of one row), packed two to a row of
    class (8192, 32768) and run by cluster_packed on both engines: every
@@ -281,6 +281,24 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    same batch with mesh="auto" against card 0 alone.  Phase 33's world
    also runs the 2x2 mesh against phase 36's run, and each rank times
    the ICI all-gather and the DCN ghost-pull all_to_all.
+37. (run after 36, before 33-34) the last runtime modules: R-MAT --scale
+   written as a SNAP list and converted (``workloads.convert``; seconds
+   and MB/s of text), then louvain_phases(engine="pallas") and
+   engine="bucketed" on the converted file -- labels, phases, sweeps and
+   Q bits equal, Q within 1e-6 of the host f64 Q, the coverage and the
+   traversed edges by width printed, fails unless the row and heavy
+   kernels launched; R-MAT --check-scale as Matrix Market and METIS, each
+   converted at two chunk sizes (byte-equal, the graph's CSR) and run
+   with engine="pallas" on the card and the CPU (equal); the sort path on
+   RGG --rgg-nv (phase 9's graph) under CUVITE_SEG_COALESCE=msd and
+   =hash, labels, phases, sweeps and Q bits equal to phase 9's run, no
+   seg_coalesce launch, the hash engine's collisions (each retried on the
+   msd tail) and one host read a coalescing; at that run's first
+   coarsening both engines bit-equal to the sort engine's rows, the msd
+   one under set_sync_debug_mode("error"), the hash one with exactly one
+   host read, and the three engines timed; the B=64 synth 65536 batch
+   (phase 36's jobs) under msd on both engines, every tenant equal to the
+   default run.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -1120,7 +1138,8 @@ def check_sort_card_vs_cpu(nv: int) -> None:
 
 def run_sort_path(g, nv: int) -> tuple:
     """The sort path on the card; returns (the launch counts, the dense
-    coarsenings' relabeled slabs and results, the seconds)."""
+    coarsenings' relabeled slabs and results, the narrowest sort
+    coarsening's, the seconds, the result)."""
     import torch
 
     from cuvite_tpu_torch import louvain_phases
@@ -1185,7 +1204,7 @@ def run_sort_path(g, nv: int) -> tuple:
         print(f"  dense coarsening {k}: nv_pad {nv_pad}, "
               f"{args[0].numel()} slab rows -> {n} rows, equal to the sort "
               f"engine's; {int((ulps > 0).sum())} weights one ulp apart")
-    return launches, captured, above, total_s
+    return launches, captured, above, total_s, res
 
 
 def time_sort_sweep(g) -> float:
@@ -4418,6 +4437,306 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: the last runtime modules -- the converters, engine='pallas' and
+# its coverage, the msd and hash coalesce engines.
+
+
+def write_snap(path: str, g) -> None:
+    """``g``'s undirected edges as a SNAP list: ``u<TAB>v`` a line, each
+    pair once (u <= v), the way SNAP publishes its graphs."""
+    src = g.sources().astype(np.int64)
+    dst = g.tails.astype(np.int64)
+    keep = src <= dst
+    pairs = np.stack([src[keep], dst[keep]], 1)
+    with open(path, "wb") as f:
+        f.write(b"# Undirected graph: R-MAT (Graph500 a=0.57, b=c=0.19)\n")
+        for lo in range(0, len(pairs), 1 << 20):
+            f.write(("\n".join(f"{a}\t{b}" for a, b in
+                               pairs[lo:lo + (1 << 20)].tolist())
+                     + "\n").encode())
+
+
+def write_mtx(path: str, g) -> None:
+    """``g`` as a symmetric Matrix Market pattern: the lower triangle,
+    1-based."""
+    src = g.sources().astype(np.int64)
+    dst = g.tails.astype(np.int64)
+    keep = src >= dst
+    n = g.num_vertices
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate pattern symmetric\n")
+        f.write(f"{n} {n} {int(keep.sum())}\n")
+        f.write("\n".join(f"{a + 1} {b + 1}" for a, b in
+                          zip(src[keep].tolist(), dst[keep].tolist())))
+        f.write("\n")
+
+
+def write_metis(path: str, g) -> None:
+    """``g`` as a METIS graph: one 1-based adjacency line a vertex (both
+    directions listed)."""
+    nself = int((g.sources() == g.tails).sum())
+    tails = (g.tails.astype(np.int64) + 1).tolist()
+    off = g.offsets.tolist()
+    with open(path, "w") as f:
+        f.write(f"{g.num_vertices} {(g.num_edges - nself) // 2}\n")
+        for v in range(g.num_vertices):
+            f.write(" ".join(map(str, tails[off[v]:off[v + 1]])) + "\n")
+
+
+def convert_timed(path: str, out: str, **kw) -> tuple:
+    from cuvite_tpu_torch.workloads.convert import convert
+
+    t0 = time.perf_counter()
+    stats = convert(path, out, **kw)
+    return stats, time.perf_counter() - t0
+
+
+def run_converted(g_rmat, scale: int, work: str) -> dict:
+    """Phase 37 (1): R-MAT --scale written as a SNAP list, converted, and
+    run with engine='pallas' against engine='bucketed' on the file."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.evaluate.modularity import modularity
+    from cuvite_tpu_torch.io.vite import read_vite
+
+    snap = os.path.join(work, f"rmat{scale}.txt")
+    vite = os.path.join(work, f"rmat{scale}.vite")
+    t0 = time.perf_counter()
+    write_snap(snap, g_rmat)
+    mb = os.path.getsize(snap) / 1e6
+    print(f"  SNAP list of R-MAT {scale}: {mb:.1f} MB written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    stats, conv_s = convert_timed(snap, vite, bits64=False)
+    print(f"  converted in {conv_s:.3f} s ({mb / conv_s:.2f} MB/s of text): "
+          f"{stats.num_vertices} vertices (relabeled {stats.relabeled}), "
+          f"{stats.num_edges} directed edges, {stats.self_loops} self-loops")
+    os.remove(snap)
+    t0 = time.perf_counter()
+    g = read_vite(vite, bits64=False)
+    print(f"  read back in {time.perf_counter() - t0:.3f} s")
+    os.remove(vite)
+    if g.num_edges != g_rmat.num_edges:
+        fail(f"the converted R-MAT {scale} has {g.num_edges} edges, the "
+             f"graph {g_rmat.num_edges}")
+    runs, out = {}, {}
+    for engine in ("pallas", "bucketed"):
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = louvain_phases(g, engine=engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        runs[engine] = (res, wall, launches)
+        out[f"{engine} R-MAT {scale} converted from SNAP"] = launches
+    pal, pal_s, pal_l = runs["pallas"]
+    buck, buck_s, _ = runs["bucketed"]
+    check_same_run(f"converted R-MAT {scale} pallas vs bucketed", pal, buck)
+    if pal.modularity != buck.modularity:
+        fail(f"converted R-MAT {scale}: pallas Q {pal.modularity} vs "
+             f"bucketed {buck.modularity}")
+    q_host = modularity(g, pal.communities)
+    if abs(q_host - pal.modularity) > 1e-6:
+        fail(f"converted R-MAT {scale}: reported Q {pal.modularity} vs host "
+             f"f64 {q_host}")
+    for name in ("row_argmax", "heavy_bincount"):
+        if pal_l[name] == 0:
+            fail(f"{name} never launched on the pallas run")
+    if (pal.pallas_coverage, pal.pallas_width_hits) != \
+            (buck.pallas_coverage, buck.pallas_width_hits):
+        fail("the pallas and bucketed runs' coverage differ")
+    hits = " ".join(f"{'hubs' if w == 0 else w}:{n}"
+                    for w, n in sorted(pal.pallas_width_hits.items()))
+    print(f"  engine='pallas' {pal_s:.3f} s, 'bucketed' {buck_s:.3f} s: "
+          f"{len(pal.phases)} phases, {pal.total_iterations} sweeps, Q "
+          f"{pal.modularity:.9f} (host f64 {q_host:.9f}), labels and Q bits "
+          f"equal; pallas_coverage {pal.pallas_coverage}, traversed edges "
+          f"by width {hits}; launches {pal_l}")
+    return out
+
+
+def check_converted_formats(scale: int, work: str) -> dict:
+    """Phase 37 (2): R-MAT --check-scale as Matrix Market and METIS, each
+    converted at two chunk sizes (byte-equal) and run with
+    engine='pallas' on the card and on the CPU (equal)."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.io.vite import read_vite
+
+    g0 = generate_rmat(scale)
+    out = {}
+    for fmt, writer, name in (("mtx", write_mtx, "g.mtx"),
+                              ("metis", write_metis, "g.graph")):
+        path = os.path.join(work, name)
+        writer(path, g0)
+        files = []
+        for chunk in (1 << 22, 4096):
+            vite = os.path.join(work, f"g.{fmt}.{chunk}.vite")
+            stats, sec = convert_timed(path, vite, chunk_edges=chunk)
+            files.append(open(vite, "rb").read())
+            print(f"  {fmt}: {stats.num_vertices} vertices, "
+                  f"{stats.num_edges} directed edges, chunk {chunk}: "
+                  f"{sec:.3f} s")
+        if files[0] != files[1]:
+            fail(f"{fmt}: the two chunk sizes wrote different files")
+        g = read_vite(vite, bits64=False)
+        if not (np.array_equal(g.offsets, g0.offsets)
+                and np.array_equal(g.tails, g0.tails)):
+            fail(f"{fmt}: the converted CSR differs from the graph's")
+        zero_kernel_counts()
+        rg = louvain_phases(g, engine="pallas")
+        out[f"pallas R-MAT {scale} converted from {fmt}"] = kernel_counts()
+        rc = louvain_phases(g, engine="pallas", device="cpu")
+        check_same_run(f"{fmt} R-MAT {scale} pallas", rg, rc)
+        print(f"  {fmt}: byte-equal across chunk sizes, the CSR of the "
+              f"graph; pallas card = CPU ({len(rg.phases)} phases, "
+              f"{rg.total_iterations} sweeps, Q {rg.modularity:.9f}, "
+              f"coverage {rg.pallas_coverage})")
+        os.remove(path)
+        for chunk in (1 << 22, 4096):
+            os.remove(os.path.join(work, f"g.{fmt}.{chunk}.vite"))
+    return out
+
+
+def run_coalesce_engines(g_rgg, nv: int, sort_res) -> dict:
+    """Phase 37 (3): the sort path on RGG --rgg-nv under
+    CUVITE_SEG_COALESCE=msd and =hash, against phase 9's run; then both
+    engines and the default at the run's first coarsening: rows, host
+    reads, device time."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.kernels import seg_coalesce as sc
+    from cuvite_tpu_torch.ops import segment as seg
+
+    first = []
+    coalesced_runs = seg.coalesced_runs
+
+    def observed(src, ckey, w, *, nv_pad, engine="sort"):
+        if not first:
+            first.append((src, ckey, w, nv_pad))
+        return coalesced_runs(src, ckey, w, nv_pad=nv_pad, engine=engine)
+
+    def coalesce_s(res):
+        return sum(p.stages.get("coalesce", 0.0) for p in res.phases)
+
+    out = {}
+    print(f"  default engines (phase 9): coalesce "
+          f"{coalesce_s(sort_res):.4f} s over "
+          f"{[p.coalesce for p in sort_res.phases]}")
+    for mode in ("msd", "hash"):
+        os.environ["CUVITE_SEG_COALESCE"] = mode
+        seg.coalesced_runs = observed
+        try:
+            sc.zero_hash_stats()
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            res = louvain_phases(g_rgg, engine="sort")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+            stats = dict(sc.HASH_STATS)
+        finally:
+            seg.coalesced_runs = coalesced_runs
+            del os.environ["CUVITE_SEG_COALESCE"]
+        check_same_run(f"RGG {nv} sort, CUVITE_SEG_COALESCE={mode}, vs "
+                       "phase 9", res, sort_res)
+        if res.modularity != sort_res.modularity:
+            fail(f"RGG {nv} {mode}: Q {res.modularity} vs phase 9's "
+                 f"{sort_res.modularity}")
+        engines = [p.coalesce for p in res.phases]
+        if {e for e in engines if e is not None} != {mode}:
+            fail(f"RGG {nv} {mode}: coarsenings ran {engines}")
+        if launches["seg_coalesce"]:
+            fail(f"RGG {nv} {mode}: seg_coalesce launched "
+                 f"{launches['seg_coalesce']} times")
+        n_co = sum(e is not None for e in engines)
+        out[f"sort RGG {nv} CUVITE_SEG_COALESCE={mode}"] = launches
+        extra = ""
+        if mode == "hash":
+            if stats["coalescings"] != n_co or stats["host_reads"] != n_co:
+                fail(f"RGG {nv} hash: {stats} over {n_co} coarsenings")
+            extra = (f"; {stats['collisions']} of {n_co} coalescings "
+                     "collided and were retried on the msd tail")
+        print(f"  {mode}: {wall:.3f} s, coalesce {coalesce_s(res):.4f} s "
+              f"over {engines}, labels, phases, sweeps and Q bits equal to "
+              f"phase 9's, launches {launches}{extra}")
+    src, ckey, w, nv_pad = first[0]
+    args = (src[None], ckey[None], w[None])
+    real = int((src < nv_pad).sum())
+    ref = seg.coalesced_runs_batched(*args, nv_pad=nv_pad, engine="sort")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        msd = seg.coalesced_runs_batched(*args, nv_pad=nv_pad, engine="msd")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sc.zero_hash_stats()
+    hsh, hash_syncs = count_syncs(lambda: seg.coalesced_runs_batched(
+        *args, nv_pad=nv_pad, engine="hash"))
+    for name, got in (("msd", msd), ("hash", hsh)):
+        if not all(bits_equal(a, b) for a, b in zip(got, ref)):
+            fail(f"RGG {nv} first coarsening: the {name} rows differ from "
+                 "the sort engine's")
+    if hash_syncs != 1:
+        fail(f"the hash coalesce made {hash_syncs} host reads, not 1")
+    k = sc.hash_slots(nv_pad, src.numel())
+    times = {e: time_ms(lambda e=e: seg.coalesced_runs_batched(
+        *args, nv_pad=nv_pad, engine=e), 5) for e in ("sort", "msd", "hash")}
+    print(f"  RGG {nv} first coarsening (nv_pad {nv_pad}, {src.numel()} "
+          f"slab rows, {real} real, {int(ref[3][0])} coalesced): msd and "
+          f"hash rows bit-equal to the sort engine's; host reads: msd 0 "
+          f"(ran under set_sync_debug_mode('error')), hash {hash_syncs} "
+          f"(K = {k} slots a src, collisions {sc.HASH_STATS['collisions']});"
+          f" device ms: sort {times['sort']:.4f}, msd {times['msd']:.4f}, "
+          f"hash {times['hash']:.4f} (its host read inside)")
+    return out
+
+
+def check_batch_msd(gs: list, kind: str) -> dict:
+    """Phase 37 (4): the B=64 batch under CUVITE_SEG_COALESCE=msd, both
+    engines: every tenant's labels equal the default run's."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_many
+
+    out = {}
+    for engine in ("fused", "bucketed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base = louvain_many(gs, engine=engine)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t0
+        os.environ["CUVITE_SEG_COALESCE"] = "msd"
+        try:
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            br = louvain_many(gs, engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+        finally:
+            del os.environ["CUVITE_SEG_COALESCE"]
+        for k, (a, b) in enumerate(zip(br.results, base.results)):
+            if not np.array_equal(a.communities, b.communities) or \
+                    a.total_iterations != b.total_iterations:
+                fail(f"{kind} {engine} msd: tenant {k} differs from the "
+                     "default run")
+        if set(br.coalesce) - {"msd"} or launches["seg_coalesce"]:
+            fail(f"{kind} {engine} msd: coalesce {br.coalesce}, launches "
+                 f"{launches}")
+        out[f"{kind} {engine}, CUVITE_SEG_COALESCE=msd"] = launches
+        print(f"  {kind} {engine} under msd: {wall:.3f} s (default "
+              f"{base_s:.3f} s), coalesce {br.coalesce} (default "
+              f"{base.coalesce}), every tenant's labels and sweeps equal "
+              f"the default run's; launches {launches}")
+    return out
+
+
 def run_multiprocess_only(args, cards: list) -> int:
     """``--only-multiprocess``: phase 30's, 35's colored and 36's 2x2
     one-process runs as the reference, then phases 33-34, then on a host
@@ -4568,7 +4887,8 @@ def main() -> int:
     g = generate_rgg(args.rgg_nv)
     print(f"  generated {g.num_vertices} vertices, {g.num_edges} directed "
           f"edges in {time.perf_counter() - t0:.2f} s")
-    sort_launches, captured, above, sort_s = run_sort_path(g, args.rgg_nv)
+    sort_launches, captured, above, sort_s, sort_res = run_sort_path(
+        g, args.rgg_nv)
     print(f"  one phase-0 sort sweep: {time_sort_sweep(g):.4f} ms on the "
           "device stream")
     g_rgg = g
@@ -4620,7 +4940,6 @@ def main() -> int:
     print("[12] fused path at full size")
     paths[f"fused RGG {args.rgg_nv}"] = run_fused_path(
         g_rgg, f"RGG {args.rgg_nv}", {"sort": sort_s})
-    del g_rgg
     paths[f"fused R-MAT {args.scale}"] = run_fused_path(
         g_rmat, f"R-MAT {args.scale}", {"bucketed": bucketed_s})
 
@@ -4704,8 +5023,7 @@ def main() -> int:
                                       False),
          f"R-MAT {args.check_scale}": (generate_rmat(args.check_scale),
                                        True)}))
-    paths.update(run_rebin_full(generate_rgg(args.rgg_nv),
-                                f"RGG {args.rgg_nv}"))
+    paths.update(run_rebin_full(g_rgg, f"RGG {args.rgg_nv}"))
     print(f"  phases 15-18 took {time.perf_counter() - t15:.1f} s")
 
     t19 = time.perf_counter()
@@ -4872,12 +5190,23 @@ def main() -> int:
           f"{bucketed_s:.3f} s (phase 5)")
     gs = serving_jobs("serving 65536")
     paths.update(check_batch_mesh(gs, "serving 65536"))
-    del gs
     if len(cards) >= 2:
         paths.update(run_batch_auto(cards, "serving 65536"))
     else:
         print("  one card on this host: no mesh='auto' run over cards")
     print(f"  phase 36 took {time.perf_counter() - t36:.1f} s")
+
+    t37 = time.perf_counter()
+    print(f"[37] the last runtime modules: the converters, "
+          f"engine='pallas' and its coverage, the msd and hash coalesce "
+          f"engines")
+    paths.update(run_converted(g_rmat, args.scale, work))
+    paths.update(check_converted_formats(args.check_scale, work))
+    paths.update(run_coalesce_engines(g_rgg, args.rgg_nv, sort_res))
+    del g_rgg, sort_res
+    paths.update(check_batch_msd(gs, "serving 65536"))
+    del gs
+    print(f"  phase 37 took {time.perf_counter() - t37:.1f} s")
 
     paths.update(run_multiprocess(g_rmat, args.scale, S, cards,
                                   one_process))

@@ -27,7 +27,12 @@ dispatcher and the socket daemon; ``python -m cuvite_tpu_torch.serve
 demo|cluster-many|daemon``, with ``--device cpu`` for the CPU).
 The flight recorder (``obs/``) rides on the drivers' ``tracer=``, and
 ``python -m cuvite_tpu_torch.workloads bench`` prints the reference's
-bench record (``workloads/bench.py``).  ``stream/`` re-clusters graphs
+bench record (``workloads/bench.py``); its ``fetch`` and ``convert`` verbs
+bring datasets in (``workloads/registry.py``, ``workloads/convert.py``).
+``engine="pallas"``, the reference's kernel engine, runs the bucketed
+engine, and every bucketed run reports its kernel coverage;
+``CUVITE_SEG_COALESCE=msd|hash`` selects the reference's big-class
+coalesce engines.  ``stream/`` re-clusters graphs
 that change between requests (the daemon's ``delta`` verb).
 ``louvain_phases(graph, nshards=S)`` (or ``mesh=comm.mesh.make_mesh(...)``)
 runs S vertex shards from one process, on S cards or several shards to a

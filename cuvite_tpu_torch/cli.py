@@ -106,9 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
     run = p.add_argument_group("clustering")
     run.add_argument("--device", default=None,
                      help="torch device (default: the CUDA card)")
-    run.add_argument("--engine", choices=("auto", "bucketed", "sort",
-                                          "fused"),
-                     default="auto", help="sweep engine (auto = bucketed)")
+    run.add_argument("--engine", choices=("auto", "bucketed", "pallas",
+                                          "sort", "fused"),
+                     default="auto",
+                     help="sweep engine (auto = bucketed; pallas, the "
+                          "reference's kernel engine, runs bucketed)")
     run.add_argument("--threshold", type=float, default=1e-6)
     run.add_argument("--threshold-cycling", "-i", action="store_true")
     run.add_argument("--one-phase", "-p", action="store_true")
@@ -221,7 +223,7 @@ def validate(args) -> None:
             raise SystemExit("--dist-ingest requires --file")
         if args.shards < 2:
             raise SystemExit("--dist-ingest requires --shards >= 2")
-        if args.engine not in ("auto", "bucketed"):
+        if args.engine not in ("auto", "bucketed", "pallas"):
             raise SystemExit("--dist-ingest supports only the bucketed "
                              "engine")
         if args.write_graph:

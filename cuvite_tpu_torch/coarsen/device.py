@@ -7,7 +7,8 @@ communities densely (``device_renumber``), relabel both endpoints of every
 slab row, and coalesce duplicate (src, dst) pairs through
 ``ops/segment.coalesced_runs`` -- the ``seg_coalesce`` kernel's dense
 engine for classes with nv_pad <= ``DEFAULT_MAX_NV``, the packed sort
-otherwise (``kernels/seg_coalesce.coalesce_engine``).  Intra-community
+otherwise, or the ``msd``/``hash`` engine that ``CUVITE_SEG_COALESCE``
+pins (``kernels/seg_coalesce.coalesce_engine``).  Intra-community
 weight collapses onto the diagonal as self-loops.  The host pipeline
 (``coarsen/rebuild.py``) is the bit-parity oracle: the dense ids are
 ``np.unique``'s, and the coarse CSR equals ``coarsen_graph``'s wherever
@@ -92,8 +93,8 @@ def device_coarsen_slab(src: torch.Tensor, dst: torch.Tensor,
     coarse slab in the same [ne] length, rows sorted by (src, dst) in
     [0, ne2) and padding (src == nv_pad, dst == 0, w == 0) after;
     ``dense_map``/``nc`` as :func:`device_renumber`; ``ne2`` a Python
-    int.  ``coalesce``: ``'dense'`` or ``'sort'``, or None for
-    ``coalesce_engine(nv_pad)``."""
+    int.  ``coalesce``: ``'dense'``, ``'sort'``, ``'msd'`` or ``'hash'``,
+    or None for ``coalesce_engine(nv_pad)``."""
     dense_map, nc = device_renumber(comm, real_mask, nv_pad=nv_pad)
     pad = src >= nv_pad
     safe_src = src.clamp(max=nv_pad - 1).long()
@@ -204,7 +205,8 @@ def batched_coarsen_slab(src: torch.Tensor, dst: torch.Tensor,
     dense maps of :func:`batched_renumber`: ``src``/``dst``/``w``
     [B, ne_pad] slabs (padding src == nv_pad), ``comm`` [B, nv_pad]
     phase-end labels.  ``coalesce``: ``'dense'`` (with ``grid``, a power
-    of two above every tenant's community count) or ``'sort'``.  Returns
+    of two above every tenant's community count), ``'sort'`` or
+    ``'msd'``.  Returns
     (src2, dst2, w2 [B, ne_pad], ne2 [B] int64 tensor), each tenant's
     coarse rows in its own prefix."""
     pad = src >= nv_pad

@@ -35,11 +35,11 @@ does.
 from __future__ import annotations
 
 import os
-import warnings
 
 import torch
 
 from cuvite_tpu_torch.louvain.bucketed import DEFAULT_BUCKETS, DevicePlan
+from cuvite_tpu_torch.utils.envknob import env_int
 
 # Plan-element ceiling of an eligible class's geometry (sum of rows x
 # width), as the reference's.
@@ -48,21 +48,9 @@ DEFAULT_REBIN_MAX_ELEMS = 1 << 27
 
 def rebin_max_elems() -> int:
     """``CUVITE_REBIN_MAX_ELEMS`` in [1, 2^34], else the default (with a
-    warning when set but malformed), as the reference's ``env_int``."""
-    raw = os.environ.get("CUVITE_REBIN_MAX_ELEMS")
-    if not raw:
-        return DEFAULT_REBIN_MAX_ELEMS
-    try:
-        v = int(raw, 0)
-    except ValueError:
-        v = None
-    if v is None or not 1 <= v <= 1 << 34:
-        warnings.warn(
-            f"malformed CUVITE_REBIN_MAX_ELEMS={raw!r} (want an integer "
-            f">= 1 <= {1 << 34}); using the default "
-            f"{DEFAULT_REBIN_MAX_ELEMS}", stacklevel=2)
-        return DEFAULT_REBIN_MAX_ELEMS
-    return v
+    warning when set but malformed)."""
+    return env_int("CUVITE_REBIN_MAX_ELEMS", DEFAULT_REBIN_MAX_ELEMS,
+                   maximum=1 << 34)
 
 
 def device_rebin_enabled() -> bool:
@@ -125,16 +113,19 @@ def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
     n_cls = len(DEFAULT_BUCKETS)
     cls = torch.bucketize(deg, bounds)
     cls = torch.where(deg == 0, n_cls + 1, cls)
-    sizes = torch.zeros(n_cls + 2, dtype=torch.int64, device=dev)
-    sizes.index_add_(0, cls, torch.ones_like(cls))
-    sizes = sizes.tolist()   # the one host read: the plan's shapes
+    sizes = torch.zeros((2, n_cls + 2), dtype=torch.int64, device=dev)
+    sizes[0].index_add_(0, cls, torch.ones_like(cls))
+    sizes[1].index_add_(0, cls, deg)
+    # The one host read: the plan's shapes, and each class's edges for
+    # the coverage accounting.
+    sizes, class_edges = sizes.tolist()
     if sizes[n_cls]:
         raise ValueError(
             f"device_plan: {sizes[n_cls]} vertices of degree above "
             f"{DEFAULT_BUCKETS[-1]}: the slab is not eligible for device "
             "re-binning (rebin_eligible)")
     order = torch.sort(cls, stable=True).indices
-    buckets = []
+    buckets, widths, edges = [], [], []
     perm = torch.full((nv_local,), sum(sizes[:n_cls]), dtype=torch.int64,
                       device=dev)
     off = 0
@@ -152,8 +143,11 @@ def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
         wmat = torch.where(has, ww[at], 0.0)
         buckets.append((verts.to(torch.int32), dmat.to(torch.int32),
                         wmat.contiguous(), vdeg_r.to(torch.int32)))
+        widths.append(width)
+        edges.append(class_edges[k])
         perm[verts] = off + torch.arange(nb, device=dev)
         off += nb
     return DevicePlan(buckets=buckets, heavy=None,
-                      self_loop=self_loop.float(), perm=perm)
+                      self_loop=self_loop.float(), perm=perm,
+                      widths=widths, bucket_edges=edges)
 

@@ -142,6 +142,11 @@ def initialize(coordinator: str | None = None,
         timeout=datetime.timedelta(seconds=float(timeout)))
     host = dist.group.WORLD if cpu else dist.new_group(backend="gloo")
     _STATE.update(device=dev, host_group=host)
+    # No rank leaves before every rank's group is formed: a rank that
+    # went on, failed and tore its side down while a peer still
+    # connected would fail the peer inside init_process_group, outside
+    # fail_together.
+    dist.barrier(group=host)
     if not cpu:
         where = [None] * world
         dist.all_gather_object(where, (socket.gethostname(), dev.index),
@@ -194,7 +199,11 @@ def local_shard_range(nshards: int) -> tuple[int, int]:
 
 
 def shutdown() -> None:
-    """Destroy the process group (every group of this process)."""
+    """Destroy the process group (every group of this process).  Drop the
+    meshes first (``comm.mesh.Mesh`` holds its group): a gloo group object
+    still referenced when the interpreter exits is destroyed during its
+    finalization, which aborts the process ("terminate called without an
+    active exception", status -6) after its work is done."""
     if is_distributed():
         dist.destroy_process_group()
     _STATE.clear()

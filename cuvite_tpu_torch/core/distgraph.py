@@ -182,10 +182,16 @@ class DistGraph:
 
     def device_slab(self, device) -> tuple:
         """(src, dst, w) as int32/int32/float32 tensors on ``device``: the
-        resident slab as it is, or the host slab uploaded once."""
+        resident slab as it is, or the host slab uploaded once
+        (``utils/upload.to_device``: in flight on the card's current
+        stream; on the CPU aliasing the host arrays where the dtypes
+        match, which then are frozen -- the sweeps and coarsenings only
+        read the slab)."""
         if self.device_resident:
             return self.src, self.dst, self.w
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+        from cuvite_tpu_torch.utils.upload import to_device
+
+        return tuple(to_device(a, dt, device)
                      for a, dt in ((self.src, torch.int32),
                                    (self.dst, torch.int32),
                                    (self.w, torch.float32)))

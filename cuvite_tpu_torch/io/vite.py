@@ -89,6 +89,80 @@ def read_vite(path: str, bits64: bool = True,
     )
 
 
+class ViteStreamWriter:
+    """Chunked Vite writer for graphs too large to hold as a ``Graph``
+    (reference ``cuvite_tpu/io/vite.py:105``; the converters' writer).
+
+    The caller gives the final ``(nv, ne)`` and the CSR offsets up front
+    (a two-pass pipeline counts the degrees first), then fills the edge
+    records in any slices through :meth:`write_edges`; memory stays
+    O(chunk), never O(ne).  The file is byte-equal to :func:`write_vite`'s
+    for the same CSR."""
+
+    def __init__(self, path: str, nv: int, ne: int, bits64: bool = True):
+        if nv < 0 or ne < 0:
+            raise ValueError(f"bad shape nv={nv}, ne={ne}")
+        self.path = path
+        self.nv = nv
+        self.ne = ne
+        self.bits64 = bits64
+        self._elem = _elem_dtype(bits64)
+        self._edge = _edge_dtype(bits64)
+        if not bits64 and (nv > np.iinfo(np.int32).max
+                           or ne > np.iinfo(np.int32).max):
+            raise ValueError(
+                f"nv={nv} / ne={ne} overflow the 32-bit Vite layout; "
+                "pass bits64=True")
+        self._edges_offset = 2 * self._elem.itemsize \
+            + (nv + 1) * self._elem.itemsize
+        total = self._edges_offset + ne * self._edge.itemsize
+        with open(path, "wb") as f:
+            np.array([nv, ne], dtype=self._elem).tofile(f)
+            f.truncate(total)
+        self._offsets_written = False
+        # One read-write memmap over the edge records, kept open.
+        self._edges_mm = (np.memmap(path, dtype=self._edge, mode="r+",
+                                    offset=self._edges_offset, shape=(ne,))
+                          if ne else None)
+
+    def write_offsets(self, offsets: np.ndarray) -> None:
+        offsets = np.asarray(offsets, dtype=np.int64)
+        if (len(offsets) != self.nv + 1 or offsets[0] != 0
+                or offsets[-1] != self.ne
+                or np.any(np.diff(offsets) < 0)):
+            raise ValueError("offsets must be monotone, [0 .. ne], len nv+1")
+        mm = np.memmap(self.path, dtype=self._elem, mode="r+",
+                       offset=2 * self._elem.itemsize, shape=(self.nv + 1,))
+        mm[:] = offsets.astype(self._elem)
+        mm.flush()
+        del mm
+        self._offsets_written = True
+
+    def write_edges(self, index, tails: np.ndarray,
+                    weights: np.ndarray) -> None:
+        """Write edge records at ``index``: an int start of a contiguous
+        slice, or one position per record."""
+        rec = np.empty(len(tails), dtype=self._edge)
+        rec["tail"] = tails
+        rec["weight"] = weights
+        if isinstance(index, (int, np.integer)):
+            self._edges_mm[int(index):int(index) + len(rec)] = rec
+        else:
+            self._edges_mm[np.asarray(index, dtype=np.int64)] = rec
+
+    def read_edges(self, lo: int, hi: int) -> np.ndarray:
+        """The records [lo, hi) (the canonicalizing pass reads them)."""
+        return np.array(self._edges_mm[lo:hi])
+
+    def close(self) -> None:
+        if not self._offsets_written:
+            raise ValueError(f"{self.path}: offsets were never written")
+        if self._edges_mm is not None:
+            self._edges_mm.flush()
+            del self._edges_mm
+            self._edges_mm = None
+
+
 def write_vite(path: str, graph: Graph, bits64: bool = True) -> None:
     """Write a graph in the Vite binary format (reference
     distgraph.cpp:936-1014)."""

@@ -45,8 +45,19 @@ Differences from the reference, by design:
   same slab; ``CUVITE_SEG_COALESCE=sort`` pins the sort for comparisons.
 
 ``seg_coalesce`` launches the pipeline for CUDA tensors and runs
-``seg_coalesce_plain`` only for CPU tensors.  Not ported: the reference's
-``hash`` engine (``:335-427``).
+``seg_coalesce_plain`` only for CPU tensors.
+
+The reference's big-class engines are here too, as it has them: plain
+code outside any kernel.  ``msd`` (``ops/segment.sort_edges_msd``) sorts
+the slab in two stable int32 passes; ``hash`` (``:335-427``) sums each
+src's rows into ``hash_slots`` slots of a [nv_pad * K] table in one
+scatter pass (:func:`hash_accumulate`) and emits the rows in order from
+the table with an O(K^2) rank a src (:func:`hash_emit`).  A slot that
+two distinct dst hash to cannot emit: the coalesce reads one collision
+flag on the host and then runs either the msd tail or the emission
+(``ops/segment.coalesced_runs_batched``), where the reference branches
+on the device inside ``lax.cond``.  The tables sum in f64 and round
+once, the port's rule, where the reference sums in the weight dtype.
 
 The routing caps ``DEFAULT_MAX_NV`` and ``DENSE_BATCH_MAX_SLOTS`` were
 set by the memory of the key grid the first CUDA form accumulated; the
@@ -60,10 +71,12 @@ from __future__ import annotations
 
 import ctypes
 import os
+import warnings
 
 import torch
 
 from cuvite_tpu_torch.kernels import _build
+from cuvite_tpu_torch.utils.envknob import env_int
 
 # Widest slab class the dense engine takes by default.  A routing
 # choice: the first CUDA form's [4096, 4096] accumulator pair (192 MiB)
@@ -92,44 +105,49 @@ _SIGNATURE = {
 
 
 def _max_nv() -> int:
-    """``CUVITE_SEG_COALESCE_MAX_NV`` (default ``DEFAULT_MAX_NV``): the
-    widest nv_pad the dense engine takes.  Read per call."""
-    raw = os.environ.get("CUVITE_SEG_COALESCE_MAX_NV", "")
-    if not raw:
-        return DEFAULT_MAX_NV
-    try:
-        v = int(raw, 0)
-    except ValueError:
-        v = 0
-    if not 1 <= v <= FLAT_NV_MAX:
-        raise ValueError(f"CUVITE_SEG_COALESCE_MAX_NV={raw!r}: want an "
-                         f"integer in 1..{FLAT_NV_MAX}")
-    return v
+    """``CUVITE_SEG_COALESCE_MAX_NV`` (default ``DEFAULT_MAX_NV``, at most
+    ``FLAT_NV_MAX``): the widest nv_pad the dense engine takes.  Read per
+    call; a malformed value warns and keeps the default."""
+    return env_int("CUVITE_SEG_COALESCE_MAX_NV", DEFAULT_MAX_NV,
+                   maximum=FLAT_NV_MAX)
+
+
+_DENSE_WORDS = ("", "1", "true", "dense", "xla", "pallas")
 
 
 def coalesce_engine(nv_pad: int) -> str:
-    """The coalesce engine of one slab class: ``'dense'`` when nv_pad is
-    at most ``CUVITE_SEG_COALESCE_MAX_NV``, else ``'sort'``.
-    ``CUVITE_SEG_COALESCE``: unset, empty or ``dense`` for that policy;
-    ``sort`` pins the sort for every class.  Read per call, so a toggle
-    takes effect at the next phase."""
+    """The coalesce engine of one slab class, from ``CUVITE_SEG_COALESCE``
+    (reference ``:106-165``).  Unset, empty, ``1``, ``true``, ``dense``,
+    ``xla`` or ``pallas``: the port's dense policy, ``'dense'`` when
+    nv_pad is at most ``CUVITE_SEG_COALESCE_MAX_NV``, else ``'sort'``;
+    ``0``, ``false`` or ``sort``: ``'sort'`` for every class; ``msd`` and
+    ``hash``: those engines for every class.  Any other word warns and
+    keeps the default.  Read per call, so a toggle takes effect at the
+    next phase."""
     mode = os.environ.get("CUVITE_SEG_COALESCE", "").strip().lower()
-    if mode == "sort":
+    if mode in ("0", "false", "sort"):
         return "sort"
-    if mode not in ("", "dense"):
-        raise ValueError(f"CUVITE_SEG_COALESCE={mode!r}: the port has "
-                         "'dense' (default) and 'sort'; the reference's "
-                         "'msd' and 'hash' engines are not ported "
-                         "(ROADMAP.md A5)")
+    if mode in ("msd", "hash"):
+        return mode
+    if mode not in _DENSE_WORDS:
+        warnings.warn(
+            f"unrecognized CUVITE_SEG_COALESCE={mode!r} (want sort/0, "
+            "dense/xla/pallas/1, msd or hash); using the default dense "
+            "policy", stacklevel=2)
     return "dense" if nv_pad <= _max_nv() else "sort"
 
 
 def batched_coalesce_engine(nv_pad: int, n_tenants: int, grid: int) -> str:
     """The engine of one batched coarsening: ``coalesce_engine(nv_pad)``
-    of the slab class, and ``'sort'`` when ``n_tenants * grid^2`` exceeds
+    of the slab class, ``'hash'`` sent to ``'msd'`` (reference
+    ``louvain/batched.py:408-421``: the collision retry is per slab), and
+    ``'sort'`` for a dense class whose ``n_tenants * grid^2`` exceeds
     ``DENSE_BATCH_MAX_SLOTS``."""
-    if coalesce_engine(nv_pad) != "dense":
-        return "sort"
+    eng = coalesce_engine(nv_pad)
+    if eng == "hash":
+        return "msd"
+    if eng != "dense":
+        return eng
     return "dense" if n_tenants * grid * grid <= DENSE_BATCH_MAX_SLOTS \
         else "sort"
 
@@ -270,3 +288,114 @@ def emit_coalesced(acc, cnt, *, ne_pad: int, nv_pad: int,
     shape = (b, ne_pad)
     return (src2[:size].view(shape), dst2[:size].view(shape),
             w2[:size].view(shape), present.sum(1))
+
+
+# ---------------------------------------------------------------------------
+# The hash-slot engine (reference ``:318-427``): K slots a src, a
+# [nv_pad * K] table instead of the dense [nv_pad^2] key grid.
+
+# The flat index src * K + slot and the emission's cumsum count table
+# slots: nv_pad * K stays <= 2^30.  hash_emit's [nv_pad, K, K] rank
+# transient keeps nv_pad * K^2 <= 2^28.
+HASH_TABLE_MAX = 1 << 30
+HASH_RANK_MAX = 1 << 28
+_HASH_MULT = 2654435761   # Knuth's 2^32 / phi
+
+# Hash coalescings since the last zero_hash_stats(): coalescings, the
+# collisions among them (each retried on the msd tail) and the host reads
+# they made (one each: the collision flag).
+HASH_STATS = {"coalescings": 0, "collisions": 0, "host_reads": 0}
+
+
+def zero_hash_stats() -> None:
+    for k in HASH_STATS:
+        HASH_STATS[k] = 0
+
+
+def hash_slots(nv_pad: int, ne_pad: int) -> int:
+    """The slot count a src of one slab class, as the reference's: a
+    power of two from the class's mean degree (4x headroom), at least 16
+    and at most nv_pad, halved until the table and rank budgets hold.
+    ``CUVITE_HASH_SLOTS`` (0 to 4096) overrides, rounded up to a power of
+    two and held to the same budgets."""
+    k = env_int("CUVITE_HASH_SLOTS", 0, minimum=0, maximum=1 << 12)
+    if k <= 0:
+        avg = max(ne_pad // max(nv_pad, 1), 1)
+        k = min(nv_pad, max(16, 4 * avg))
+    k = 1 << max(int(k - 1).bit_length(), 0)
+    while k > 1 and (nv_pad * k > HASH_TABLE_MAX
+                     or nv_pad * k * k > HASH_RANK_MAX):
+        k >>= 1
+    return k
+
+
+def hash_slot_of(dst: torch.Tensor, k: int) -> torch.Tensor:
+    """Each dst's slot in [0, k): ``(dst * _HASH_MULT mod 2^32) >> (32 -
+    log2 k)``, the reference's uint32 product computed in int64 (dst <
+    2^31, so the product stays below 2^63).  Returns int64."""
+    if k == 1:
+        return torch.zeros_like(dst, dtype=torch.int64)
+    log2k = (k - 1).bit_length()
+    return ((dst.long() * _HASH_MULT) & 0xFFFFFFFF) >> (32 - log2k)
+
+
+def hash_accumulate(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                    *, nv_pad: int, k: int) -> tuple:
+    """One scatter pass over the [nv_pad * k] slot table: ``src``/``dst``
+    [ne] ids below nv_pad (padding src == nv_pad, w == 0).  Returns flat
+    [nv_pad * k] tables (wsum f64, cnt int32, dmin int32, dmax int32):
+    the weight sum, the row count and the least and greatest dst of each
+    slot, equal where the slot holds one dst."""
+    if k & (k - 1):
+        raise ValueError(f"hash_accumulate: k = {k} is not a power of two")
+    size = nv_pad * k
+    real = src < nv_pad
+    flat = torch.where(real, src.long() * k + hash_slot_of(dst, k), size)
+    d32 = dst.to(torch.int32)
+    dev = src.device
+    wsum = torch.zeros(size + 1, dtype=torch.float64, device=dev)
+    wsum.index_add_(0, flat, torch.where(real, w, 0.0).double())
+    cnt = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, flat, real.to(torch.int32))
+    dmin = torch.full((size + 1,), nv_pad, dtype=torch.int32, device=dev)
+    dmin.scatter_reduce_(0, flat, torch.where(real, d32, nv_pad), "amin")
+    dmax = torch.zeros(size + 1, dtype=torch.int32, device=dev)
+    dmax.scatter_reduce_(0, flat, torch.where(real, d32, 0), "amax")
+    return wsum[:size], cnt[:size], dmin[:size], dmax[:size]
+
+
+def hash_emit(wsum: torch.Tensor, cnt: torch.Tensor, dmin: torch.Tensor, *,
+              nv_pad: int, ne_pad: int, k: int,
+              w_dtype=torch.float32) -> tuple:
+    """Compact a collision-free slot table into the coalesced slab prefix,
+    rows in ascending (src, dst) order (reference ``hash_emit``).  Within
+    a src the occupied slots hold distinct dst, so their order comes from
+    an O(k^2) rank, empty slots (dst nv_pad) after every real one and
+    ties broken by slot.  Returns (src_c, ckey_c int32, w_c [ne_pad], n
+    0-dim int64), the f64 sums rounded once to ``w_dtype``."""
+    dev = wsum.device
+    occ = (cnt > 0).view(nv_pad, k)
+    dst_t = torch.where(occ, dmin.view(nv_pad, k), nv_pad)
+    w_t = torch.where(occ, wsum.view(nv_pad, k), 0.0)
+    sl = torch.arange(k, device=dev)
+    before = (dst_t[:, :, None] > dst_t[:, None, :]) | (
+        (dst_t[:, :, None] == dst_t[:, None, :])
+        & (sl[None, :, None] > sl[None, None, :]))
+    rank = before.sum(2)
+    del before
+    flat_d = torch.full((nv_pad, k), nv_pad, dtype=torch.int32,
+                        device=dev).scatter_(1, rank, dst_t).view(-1)
+    flat_w = torch.zeros((nv_pad, k), dtype=torch.float64,
+                         device=dev).scatter_(1, rank, w_t).view(-1)
+    present = flat_d < nv_pad
+    pos = torch.cumsum(present, 0) - 1
+    slot = torch.where(present, pos, ne_pad)
+    srcs = torch.arange(nv_pad, dtype=torch.int32,
+                        device=dev).repeat_interleave(k)
+    src_c = torch.full((ne_pad + 1,), nv_pad, dtype=torch.int32, device=dev)
+    ckey_c = torch.zeros(ne_pad + 1, dtype=torch.int32, device=dev)
+    w_c = torch.zeros(ne_pad + 1, dtype=w_dtype, device=dev)
+    src_c.index_copy_(0, slot, srcs)
+    ckey_c.index_copy_(0, slot, flat_d)
+    w_c.index_copy_(0, slot, flat_w.to(w_dtype))
+    return src_c[:ne_pad], ckey_c[:ne_pad], w_c[:ne_pad], present.sum()

@@ -49,7 +49,10 @@ What does not carry over, by design:
   every graph, so every graph is one class (``"float64"``).  The serving
   queue still bins by the reference's tag (``serve/queue.py::
   accum_tag``), which now decides binning only.
-- The ``msd``/``hash`` coalesce engines.
+
+A batch coalesces with ``kernels/seg_coalesce.batched_coalesce_engine``:
+``CUVITE_SEG_COALESCE=msd`` and ``=hash`` both run the msd engine on the
+whole batch, as the reference sends ``hash`` to ``msd`` under ``vmap``.
 
 The batch axis over several devices (reference ``:531-550, 713-730,
 809-817``).  :func:`make_batch_mesh` spans the largest power-of-two
@@ -146,6 +149,7 @@ from cuvite_tpu_torch.louvain.step import louvain_step_local
 from cuvite_tpu_torch.obs.convergence import decode_phase_conv
 from cuvite_tpu_torch.ops.segment import TenantConstants
 from cuvite_tpu_torch.utils.trace import NullTracer
+from cuvite_tpu_torch.utils.upload import finish_uploads, to_device
 
 # Serving-coarse slab-class floors of the bucketed engine's one-notch
 # shrink after phase 0 (reference ``:395-396``).
@@ -407,7 +411,8 @@ class BatchResult:
     coarse_class: tuple | None = None
     pack_s: float = 0.0    # host pack, plan build and upload
     device_s: float = 0.0  # the phases and the final label gather
-    # Coalesce engine of each batch coarsening ('dense' or 'sort').
+    # Coalesce engine of each batch coarsening ('dense', 'sort' or
+    # 'msd').
     coalesce: list = dataclasses.field(default_factory=list)
     # Sweeps of each batch phase (its slowest tenant's).
     sweeps: list = dataclasses.field(default_factory=list)
@@ -535,10 +540,10 @@ def _prepare_block(batch: BatchedSlab, engine: str, bucket_shape, dev,
     stream = _upload_stream(dev) if side else None
 
     def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if side:
-            return t.pin_memory().to(dev, non_blocking=True)
-        return t.to(dev)
+        # Pinned and in flight on the current stream (the side stream
+        # under the pipelined dispatcher); on the CPU the tensors alias
+        # the batch's arrays, which the phases only read.
+        return to_device(a, device=dev)
 
     b = batch.b_pad
     ready = None
@@ -554,6 +559,8 @@ def _prepare_block(batch: BatchedSlab, engine: str, bucket_shape, dev,
         if side:
             ready = torch.cuda.Event()
             ready.record(stream)
+        else:
+            finish_uploads(dev)
     if side:
         # The pack window ends with the upload done (the pinned buffers
         # are free to go); the executor still orders itself after it.

@@ -97,6 +97,11 @@ from cuvite_tpu_torch.kernels.row_argmax import (
 )
 from cuvite_tpu_torch.ops import segment as seg
 from cuvite_tpu_torch.ops.segment import TenantConstants
+from cuvite_tpu_torch.utils.upload import (
+    aligned_full,
+    aligned_zeros,
+    to_device,
+)
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 384, 512, 768, 1024, 1536,
                    2048, 3072, 4096, 6144, 8192)
@@ -165,19 +170,19 @@ class BucketPlan:
             nb = len(sel)
             # Row counts pad to a power of two; padding rows use nv_local.
             nb_pad = 1 << int(nb - 1).bit_length() if nb > 1 else 1
-            verts = np.full(nb_pad, nv_local, dtype=np.int64)
+            verts = aligned_full(nb_pad, nv_local, np.int64)
             verts[:nb] = sel
-            dmat = np.zeros((nb_pad, width), dtype=dst.dtype)
+            dmat = aligned_zeros((nb_pad, width), dst.dtype)
             cols = np.arange(width)
             idx = row_start[sel][:, None] + cols[None, :]
             has = cols[None, :] < deg[sel][:, None]
             idx = np.minimum(idx, max(len(d) - 1, 0))
             dmat[:nb] = np.where(has, d[idx], (sel + base)[:, None])
             if unit:
-                wmat = np.zeros((nb_pad, width), dtype=np.uint8)
+                wmat = aligned_zeros((nb_pad, width), np.uint8)
                 wmat[:nb] = has
             else:
-                wmat = np.zeros((nb_pad, width), dtype=w.dtype)
+                wmat = aligned_zeros((nb_pad, width), w.dtype)
                 wmat[:nb] = np.where(has, ww[idx], 0.0)
             buckets.append(Bucket(width=width, verts=verts, dst=dmat,
                                   w=wmat))
@@ -190,9 +195,9 @@ class BucketPlan:
             hs, hd, hw = s[hmask], d[hmask], ww[hmask]
             n = len(hs)
             npad = max(int(2 ** np.ceil(np.log2(max(n, 1)))), 8)
-            heavy_src = np.full(npad, nv_local, dtype=src.dtype)
-            heavy_dst = np.zeros(npad, dtype=dst.dtype)
-            heavy_w = np.zeros(npad, dtype=w.dtype)
+            heavy_src = aligned_full(npad, nv_local, src.dtype)
+            heavy_dst = aligned_zeros(npad, dst.dtype)
+            heavy_w = aligned_zeros(npad, w.dtype)
             heavy_src[:n] = hs
             heavy_dst[:n] = hd
             heavy_w[:n] = hw
@@ -252,16 +257,18 @@ def _build_native(src, dst, w, nv_local: int, base: int):
                        for n in counts[kept]], dtype=np.int64)
     widths_kept = widths[kept]
     wm_dtype = np.uint8 if unit else w.dtype
-    verts = [np.full(n, nv_local, dtype=np.int64) for n in nb_pad]
-    dmats = [np.zeros((n, width), dtype=dst.dtype)
+    # The O(E) matrices 64-byte aligned, as the reference allocates them
+    # (utils/upload.py).
+    verts = [aligned_full(n, nv_local, np.int64) for n in nb_pad]
+    dmats = [aligned_zeros((n, width), dst.dtype)
              for n, width in zip(nb_pad, widths_kept)]
-    wmats = [np.zeros((n, width), dtype=wm_dtype)
+    wmats = [aligned_zeros((n, width), wm_dtype)
              for n, width in zip(nb_pad, widths_kept)]
     n_h = int(deg[heavy].sum())
     heavy_pad = max(int(2 ** np.ceil(np.log2(max(n_h, 1)))), 8)
-    heavy_src = np.full(heavy_pad, nv_local, dtype=src.dtype)
-    heavy_dst = np.zeros(heavy_pad, dtype=dst.dtype)
-    heavy_w = np.zeros(heavy_pad, dtype=w.dtype)
+    heavy_src = aligned_full(heavy_pad, nv_local, src.dtype)
+    heavy_dst = aligned_zeros(heavy_pad, dst.dtype)
+    heavy_w = aligned_zeros(heavy_pad, w.dtype)
     native.bucket_fill(dst, w, nv_local, base, row_start, deg, cls,
                        widths_kept, nb_pad, verts, dmats, wmats, unit,
                        heavy_pad, heavy_src, heavy_dst, heavy_w)
@@ -375,6 +382,27 @@ class DevicePlan:
     heavy: HeavyLayout | None     # hub layout, None without hubs
     self_loop: torch.Tensor       # [nv_local] f32
     perm: torch.Tensor            # [nv_local] int64 assembly gather
+    # Host facts for the kernel-coverage accounting: the width of each
+    # bucket and the real edges of its rows, in bucket order, and the
+    # hubs' edges.
+    widths: list = dataclasses.field(default_factory=list)
+    bucket_edges: list = dataclasses.field(default_factory=list)
+    hub_edges: int = 0
+
+    def coverage(self) -> list:
+        """(width, edges, kernelized) of each class this plan's sweep
+        traverses, width 0 the hubs (the reference's per-class coverage,
+        ``driver.py:1118-1138``).  The flags follow the route the sweep
+        takes: every bucket goes through the row kernel (the one-device
+        and mesh steps launch it, or its size form, for each), and the
+        hubs through the heavy kernel exactly when the plan carries their
+        layout; without it (the sparse exchange) they ride the sorted
+        path in plain PyTorch."""
+        cov = [(w, e, True) for w, e in zip(self.widths, self.bucket_edges)
+               if e]
+        if self.hub_edges:
+            cov.append((0, self.hub_edges, self.heavy is not None))
+        return cov
 
     @staticmethod
     def upload(plan: BucketPlan, device, base: int = 0,
@@ -386,21 +414,26 @@ class DevicePlan:
         ``nv_total``: the kernels then address its rows and hubs by their
         padded-global ids (``perm`` stays local).  ``hubs=False`` leaves
         the hub layout out (the sparse exchange sweeps its hubs on the
-        sorted path)."""
+        sorted path).  The arrays go through ``utils/upload.to_device``:
+        on the card the copies are left in flight on the current stream
+        (``finish_uploads`` waits for them), on the CPU the tensors alias
+        the plan's arrays, which no sweep writes."""
         def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                device).to(dtype)
+            return to_device(a, dtype, device)
 
         nv = plan.nv_local
-        buckets, real_verts = [], []
+        buckets, real_verts, widths, edges = [], [], [], []
         for b in plan.buckets:
             nb = int(np.count_nonzero(b.verts < nv))
             v = b.verts[:nb]
             real_verts.append(v)
+            deg = plan.deg[v]
+            widths.append(b.width)
+            edges.append(int(deg.sum()))
             buckets.append((put(v + base, torch.int32),
                             put(b.dst[:nb], torch.int32),
                             put(b.w[:nb], torch.float32),
-                            put(plan.deg[v], torch.int32)))
+                            put(deg, torch.int32)))
         heavy = None
         if hubs:
             hsrc, n = plan.heavy_src, nv
@@ -415,6 +448,8 @@ class DevicePlan:
             heavy=None if heavy is None else heavy.to(device),
             self_loop=put(plan.self_loop, torch.float32),
             perm=put(build_assemble_perm(real_verts, nv), torch.int64),
+            widths=widths, bucket_edges=edges,
+            hub_edges=int(plan.deg.sum()) - sum(edges),
         )
 
 
@@ -629,6 +664,22 @@ def build_mesh_class_plans(dg, class_of: np.ndarray, n_classes: int,
         [[] for _ in range(n_classes)]
 
 
+def merge_coverage(entries) -> list:
+    """(width, edges, kernelized) entries summed by width and flag: the
+    buckets in ``DEFAULT_BUCKETS`` order, the hubs (width 0) last."""
+    tot: dict = {}
+    for w, e, k in entries:
+        tot[(w, bool(k))] = tot.get((w, bool(k)), 0) + e
+    return [(w, e, k) for (w, k), e in sorted(
+        tot.items(), key=lambda it: (it[0][0] == 0, it[0][0], it[0][1]))]
+
+
+def plans_coverage(plans: list) -> list:
+    """:meth:`DevicePlan.coverage` of plans swept together: a color
+    schedule's class plans, a mesh's local shards."""
+    return merge_coverage(e for p in plans for e in p.coverage())
+
+
 @dataclasses.dataclass
 class MeshPlan:
     """A phase's plans on the shards of a mesh, in the kernels' dtypes.
@@ -700,10 +751,10 @@ class MeshPlan:
                 plans.append(DevicePlan.upload(p, dev, hubs=False))
                 real = p.heavy_src < nv_pad
                 heavy.append(tuple(
-                    torch.from_numpy(np.ascontiguousarray(a[real])).to(
-                        dev, dt) for a, dt in ((p.heavy_src, torch.int32),
-                                               (p.heavy_dst, torch.int32),
-                                               (p.heavy_w, torch.float32))))
+                    to_device(a[real], dt, dev)
+                    for a, dt in ((p.heavy_src, torch.int32),
+                                  (p.heavy_dst, torch.int32),
+                                  (p.heavy_w, torch.float32))))
             else:
                 plans.append(DevicePlan.upload(p, dev, base=s * nv_pad,
                                                nv_total=nv_total))

@@ -12,7 +12,11 @@ phases and 10,000 iterations.
 Engines (``engine=``): ``'bucketed'`` (and ``'auto'``, as in the
 reference, ``driver.py:1866``) sweeps the degree-bucketed plan on the
 row-argmax and heavy-bincount kernels, builds each phase's plan on the
-host and coarsens on the host.  ``'sort'`` keeps the edge slab on the
+host and coarsens on the host.  ``'pallas'`` is the reference's name for
+its bucketed engine with the classes up to ``PALLAS_MAX_WIDTH`` (2048)
+routed through its row kernel; the port's row kernel already serves every
+width, so ``'pallas'`` runs the bucketed engine, routes nothing by width
+and has no ``CUVITE_PALLAS_MAX``.  ``'sort'`` keeps the edge slab on the
 card, sweeps it with ``louvain_step_local`` and coarsens it on the card
 (``coarsen/device.py``, the ``seg_coalesce`` kernel for classes with
 nv_pad <= 4096): phases after the first get their graph from that device
@@ -55,6 +59,18 @@ Differences from the reference, by design rather than fault:
   is f64 on the port, so there is no ds32 mode to route to the sort.
 - The class schedules' convergence rows carry real moved counts (the
   reference leaves them untracked: it would cost it a sync).
+- Kernel coverage (``LouvainResult.pallas_coverage`` and
+  ``pallas_width_hits``, the reference's accounting, ``driver.py:
+  1117-1138,2200-2240``): every bucketed or pallas run carries it, since
+  every one sweeps its classes on the hand kernels (on the CPU their
+  twins).  A class counts as kernelized by the route its sweep takes
+  (``DevicePlan.coverage``): every bucket width, the wide ones above
+  2048 included, and the hubs when the heavy kernel takes them (not on
+  the sparse exchange, whose hubs ride the sorted path).  The reference
+  flags only widths up to 2048 and, on a mesh, never the hubs, and
+  counts class-scheduled phases as unkernelized; the port's class steps
+  launch the row kernel, so they count.  Per width the traversed edges
+  are the reference's; only the flags differ.
 
 Device re-binning (reference ``driver.py:810-858``): in the bucketed
 engine every phase after the first whose class the reference would
@@ -181,6 +197,8 @@ from cuvite_tpu_torch.louvain.bucketed import (
     build_class_plans,
     build_mesh_class_plans,
     build_stacked_plans,
+    merge_coverage,
+    plans_coverage,
     sharded_bucketed_modularity,
     sharded_bucketed_step,
 )
@@ -198,8 +216,9 @@ from cuvite_tpu_torch.utils.trace import (
     ShardDiag,
     dist_stats_report,
 )
+from cuvite_tpu_torch.utils.upload import finish_uploads, to_device
 
-ENGINES = ("bucketed", "sort", "fused")
+ENGINES = ("bucketed", "sort", "fused", "pallas")
 
 # Edge count from which the fused engine runs one phase per call and
 # coarsens the slab on the device before the next: phase p then costs
@@ -259,8 +278,9 @@ class PhaseStats:
     # in the host read of Q), evaluate (the reported Q), coarsen
     # (coarsening after the phase; not part of ``seconds``).
     stages: dict = dataclasses.field(default_factory=dict)
-    # Coalesce engine of the device coarsening after this phase ('dense'
-    # or 'sort'); None when the phase was not coarsened on the device.
+    # Coalesce engine of the device coarsening after this phase ('dense',
+    # 'sort', 'msd' or 'hash'); None when the phase was not coarsened on
+    # the device.
     coalesce: str | None = None
 
 
@@ -280,6 +300,12 @@ class LouvainResult:
     # A mesh run's first phase: its exchange plan's stats(), or
     # {"mode": "replicated"}; None on one shard.
     exchange_stats: dict | None = None
+    # Kernel coverage (module note): the share of the traversed edges
+    # (edges x sweeps, summed over phases) whose class a hand kernel
+    # swept, and the traversed edges of each kernelized class ({width:
+    # edges}, width 0 the hubs); None on the sort and fused engines.
+    pallas_coverage: float | None = None
+    pallas_width_hits: dict | None = None
 
     @property
     def num_communities(self) -> int:
@@ -324,6 +350,7 @@ class PhaseRunner:
         elif rebin:
             with tracer.stage("upload", into=stages):
                 slab = dg.device_slab(self.device)
+                finish_uploads(self.device)
             with tracer.stage("rebin", into=stages):
                 self.plan = device_plan(*slab, nv_local=nv)
                 if self.device.type == "cuda":
@@ -341,6 +368,8 @@ class PhaseRunner:
                 self.device)
             self.constant = TenantConstants.of(
                 1.0 / dg.graph.total_edge_weight_twice(), self.device)
+            # The stage ends with every copy above done.
+            finish_uploads(self.device)
         self.labels_dev = None    # device labels of the last run()
         self.convergence = None   # PhaseConvergence of the last run()
         tracer.ledger_phase_begin()
@@ -348,6 +377,14 @@ class PhaseRunner:
         tracer.track("tables", self.vdeg, self.comm0, self.real_mask,
                      self.constant)
         tracer.track("plans", self.plan, self.class_plans)
+
+    def coverage(self) -> list | None:
+        """(width, edges, kernelized) of the classes a sweep of this phase
+        traverses (``DevicePlan.coverage``); None on the sort engine,
+        whose sweep runs no hand kernel."""
+        plans = self.class_plans or ([self.plan] if self.plan is not None
+                                     else [])
+        return plans_coverage(plans) if plans else None
 
     def step(self, comm: torch.Tensor):
         if self.plan is None:
@@ -423,7 +460,7 @@ class MeshPhaseRunner:
                 raise ValueError(
                     "exchange='twolevel' needs a 2-D hybrid mesh "
                     "(comm.mesh.make_hybrid_mesh)")
-            if engine != "bucketed":
+            if engine not in ("bucketed", "pallas"):
                 raise ValueError("exchange='twolevel' runs on the bucketed "
                                  "engine only")
             if classes is not None:
@@ -448,7 +485,7 @@ class MeshPhaseRunner:
         self.constant = 1.0 / dg.graph.total_edge_weight_twice()
         if engine == "sort":
             with tracer.stage("upload", into=stages):
-                self.slabs = [tuple(torch.from_numpy(a).to(d, dt)
+                self.slabs = [tuple(to_device(a, dt, d)
                                     for a, dt in ((sh.src, torch.int32),
                                                   (sh.dst, torch.int32),
                                                   (sh.w, torch.float32)))
@@ -488,12 +525,30 @@ class MeshPhaseRunner:
                             xplan=xplan, budget=self.budget or 0,
                             shared=(self.class_plans[0] if self.class_plans
                                     else None)))
+        with tracer.stage("upload", into=stages):
+            for d in set(mesh.devices):
+                finish_uploads(d)
         self.labels_dev = None    # per-shard labels of the last run()
         self.convergence = None
         tracer.ledger_phase_begin()
         tracer.track("slab", self.slabs)
         tracer.track("tables", self.vdeg, self.comm0, self.real_mask)
         tracer.track("plans", self.plan, self.class_plans)
+
+    def coverage(self) -> list | None:
+        """(width, edges, kernelized) of the classes a sweep traverses on
+        every shard of the mesh, this rank's and the others' (one host
+        all-gather under a process group); None on the sort engine."""
+        if self.slabs is not None:
+            return None
+        cov = plans_coverage([p for mp in self.class_plans or [self.plan]
+                              for p in mp.plans])
+        if not multihost.is_distributed():
+            return cov
+        flat = np.asarray(cov, dtype=np.int64).reshape(-1)
+        return merge_coverage(
+            e for part in multihost.allgather_varlen(flat)
+            for e in part.reshape(-1, 3).tolist())
 
     def step(self, comms: list):
         if self.plan is None:
@@ -804,7 +859,7 @@ def louvain_phases(
             raise ValueError(
                 f"nshards={nshards} does not match the DistVite partition "
                 f"({graph.nshards} shards; per-rank ingest needs >= 2)")
-        if engine not in ("auto", "bucketed"):
+        if engine not in ("auto", "bucketed", "pallas"):
             raise ValueError(
                 "per-rank ingest supports only the bucketed engine")
         if exchange == "auto":
@@ -840,7 +895,7 @@ def louvain_phases(
                 raise ValueError(
                     "the two-level exchange does not support coloring/"
                     "vertex-ordering yet (use a flat mesh)")
-            if engine not in ("auto", "bucketed"):
+            if engine not in ("auto", "bucketed", "pallas"):
                 raise ValueError("the two-level exchange runs on the "
                                  "bucketed engine only")
     elif mesh is not None:
@@ -871,9 +926,12 @@ def louvain_phases(
     if engine == "auto":
         engine = "bucketed"
     if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}: the port has 'auto', "
-                         "'bucketed', 'sort' and 'fused'; the reference's "
-                         "'pallas' engine is not ported (ROADMAP.md A8)")
+        raise ValueError(f"unknown engine {engine!r}: use 'auto', "
+                         "'bucketed', 'pallas', 'sort' or 'fused'")
+    # The reference's kernel engine is the bucketed one here (module note).
+    pallas = engine == "pallas"
+    if pallas:
+        engine = "bucketed"
     if et_mode not in (0, 1, 2, 3, 4):
         raise ValueError(f"et_mode must be 0-4, got {et_mode!r}")
     if engine == "fused" and (et_mode or coloring or vertex_ordering
@@ -941,6 +999,10 @@ def louvain_phases(
     phases: list[PhaseStats] = []
     convergence: list = []
     rebinned: list = []
+    # Kernel coverage over the traversed edges (reference
+    # driver.py:1935-1945,2207-2240).
+    cov_num = cov_den = cov_pending = 0
+    width_hits: dict = {}
     prev_mod = -1.0
     tot_iters = 0
     t_start = time.perf_counter()
@@ -1058,6 +1120,22 @@ def louvain_phases(
                         time.perf_counter() - t1)
         tot_iters += iters
         tracer.count("traversed_edges", g_ne * iters)
+        cov = runner.coverage()
+        if cov is not None:
+            if not pallas and cov_den == 0:
+                # Phases before the first that swept a kernel count as
+                # unkernelized mass (reference driver.py:2208-2215).
+                cov_den += cov_pending
+            for w, n, k in cov:
+                cov_den += n * iters
+                if k:
+                    cov_num += n * iters
+                    width_hits[w] = width_hits.get(w, 0) + n * iters
+            _report_coverage(cov, pallas, verbose)
+        elif pallas or cov_den:
+            cov_den += g_ne * iters
+        else:
+            cov_pending += g_ne * iters
         tracer.ledger_snapshot(phase)
         if dist_stats:
             print(dist_stats_report(dg, runner.ghost_counts
@@ -1165,7 +1243,27 @@ def louvain_phases(
         convergence=convergence,
         rebinned_phases=rebinned,
         exchange_stats=exchange_stats,
+        pallas_coverage=(cov_num / cov_den) if cov_den else None,
+        pallas_width_hits=width_hits or None,
     )
+
+
+def _report_coverage(cov: list, pallas: bool, verbose: bool) -> None:
+    """The reference's per-phase coverage print (``verbose``) and its
+    warning when a pallas phase sweeps under half of its edges on a
+    kernel (``driver.py:1132-1138``)."""
+    total = max(sum(n for _, n, _ in cov), 1)
+    share = sum(n for _, n, k in cov if k) / total
+    if verbose:
+        det = " ".join(f"{'heavy' if w == 0 else w}:{n}{'*' if k else ''}"
+                       for w, n, k in cov)
+        print(f"pallas kernel coverage: {100 * share:.1f}% of edges "
+              f"(per-width, * = kernel: {det})")
+    if pallas and share < 0.5:
+        warnings.warn(
+            f"engine='pallas': only {100 * share:.0f}% of edges are in "
+            "kernel-covered classes; the hubs of the sparse exchange run "
+            "the sorted path", stacklevel=3)
 
 
 def _diag_phase(diag, dg, runner, phase: int, iters: int, q: float,
@@ -1214,6 +1312,7 @@ def _run_fused(graph: Graph, *, threshold: float, threshold_cycling: bool,
     with tracer.stage("upload"):
         slab = dg.device_slab(device)
         real_mask = torch.from_numpy(dg.vertex_mask()).to(device)
+        finish_uploads(device)
     tracer.ledger_phase_begin()
     tracer.track("slab", slab)
     tracer.track("tables", real_mask)

@@ -15,14 +15,16 @@ f32 sums bit for bit.  ``modularity_terms`` accumulates in f64 too.
 ``sort_edges_by_vertex_comm`` always packs ``(src << kbits) | key`` into an
 int64 key (torch has int64 everywhere, so the reference's int32 packing and
 two-operand variadic fallback have no use) and sorts it with a stable
-``torch.sort``.  Not ported: the ``msd`` two-pass sort (``:168``) and the
-``hash`` coalesce engine (``kernels/seg_coalesce.py:335-427``); the port's
-coalesce has the ``sort`` and ``dense`` engines.
+``torch.sort``.  ``sort_edges_msd`` is the reference's big-class sort: two
+stable int32 passes where the packed key needs more than 31 bits.
 
 ``coalesced_runs_batched`` coalesces B tenants' slabs ``[B, ne_pad]`` in
-one pass (one packed-key sort keyed by (tenant, src, key), or one
-``seg_coalesce`` pipeline), each tenant compacted into its own slab
-prefix; one slab's ``coalesced_runs`` is a batch of one.
+one pass, each tenant compacted into its own slab prefix, by one of four
+engines: ``sort`` (one packed-key sort keyed by (tenant, src, key)),
+``msd`` (the same order from ``sort_edges_msd``), ``dense`` (one
+``seg_coalesce`` pipeline) and, for one slab, ``hash``
+(``kernels/seg_coalesce.hash_accumulate``, one counted host read of its
+collision flag).  One slab's ``coalesced_runs`` is a batch of one.
 """
 
 from __future__ import annotations
@@ -153,10 +155,40 @@ def run_totals(w_s: torch.Tensor, starts: torch.Tensor) -> tuple:
     return totals[run_id].to(w_s.dtype), run_id
 
 
+def sort_edges_msd(src: torch.Tensor, ckey: torch.Tensor, w: torch.Tensor,
+                   *, nv_pad: int, src_bound: int | None = None) -> tuple:
+    """Stable sort of the slab by (src, ckey) as two stable int32 sorts
+    (reference ``:168``).  Pass 1 sorts by ``(src_low << kbits) | ckey``,
+    ``src_low`` the low ``31 - kbits`` bits of src; pass 2 sorts that
+    order stably by ``src >> (31 - kbits)``, so the result is
+    lexicographic (src_hi, src_low, ckey) = (src, ckey): the packed sort's
+    order, ties kept in slab order.  ``ckey`` < nv_pad; ``src`` <
+    ``src_bound`` (default nv_pad + 1, the padding rows' nv_pad included;
+    a batch passes its folded bound).  Where kbits + sbits <= 31 one pass
+    does it, and the packed sort runs instead; a key space past 31 bits
+    on its own also goes to the (int64) packed sort.  Returns (src_s,
+    ckey_s, w_s)."""
+    src_bound = nv_pad + 1 if src_bound is None else int(src_bound)
+    kbits = max(nv_pad - 1, 1).bit_length()
+    sbits = max(src_bound - 1, 1).bit_length()
+    s_low = 31 - kbits
+    if kbits + sbits <= 31 or s_low <= 0 or sbits - s_low > 31:
+        return sort_edges_by_vertex_comm(src, ckey, w, src_bound=src_bound,
+                                         key_bound=nv_pad)
+    low = (src & ((1 << s_low) - 1)).to(torch.int32)
+    key1 = (low << kbits) | ckey.to(torch.int32)
+    _, o1 = torch.sort(key1, stable=True)
+    del key1, low
+    hi = (src[o1] >> s_low).to(torch.int32)
+    _, o2 = torch.sort(hi, stable=True)
+    order = o1[o2]
+    return src[order], ckey[order], w[order]
+
+
 def coalesced_runs(src: torch.Tensor, ckey: torch.Tensor, w: torch.Tensor,
                    *, nv_pad: int, engine: str = "sort") -> tuple:
     """Segmented coalesce of one slab by (src, ckey) (reference ``:261``):
-    :func:`coalesced_runs_batched` of a batch of one.  Returns
+    :func:`coalesced_runs_batched` of a batch of one, any engine.  Returns
     ``(src_c, ckey_c, w_c, n)``: [ne_pad] arrays with the real rows in
     [0, n) and padding after; ``n`` is a Python int."""
     src_c, ckey_c, w_c, n = coalesced_runs_batched(
@@ -213,7 +245,12 @@ def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
 
     ``engine='sort'``: one stable sort of the folded key
     ((b * nv_pad + src) << kbits) | ckey, the run sums and an emission
-    with no host read (:func:`compact_batched`).
+    with no host read (:func:`compact_batched`).  ``engine='msd'``: the
+    same order and tail from :func:`sort_edges_msd`'s two int32 passes,
+    no host read either.  ``engine='hash'`` (one slab, B == 1): the slot
+    table of ``kernels/seg_coalesce.hash_accumulate``, one host read of
+    its collision flag, then either ``hash_emit`` or, after a collision,
+    the msd tail; sums in f64 rounded once, like the others.
     ``engine='dense'``: the ``seg_coalesce`` pipeline on the card (rows
     bucketed by (tenant, src) and deduplicated by dst, no host sync) or
     its dense twin on the CPU, ``grid`` a power of two above every real
@@ -233,18 +270,61 @@ def coalesced_runs_batched(src: torch.Tensor, ckey: torch.Tensor,
 
         return seg_coalesce(src, ckey, w, nv_pad=nv_pad,
                             grid=nv_pad if grid is None else grid)
-    if engine != "sort":
+    if engine == "hash":
+        hashed = _hash_coalesce(src, ckey, w, nv_pad=nv_pad)
+        if hashed is not None:
+            return hashed
+        engine = "msd"   # a collision: the msd tail, counted
+    if engine not in ("sort", "msd"):
         raise ValueError(f"coalesced_runs: unknown engine {engine!r} (the "
-                         "port has 'sort' and 'dense'; 'msd' and 'hash' "
-                         "are not ported, see ROADMAP.md A5)")
+                         "port has 'sort', 'msd', 'dense' and 'hash')")
     folded = b * nv_pad
     base = torch.arange(b, device=src.device)[:, None] * nv_pad
     src_f = torch.where(src < nv_pad, src.long() + base, folded)
-    src_s, ckey_s, w_s = sort_edges_by_vertex_comm(
-        src_f.reshape(-1), ckey.reshape(-1), w.reshape(-1),
-        src_bound=folded + 1, key_bound=nv_pad)
+    if engine == "msd":
+        src_s, ckey_s, w_s = sort_edges_msd(
+            src_f.reshape(-1), ckey.reshape(-1), w.reshape(-1),
+            nv_pad=nv_pad, src_bound=folded + 1)
+    else:
+        src_s, ckey_s, w_s = sort_edges_by_vertex_comm(
+            src_f.reshape(-1), ckey.reshape(-1), w.reshape(-1),
+            src_bound=folded + 1, key_bound=nv_pad)
     run_w, _ = run_totals(w_s, run_starts(src_s, ckey_s))
     last = torch.ones_like(src_s, dtype=torch.bool)
     last[:-1] = (src_s[1:] != src_s[:-1]) | (ckey_s[1:] != ckey_s[:-1])
     return compact_batched(last & (src_s < folded), src_s, ckey_s, run_w,
                            n_tenants=b, ne_pad=ne_pad, nv_pad=nv_pad)
+
+
+def _hash_coalesce(src: torch.Tensor, ckey: torch.Tensor, w: torch.Tensor,
+                   *, nv_pad: int):
+    """The hash engine on one slab ([1, ne_pad]; reference ``:333-364``):
+    the slot table in one scatter pass, then one host read of its
+    collision flag.  Returns the coalesced rows as
+    :func:`coalesced_runs_batched` does, or None after a collision (the
+    caller runs the msd tail).  ``kernels.seg_coalesce.HASH_STATS`` counts
+    the coalescings, collisions and host reads."""
+    from cuvite_tpu_torch.kernels.seg_coalesce import (
+        HASH_STATS,
+        hash_accumulate,
+        hash_emit,
+        hash_slots,
+    )
+
+    b, ne_pad = src.shape
+    if b != 1:
+        raise ValueError(f"coalesced_runs: the hash engine coalesces one "
+                         f"slab, not {b} (batched_coalesce_engine sends "
+                         "batches to 'msd')")
+    k = hash_slots(nv_pad, ne_pad)
+    wsum, cnt, dmin, dmax = hash_accumulate(src[0], ckey[0], w[0],
+                                            nv_pad=nv_pad, k=k)
+    HASH_STATS["coalescings"] += 1
+    HASH_STATS["host_reads"] += 1
+    # A slot that two distinct dst hash to cannot emit.  The one host read:
+    if bool(((cnt > 0) & (dmin != dmax)).any()):
+        HASH_STATS["collisions"] += 1
+        return None
+    src_c, ckey_c, w_c, n = hash_emit(wsum, cnt, dmin, nv_pad=nv_pad,
+                                      ne_pad=ne_pad, k=k, w_dtype=w.dtype)
+    return src_c[None], ckey_c[None], w_c[None], n.reshape(1)

@@ -66,6 +66,7 @@ from cuvite_tpu_torch.stream.delta import (
 )
 from cuvite_tpu_torch.utils.checkpoint import graph_fingerprint
 from cuvite_tpu_torch.utils.trace import NullTracer
+from cuvite_tpu_torch.utils.upload import to_device
 
 WARM_MODES = ("labels", "plp", "cold")
 
@@ -98,12 +99,11 @@ def canonical_slab(graph) -> tuple:
 
 def _upload(arrays, dev: torch.device) -> list:
     """Equal-length int32 / f32 host arrays as tensors on ``dev``, in one
-    copy from pinned memory that makes the host wait for nothing (the
-    f32 arrays travel as their bits)."""
+    copy (``utils/upload.to_device``: from pinned memory, making the host
+    wait for nothing; on the CPU aliasing the packed copy, which is this
+    function's own).  The f32 arrays travel as their bits."""
     packed = np.stack([a.view(np.int32) for a in arrays])
-    t = torch.from_numpy(packed)
-    if dev.type == "cuda":
-        t = t.pin_memory().to(dev, non_blocking=True)
+    t = to_device(packed, device=dev)
     return [t[i].view(torch.float32) if a.dtype == np.float32 else t[i]
             for i, a in enumerate(arrays)]
 

@@ -1,5 +1,8 @@
 """Workloads CLI (port of ``cuvite_tpu/workloads/__main__.py``).
 
+    python -m cuvite_tpu_torch.workloads fetch com-orkut --dest DIR
+    python -m cuvite_tpu_torch.workloads fetch --list
+    python -m cuvite_tpu_torch.workloads convert in.txt.gz --out out.vite
     python -m cuvite_tpu_torch.workloads synth --edges 1e6 [--many K]
     python -m cuvite_tpu_torch.workloads synth --edges 1e6 --churn 0.01
     python -m cuvite_tpu_torch.workloads bench --graph rmat --scale 20
@@ -12,13 +15,15 @@
 ``bench`` forwards its arguments to ``workloads/bench.py`` and prints
 exactly one JSON line on stdout (progress on stderr), or none with exit
 code 3 (a build or load inside the guarded run) or 4 (an invalid
-record).  Every command runs on the CUDA card unless given ``--device
-cpu``.  ``synth --churn FRAC`` also writes the deterministic churn stream
-against the graph it wrote (``<out>.churn.npz`` and its provenance), the
-input of ``bench --churn-frac``'s warm-start arms.  ``fetch`` and
-``convert`` (the dataset catalogue and the format converters) are not
-ported yet and are refused with exit code 2 (``ROADMAP.md`` queue A item
-9).
+record).  Every command that clusters runs on the CUDA card unless given
+``--device cpu``.  ``synth --churn FRAC`` also writes the deterministic
+churn stream against the graph it wrote (``<out>.churn.npz`` and its
+provenance), the input of ``bench --churn-frac``'s warm-start arms.
+``fetch`` downloads, verifies and converts a catalogued dataset
+(``workloads/registry.py``), or without a network writes its synthesized
+stand-in and says so; ``convert`` turns a SNAP, Matrix Market or METIS
+file into a Vite file (``workloads/convert.py``).  Each prints one JSON
+line, and every file written sits beside a ``.provenance.json``.
 """
 
 from __future__ import annotations
@@ -29,10 +34,37 @@ import sys
 
 DEFAULT_DATA_DIR = "workloads_data"
 
-_NOT_PORTED = {
-    "fetch": "the dataset catalogue and fetch (ROADMAP.md queue A item 9)",
-    "convert": "the format converters (ROADMAP.md queue A item 9)",
-}
+
+def _cmd_fetch(args) -> int:
+    from cuvite_tpu_torch.workloads.registry import DATASETS, fetch
+
+    if args.list:
+        for name, ds in sorted(DATASETS.items()):
+            print(f"{name}: |V|={ds.num_vertices} "
+                  f"|E|={ds.num_edges_undirected} (undirected) "
+                  f"fmt={ds.fmt} sha256={'pinned' if ds.sha256 else 'TOFU'}")
+        return 0
+    payload = fetch(args.name, args.dest,
+                    offline_fallback=not args.no_offline_fallback,
+                    synth_edges=args.synth_edges,
+                    keep_download=args.keep_download)
+    print(json.dumps({"source": payload["source"],
+                      "result": payload.get("result")}))
+    return 0
+
+
+def _cmd_convert(args) -> int:
+    from cuvite_tpu_torch.workloads.convert import convert
+    from cuvite_tpu_torch.workloads.synth import write_provenance
+
+    stats = convert(args.input, args.out, fmt=args.format,
+                    bits64=args.bits64, symmetrize=args.symmetrize,
+                    relabel=args.relabel)
+    write_provenance(args.out, {"source": "converted",
+                                "input": args.input,
+                                "result": stats.to_dict()})
+    print(json.dumps(stats.to_dict()))
+    return 0
 
 
 def _cmd_synth(args) -> int:
@@ -108,12 +140,24 @@ def _cmd_verify_golden(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from cuvite_tpu_torch.workloads.convert import FORMATS
     from cuvite_tpu_torch.workloads.golden import DEFAULT_GOLDEN_PATH
     from cuvite_tpu_torch.workloads.synth import PROFILES
 
     p = argparse.ArgumentParser(prog="python -m cuvite_tpu_torch.workloads",
                                 description=__doc__.split("\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    f = sub.add_parser("fetch", help="download, verify and convert a "
+                                     "dataset (offline: synthesize a "
+                                     "stand-in)")
+    f.add_argument("name", nargs="?", default="")
+    f.add_argument("--dest", default=DEFAULT_DATA_DIR)
+    f.add_argument("--list", action="store_true")
+    f.add_argument("--no-offline-fallback", action="store_true")
+    f.add_argument("--synth-edges", type=float, default=None,
+                   help="edge count of the offline stand-in")
+    f.add_argument("--keep-download", action="store_true")
 
     s = sub.add_parser("synth", help="synthesize a power-law community "
                                      "graph as a Vite file")
@@ -141,6 +185,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "splitmix64 streams with one set-level "
                         "provenance file")
 
+    c = sub.add_parser("convert", help="convert SNAP/MTX/METIS to Vite")
+    c.add_argument("input")
+    c.add_argument("--out", required=True)
+    c.add_argument("--format", default="auto",
+                   choices=("auto",) + tuple(FORMATS))
+    c.add_argument("--bits64", action="store_true")
+    c.add_argument("--symmetrize", default="auto",
+                   choices=["auto", "yes", "no"])
+    c.add_argument("--relabel", default=None,
+                   choices=[None, "auto", "none", "dense"])
+
     sub.add_parser("bench", help="guarded TEPS bench (arguments pass "
                                  "through; see bench --help)",
                    add_help=False)
@@ -152,7 +207,7 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--file", required=True, help="Vite graph file")
     v.add_argument("--bits64", action="store_true")
     v.add_argument("--engine", default="auto",
-                   choices=["auto", "bucketed", "sort", "fused"])
+                   choices=["auto", "bucketed", "pallas", "sort", "fused"])
     v.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     v.add_argument("--truth", default=None,
@@ -170,13 +225,15 @@ def main(argv=None) -> int:
         from cuvite_tpu_torch.workloads.bench import main as bench_main
 
         return bench_main(argv[1:])
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"# {argv[0]}: not ported yet: {_NOT_PORTED[argv[0]]}",
-              file=sys.stderr)
-        return 2
     args = build_parser().parse_args(argv)
+    if args.cmd == "fetch":
+        if not args.name and not args.list:
+            raise SystemExit("fetch: dataset name required (or --list)")
+        return _cmd_fetch(args)
     if args.cmd == "synth":
         return _cmd_synth(args)
+    if args.cmd == "convert":
+        return _cmd_convert(args)
     return _cmd_verify_golden(args)
 
 

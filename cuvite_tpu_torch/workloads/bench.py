@@ -647,6 +647,14 @@ def run_bench(
             # on the device.
             out["rebin_device"] = round(
                 tr.counters.get("rebin_device_phases", 0) / rb_total, 4)
+        if res.pallas_coverage is not None:
+            # Kernel coverage (the reference's record keys): the share of
+            # the traversed edges the hand kernels swept, and the
+            # traversed edges of each kernelized class by width.
+            out["pallas_coverage"] = round(float(res.pallas_coverage), 4)
+            out["pallas_width_hits"] = {
+                str(w): int(n)
+                for w, n in sorted(res.pallas_width_hits.items())}
         if not compile_guard["checked"]:
             out["compile_included"] = True
         if all_teps:
@@ -1318,7 +1326,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--edge-factor", type=int,
                    default=int(env.get("BENCH_EF", "16")))
     p.add_argument("--engine", default=env.get("BENCH_ENGINE", "auto"),
-                   choices=["auto", "bucketed", "sort", "fused"])
+                   choices=["auto", "bucketed", "pallas", "sort", "fused"])
     p.add_argument("--repeats", type=int,
                    default=int(env.get("BENCH_REPEATS", "3")))
     p.add_argument("--budget", type=float,

@@ -1262,3 +1262,85 @@ def test_stream_session_on_card_matches_cpu(cuda_device):
                      warm.communities.tolist(), plp.communities.tolist(),
                      s.tw2, s.fingerprint))
     assert runs[0] == runs[1]
+
+
+def _big_class_slab(nv_pad, ne_pad, seed):
+    """A relabeled slab of a big class: a seventh of the rows padding,
+    runs at both ends of the id space, dyadic weights."""
+    rng = np.random.default_rng(seed)
+    n_real = ne_pad - ne_pad // 7
+    src = np.full(ne_pad, nv_pad, np.int32)
+    dst = np.zeros(ne_pad, np.int32)
+    w = np.zeros(ne_pad, np.float32)
+    src[:n_real] = rng.integers(0, nv_pad, n_real)
+    dst[:n_real] = rng.integers(0, max(nv_pad // 64, 1), n_real)
+    src[:4] = [nv_pad - 1, nv_pad - 1, 0, 0]
+    dst[:4] = [nv_pad - 1, nv_pad - 1, nv_pad - 1, 0]
+    w[:n_real] = rng.integers(1, 64, n_real) / 8.0
+    return src, dst, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["msd", "hash"])
+@pytest.mark.parametrize("nv_pad", [1 << 16, 1 << 20])
+def test_big_class_engines_on_card_match_cpu(cuda_device, engine, nv_pad,
+                                             monkeypatch):
+    """The msd and hash coalesce on the card give the CPU's rows bit for
+    bit and the sort engine's; the hash engine reads one flag on the
+    host, the msd engine none.  With one slot a src the hash engine
+    collides and retries on the msd tail."""
+    from cuvite_tpu_torch.kernels import seg_coalesce as sc
+    from cuvite_tpu_torch.ops import segment as seg
+
+    for slots in (None, "1"):
+        if slots is None:
+            monkeypatch.delenv("CUVITE_HASH_SLOTS", raising=False)
+        else:
+            monkeypatch.setenv("CUVITE_HASH_SLOTS", slots)
+        src, dst, w = (torch.from_numpy(a)[None] for a in
+                       _big_class_slab(nv_pad, 1 << 17, nv_pad))
+        cpu = seg.coalesced_runs_batched(src, dst, w, nv_pad=nv_pad,
+                                         engine=engine)
+        sort = seg.coalesced_runs_batched(src, dst, w, nv_pad=nv_pad)
+        args = [t.to(cuda_device) for t in (src, dst, w)]
+        sc.zero_hash_stats()
+        if engine == "msd":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            card = seg.coalesced_runs_batched(*args, nv_pad=nv_pad,
+                                              engine=engine)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for a, b, c in zip(card, cpu, sort):
+            assert torch.equal(a.cpu(), b) and torch.equal(b, c)
+        reads = 1 if engine == "hash" else 0
+        assert sc.HASH_STATS["host_reads"] == reads
+        if slots == "1" and engine == "hash":
+            assert sc.HASH_STATS["collisions"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nshards,exchange", [(1, "auto"), (4, "sparse"),
+                                              (4, "replicated")])
+def test_pallas_engine_on_card_matches_cpu(cuda_device, nshards, exchange):
+    """engine='pallas' on the card: the CPU's labels, sweeps and Q, the
+    bucketed run's on the card, and the same coverage."""
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.comm.mesh import make_mesh
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    g = generate_rmat(12, edge_factor=8, seed=3)
+    kw = dict(nshards=nshards, exchange=exchange)
+    card_kw = (dict(kw, device=cuda_device) if nshards == 1 else
+               dict(kw, mesh=make_mesh(devices=[cuda_device] * nshards)))
+    rg = louvain_phases(g, engine="pallas", **card_kw)
+    rb = louvain_phases(g, engine="bucketed", **card_kw)
+    rc = louvain_phases(g, engine="pallas", device="cpu", **kw)
+    for r in (rb, rc):
+        assert np.array_equal(rg.communities, r.communities)
+        assert [p.iterations for p in rg.phases] == \
+            [p.iterations for p in r.phases]
+        assert abs(rg.modularity - r.modularity) <= 1e-9
+        assert (rg.pallas_coverage, rg.pallas_width_hits) == \
+            (r.pallas_coverage, r.pallas_width_hits)
+    assert rg.pallas_coverage == 1.0

@@ -292,4 +292,8 @@ def test_sort_engine_with_cycling_and_unknown_engine(karate, monkeypatch):
                         threshold_cycling=True, device="cpu")
     _assert_same_run(jr, tr)
     with pytest.raises(ValueError, match="unknown engine"):
-        louvain_phases(_port_graph(karate), engine="pallas", device="cpu")
+        louvain_phases(_port_graph(karate), engine="xla", device="cpu")
+    # 'pallas', the reference's kernel engine, runs the bucketed engine.
+    tp = louvain_phases(_port_graph(karate), engine="pallas", device="cpu")
+    _assert_same_run(jax_louvain(karate, engine="pallas"), tp)
+    assert tp.pallas_coverage == 1.0

@@ -255,6 +255,10 @@ with multihost.fail_together():
         "global": multihost.gather_global(
             np.full(2, r, dtype=np.int32)).tolist(),
         "refused": refused}))
+    # The mesh holds the group: drop it before the group goes, or the
+    # group object outlives it into interpreter exit, where its
+    # destruction aborts the rank (status -6) now and then.
+    del mesh
     multihost.shutdown()
 """
 

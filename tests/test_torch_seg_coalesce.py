@@ -188,9 +188,16 @@ def test_slab_ne_max_guard(monkeypatch):
             seg.coalesced_runs(src, dst, w, nv_pad=64, engine=engine)
     with pytest.raises(ValueError, match="SLAB_NE_MAX"):
         seg.run_totals(w, torch.ones(256, dtype=torch.bool))
-    with pytest.raises(ValueError, match="not ported"):
-        seg.coalesced_runs(src[:64], dst[:64], w[:64], nv_pad=64,
-                           engine="msd")
+    # The msd and hash engines keep the same guard, and run below it.
+    for engine in ("msd", "hash"):
+        with pytest.raises(ValueError, match="SLAB_NE_MAX"):
+            seg.coalesced_runs(src, dst, w, nv_pad=64, engine=engine)
+        got = seg.coalesced_runs(src[:64], dst[:64], w[:64], nv_pad=64,
+                                 engine=engine)
+        ref = seg.coalesced_runs(src[:64], dst[:64], w[:64], nv_pad=64)
+        assert got[3] == ref[3]
+        for g, r in zip(got[:3], ref[:3]):
+            assert torch.equal(g, r)
 
 
 def test_cpu_tensors_run_the_twin_without_a_launch():
@@ -215,12 +222,29 @@ def test_coalesce_engine_policy(monkeypatch):
     monkeypatch.setenv("CUVITE_SEG_COALESCE_MAX_NV", "8192")
     assert sc.coalesce_engine(8192) == "dense"
     assert sc.coalesce_engine(16384) == "sort"
+    # A malformed or out-of-range cap warns and keeps the default, as the
+    # reference's env_int does.
     for bad in ("65536", "0", "many"):
         monkeypatch.setenv("CUVITE_SEG_COALESCE_MAX_NV", bad)
-        with pytest.raises(ValueError, match="MAX_NV"):
-            sc.coalesce_engine(64)
+        with pytest.warns(UserWarning, match="MAX_NV"):
+            assert sc.coalesce_engine(4096) == "dense"
+        with pytest.warns(UserWarning, match="MAX_NV"):
+            assert sc.coalesce_engine(8192) == "sort"
     monkeypatch.delenv("CUVITE_SEG_COALESCE_MAX_NV")
-    for bad in ("msd", "hash", "pallas"):
+    # The reference's words: its dense names take the port's dense
+    # policy, msd and hash their engines; an unknown word warns and keeps
+    # the default.
+    for mode, small, big in (("msd", "msd", "msd"), ("hash", "hash", "hash"),
+                             ("pallas", "dense", "sort"),
+                             ("xla", "dense", "sort"),
+                             ("1", "dense", "sort"), ("true", "dense", "sort"),
+                             ("0", "sort", "sort"), ("false", "sort", "sort")):
+        monkeypatch.setenv("CUVITE_SEG_COALESCE", mode)
+        assert (sc.coalesce_engine(64), sc.coalesce_engine(8192)) == \
+            (small, big), mode
+    for bad in ("radix", "dense2"):
         monkeypatch.setenv("CUVITE_SEG_COALESCE", bad)
-        with pytest.raises(ValueError, match="not ported"):
-            sc.coalesce_engine(64)
+        with pytest.warns(UserWarning, match="CUVITE_SEG_COALESCE"):
+            assert sc.coalesce_engine(64) == "dense"
+        with pytest.warns(UserWarning, match="CUVITE_SEG_COALESCE"):
+            assert sc.coalesce_engine(8192) == "sort"
