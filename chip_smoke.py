@@ -8,7 +8,8 @@
     python3 chip_smoke.py --only-multiprocess    # phases 1, 30, 35's
                                                  # colored run, 36's 2x2
                                                  # run, 33, 34 (and 36's
-                                                 # batch over the cards)
+                                                 # batch and 38's ladder
+                                                 # over the cards)
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 imports nothing of JAX or of cuvite_tpu, catches no failure, and exits
@@ -159,8 +160,8 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    pass's launches equal to phase 17's), and the serving bench at 200
    jobs/s (jobs conserved);
    each record valid, with a checked guard, platform cuda and phase 1's
-   card and power limit; then run_mixed_serve_bench on phase 20's 90:10
-   pools, merge off and on (the merged arm merges), and the guard on the
+   card and power limit (run_mixed_serve_bench on phase 20's 90:10 pools
+   runs once, in phase 38's serve_load mix); then the guard on the
    card: run_bench with its first timed run pointed at an emptied build
    directory must raise BenchCompileGuardError;
 23. the command line: ``-n 65536 -e 10 --json --trace-out --metrics-out
@@ -281,9 +282,9 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    same batch with mesh="auto" against card 0 alone.  Phase 33's world
    also runs the 2x2 mesh against phase 36's run, and each rank times
    the ICI all-gather and the DCN ghost-pull all_to_all.
-37. (run after 36, before 33-34) the last runtime modules: R-MAT --scale
-   written as a SNAP list and converted (``workloads.convert``; seconds
-   and MB/s of text), then louvain_phases(engine="pallas") and
+37. (run after 36, before 33-34) the last runtime modules: R-MAT
+   CONVERT_SCALE (18) written as a SNAP list and converted
+   (``workloads.convert``; seconds and MB/s of text), then louvain_phases(engine="pallas") and
    engine="bucketed" on the converted file -- labels, phases, sweeps and
    Q bits equal, Q within 1e-6 of the host f64 Q, the coverage and the
    traversed edges by width printed, fails unless the row and heavy
@@ -299,6 +300,29 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    host read, and the three engines timed; the B=64 synth 65536 batch
    (phase 36's jobs) under msd on both engines, every tenant equal to the
    default run.
+38. (run after 37, before 33-34) the six drivers of
+   cuvite_tpu_torch.tools in one child process on the card (each
+   module's main(argv), a call a verb; the spawned daemon and
+   exchange_bench's two configurations in processes of their own):
+   serve_load sweep, ab, pipeab and daemon on synth 4096 at b_max 16 (the
+   saturation rate, the ab and pipeab verdicts with both arms' pack,
+   device and overlap seconds, the daemon's SLO row at 64 jobs/s and its
+   clean SIGTERM drain) and mix on phase 20's 90:10 pools at 2,000
+   jobs/s (its verdict; the merged arm must merge) -- every record valid,
+   with a checked guard, on phase 1's card; exchange_latency on 4 shards of the card and on a
+   2x2 mesh (launch latencies, the crossover bracket against
+   AUTO_SPARSE_MIN_VERTICES, the ladder from 256 KB a shard);
+   exchange_bench at R-MAT 18 on 4 shards (both arms, equal labels, the
+   sparse/replicated ratio); step_bench and trace_step at R-MAT 18 (step
+   and CUDA-event ms; the top five device kernels, which must include the
+   row kernel); weighted_ingest_bench at scale 18 (the builder and its
+   seconds).  Fails if a call returns non-zero -- but an A/B verb (ab,
+   pipeab, mix) may return 1 beside a verdict whose acceptance does not
+   hold: its exit status must be its verdict's, which is printed either
+   way, and a false verdict is a measurement, not a failure -- or unless
+   serve_load counted row and seg_coalesce launches and step_bench row
+   launches.  With two or more cards, --only-multiprocess ends with
+   exchange_latency --world min(cards, 4), one NCCL rank a card.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -2529,11 +2553,6 @@ def check_guard_trip(scale: int) -> None:
 
 def run_bench_phase(card: tuple, scale: int, main_res, paths: dict) -> dict:
     """Phase 22.  Returns the launch counts of the bench paths."""
-    from cuvite_tpu_torch.workloads.bench import (
-        run_mixed_serve_bench,
-        validate_record,
-    )
-
     out = {}
     main_launches = paths[f"bucketed R-MAT {scale}"]
     what = f"bench R-MAT {scale}"
@@ -2589,26 +2608,6 @@ def run_bench_phase(card: tuple, scale: int, main_res, paths: dict) -> dict:
             + c["inflight"] == c["submitted"]):
         fail(f"{what}: conservation {c}")
     print(f"  {what}: conservation {c}")
-
-    for merge in (False, True):
-        what = (f"run_mixed_serve_bench, 90:10 pools at 2000 jobs/s, merge "
-                f"{'on' if merge else 'off'}")
-        zero_kernel_counts()
-        t0 = time.perf_counter()
-        rec = run_mixed_serve_bench(
-            rate=2000.0, merge_packing=merge, b_max=4, small_edges=1024,
-            big_scale=13, big_edge_factor=2, n_small=72, n_big=8,
-            slo_ms=500.0, linger_ms=20.0, engine="bucketed",
-            t_start=time.perf_counter())
-        wall = time.perf_counter() - t0
-        out[what] = kernel_counts()
-        problems = validate_record(rec)
-        if problems or rec["compile_guard"]["new_compiles"] != 0:
-            fail(f"{what}: invalid record {problems}")
-        if merge and rec["mix"]["merged_batches"] < 1:
-            fail(f"{what}: the merged arm packed no merged batch")
-        print_record(what, rec, wall)
-        print(f"    launches (warm-up included) {out[what]}")
 
     check_guard_trip(14)
     return out
@@ -4492,8 +4491,14 @@ def convert_timed(path: str, out: str, **kw) -> tuple:
     return stats, time.perf_counter() - t0
 
 
+# R-MAT scale of phase 37's SNAP conversion and its pallas and bucketed
+# runs: 18, not --scale's 20, whose conversion and runs took ~66 s of
+# the smoke's 1200 s limit on an H100 host.
+CONVERT_SCALE = 18
+
+
 def run_converted(g_rmat, scale: int, work: str) -> dict:
-    """Phase 37 (1): R-MAT --scale written as a SNAP list, converted, and
+    """Phase 37 (1): R-MAT ``scale`` written as a SNAP list, converted, and
     run with engine='pallas' against engine='bucketed' on the file."""
     import torch
 
@@ -4737,6 +4742,375 @@ def check_batch_msd(gs: list, kind: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 38: the drivers (cuvite_tpu_torch/tools), in one child process.
+
+TOOL_TIMEOUT_S = 600
+TOOL_SCALE = 18      # R-MAT scale of step_bench, trace_step and the ingest
+DAEMON_RATE = 64     # jobs/s: about half of the synth 4096 saturation
+SERVE_BASE = ["--edges", "4096", "--b-max", "16", "--jobs", "128",
+              "--start-rate", "50", "--max-rounds", "8"]
+
+
+def verdict_of(stdout: str) -> dict | None:
+    """The ``{"verdict": ...}`` an A/B verb prints last, or None."""
+    lines = [s for s in stdout.splitlines() if s.startswith("{")]
+    return json.loads(lines[-1]).get("verdict") if lines else None
+
+
+def verdict_rc_ok(call: dict, rc, stdout: str) -> bool:
+    """Whether an A/B verb's exit status is the one its verdict gives: 0
+    when the acceptance holds, 1 when it does not (a measurement, not a
+    failure)."""
+    v = verdict_of(stdout) if call.get("verdict") else None
+    return v is not None and (rc or 0) == (0 if v["acceptance"] else 1)
+
+
+def tool_worker(spec_json: str) -> int:
+    """``--tool-worker SPEC``: the drivers' calls in this one process,
+    ``cuvite_tpu_torch.tools.<name>.main(argv)`` for each (``SPEC``: a
+    JSON list of {"name", "argv", "env", "verdict"}, ``env`` set around
+    its call), each call's stdout and stderr captured; stops at the
+    first call that does not return 0, an A/B verb (``verdict``) whose
+    exit status is its verdict's excepted.  Prints one JSON list of
+    {name, argv, rc, stdout, stderr, wall} as its last line."""
+    import contextlib
+    import importlib
+    import io
+
+    results = []
+    for call in json.loads(spec_json):
+        mod = importlib.import_module(
+            f"cuvite_tpu_torch.tools.{call['name']}")
+        env = call.get("env") or {}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = mod.main(call["argv"])
+            except SystemExit as exc:
+                rc = exc.code
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        results.append({"name": call["name"], "argv": call["argv"],
+                        "rc": rc or 0, "stdout": out.getvalue(),
+                        "stderr": err.getvalue(),
+                        "wall": time.perf_counter() - t0})
+        if rc and not verdict_rc_ok(call, rc, out.getvalue()):
+            break
+    print(json.dumps(results))
+    return 0
+
+
+def tool_child(calls: list, env: dict | None = None,
+               timeout: int = TOOL_TIMEOUT_S) -> list:
+    """The drivers' ``calls`` ([name, argv, env, verdict]) in one child on
+    the card (``tool_worker``), each ``cuvite_tpu_torch.tools.<name>
+    .main(argv)``; fails unless the child ends within ``timeout`` and
+    every call returns 0 -- an A/B verb (``verdict``) may return 1 beside
+    a verdict whose acceptance does not hold, which is printed and is not
+    a failure.  Returns, per call, (the JSON objects of its stdout, its
+    stdout, its stderr, wall s)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = [{"name": n, "argv": a, "env": e or {}, "verdict": v}
+            for n, a, e, v in calls]
+    try:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tool-worker",
+             json.dumps(spec)], cwd=root, capture_output=True, text=True,
+            timeout=timeout, env=dict(os.environ, **(env or {})))
+    except subprocess.TimeoutExpired:
+        fail(f"the drivers' child: no exit within {timeout} s")
+    if out.returncode or not out.stdout.strip():
+        fail(f"the drivers' child exited {out.returncode}:\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    got = []
+    for call, r in zip(spec, json.loads(out.stdout.strip().splitlines()[-1])):
+        if r["rc"] and not verdict_rc_ok(call, r["rc"], r["stdout"]):
+            fail(f"tools.{r['name']} {' '.join(r['argv'])} returned "
+                 f"{r['rc']}:\n{r['stdout'][-3000:]}\n{r['stderr'][-3000:]}")
+        objs = [json.loads(s) for s in r["stdout"].splitlines()
+                if s.startswith("{")]
+        got.append((objs, r["stdout"], r["stderr"], r["wall"]))
+    if len(got) != len(calls):
+        fail(f"the drivers' child ran {len(got)} of {len(calls)} calls")
+    return got
+
+
+def tool_launches(err: str) -> dict:
+    """The ``# launches: {...}`` line a serve_load verb writes to
+    stderr."""
+    for line in err.splitlines():
+        if line.startswith("# launches: "):
+            return json.loads(line[len("# launches: "):])
+    fail("serve_load wrote no launch counts")
+
+
+def check_records(what: str, objs: list, card: tuple) -> list:
+    """The bench records among a verb's lines: each valid, on phase 1's
+    card."""
+    from cuvite_tpu_torch.workloads.bench import validate_record
+
+    recs = [o for o in objs if "metric" in o]
+    if not recs:
+        fail(f"{what}: no record")
+    for rec in recs:
+        problems = validate_record(rec)
+        if problems:
+            fail(f"{what}: invalid record {problems}")
+        if rec["compile_guard"] != {"checked": True, "new_compiles": 0}:
+            fail(f"{what}: guard {rec['compile_guard']}")
+        if (rec["platform"], rec["device"], rec["power_limit_w"]) != \
+                ("cuda", *card):
+            fail(f"{what}: record on {rec['platform']} {rec['device']} "
+                 f"{rec['power_limit_w']} W, not phase 1's card {card}")
+    return recs
+
+
+def tool_calls() -> list:
+    """Phase 38's calls, in order: serve_load sweep, ab and pipeab (512
+    jobs an arm, the reference's ab default) on synth 4096 at b_max 16
+    (128 jobs a sweep round from 50 jobs/s: a round's goodput counts its
+    drain tail, 0.05-0.17 s on an H100's host, so a first round at 100
+    jobs/s can fall under 0.9x its rate and end the verb with "even 100
+    jobs/s overloads" while the queue sustains 160; from 50 the tail
+    must pass 0.28 s for that; the sweep's saturation, the best round's
+    goodput, still sits near the queue's capacity and ab's 2x and
+    pipeab's 1.5x overload it; on an H100's host ab at
+    1,024 jobs took 17 s against 9 s at 512 and missed the SLO all the
+    same: the job count does not decide its verdict), mix on phase 20's 90:10 pools (2,000 jobs/s,
+    b_max 4, bucketed) and daemon at DAEMON_RATE;
+    exchange_latency on 4 shards of one card, flat and 2x2;
+    exchange_bench at R-MAT 18 on 4 shards; step_bench, trace_step and
+    weighted_ingest_bench at TOOL_SCALE."""
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke", "trace")
+    scale = {"AB_SCALE": str(TOOL_SCALE)}
+    return [
+        ("serve_load", ["sweep", *SERVE_BASE], None, False),
+        ("serve_load", ["ab", *SERVE_BASE, "--growth", "1.6",
+                        "--ab-jobs", "512"], None, True),
+        ("serve_load", ["pipeab", *SERVE_BASE, "--growth", "1.6",
+                        "--ab-jobs", "512"], None, True),
+        ("serve_load", ["mix", "--engine", "bucketed", "--rate", "2000",
+                        "--b-max", "4"], None, True),
+        ("serve_load", ["daemon", "--edges", "4096", "--b-max", "16",
+                        "--jobs", "64", "--rate", str(DAEMON_RATE),
+                        "--ready-timeout", "180", "--drain-timeout", "120"],
+         None, False),
+        ("exchange_latency", ["--devices", str(MESH_SHARDS), "--max-log2",
+                              "22", "--json"], None, False),
+        ("exchange_latency", ["--mesh", "2x2", "--max-log2", "22",
+                              "--json"], None, False),
+        ("exchange_bench", [],
+         {"AB_SCALES": "18", "AB_SHARDS": str(MESH_SHARDS),
+          "AB_CHILD_TIMEOUT": "240"}, False),
+        ("step_bench", [], scale, False),
+        ("trace_step", [], dict(scale, TRACE_DIR=work), False),
+        ("weighted_ingest_bench", [str(TOOL_SCALE)], None, False),
+    ]
+
+
+def report_ab(verb: str, got, card: tuple, arm: str) -> tuple:
+    """An A/B verb's two records, each valid on phase 1's card, printed
+    with its head line and verdict; returns (the records, the launches)."""
+    objs, _, err, wall = got
+    recs = check_records(f"serve_load {verb}", objs, card)
+    launches = tool_launches(err)
+    print(f"  serve_load {verb}: {len(recs)} valid records, {wall:.1f} s; "
+          f"{json.dumps(objs[-4])}; verdict "
+          f"{json.dumps(objs[-1]['verdict'])}; launches {launches}")
+    for rec in recs:
+        s = rec["serve"]
+        print(f"    {arm} {s[arm]}: offered {s['arrival_jobs_per_s']} "
+              f"jobs/s, goodput {s['goodput_jobs_per_s']}, wait p95 "
+              f"{s['wait_p95_ms']} ms, rejected {s['rejected']}, pack "
+              f"{s['pack_s']} s, device {s['device_s']} s, overlap_frac "
+              f"{s['overlap_frac']}, wall {s['wall_s']} s")
+    return recs, launches
+
+
+def report_serve(card: tuple, sweep, ab, pipeab, mix, daemon) -> dict:
+    paths = {}
+    objs, _, err, wall = sweep
+    launches = tool_launches(err)
+    print(f"  serve_load sweep (synth 4096, b_max 16, 128 jobs a round "
+          f"from 50 jobs/s, x1.6): saturation "
+          f"{objs[-1]['saturation_jobs_per_s']} jobs/s at wait p95 "
+          f"{objs[-1]['wait_p95_ms']} ms (SLO {objs[-1]['slo_ms']} ms), "
+          f"{len(objs) - 1} rounds, {wall:.1f} s; launches {launches}")
+    for r in objs[:-1]:
+        print(f"    {json.dumps(r)}")
+    if launches["seg_coalesce"] == 0 or launches["row_argmax"] == 0:
+        fail(f"serve_load sweep: a kernel of the serving path never "
+             f"launched {launches}")
+    paths["tools serve_load sweep, synth 4096 b_max 16"] = launches
+    _, paths["tools serve_load ab, synth 4096 b_max 16"] = report_ab(
+        "ab", ab, card, "admission")
+    recs, paths["tools serve_load pipeab, synth 4096 b_max 16"] = report_ab(
+        "pipeab", pipeab, card, "pipelined")
+    ser, pip = (r["serve"] for r in recs)
+    print(f"    pipelined arm's device_s {pip['device_s']} s against the "
+          f"serial arm's {ser['device_s']} s "
+          f"({pip['device_s'] - ser['device_s']:+.4f} s), with "
+          f"{pip['overlap_frac'] * pip['device_s']:.4f} s of pack inside "
+          "its execute windows; pack_s "
+          f"{pip['pack_s']} s against {ser['pack_s']} s")
+    objs, _, err, wall = mix
+    recs = check_records("serve_load mix", objs, card)
+    launches = tool_launches(err)
+    paths["tools serve_load mix, 90:10 pools at 2000 jobs/s"] = launches
+    print(f"  serve_load mix (72 synth 1024 : 8 R-MAT 13 ef 2, 2000 jobs/s, "
+          f"b_max 4, bucketed): {wall:.1f} s; verdict "
+          f"{json.dumps(objs[-1]['verdict'])}; launches {launches}")
+    if recs[-1]["mix"]["merged_batches"] < 1:
+        fail("serve_load mix: the merged arm packed no merged batch")
+    objs, _, err, wall = daemon
+    row, launches = objs[-1], tool_launches(err)
+    print(f"  serve_load daemon at {DAEMON_RATE} jobs/s: {json.dumps(row)}; "
+          f"{wall:.1f} s with the daemon's start; launches {launches}")
+    if not (row["clean_drain"] and row["daemon_rc"] == 0
+            and row["conservation"]["ok"] and row["done"] == 64):
+        fail(f"serve_load daemon: {row}")
+    if launches["seg_coalesce"] == 0:
+        fail(f"serve_load daemon: seg_coalesce never launched {launches}")
+    paths[f"tools serve_load daemon, 64 synth 4096 at {DAEMON_RATE} "
+          "jobs/s"] = launches
+    return paths
+
+
+def table_rows(stdout: str) -> tuple:
+    """(the ladder rows, the transport model rows) an exchange_latency
+    run prints, each [n, times...]; the model follows its
+    ``# modeled`` line."""
+    rows, model, into = [], [], None
+    for line in stdout.splitlines():
+        if line.startswith("# modeled"):
+            into = model
+        parts = line.split()
+        if line.startswith("  ") and parts and parts[0].isdigit():
+            (rows if into is None else into).append(
+                [int(parts[0])] + [float(x) for x in parts[1:]])
+    return rows, model
+
+
+def print_ladder(stdout: str, names: str) -> None:
+    rows, model = table_rows(stdout)
+    print(f"    n/shard (f32): {names} (min wall s, synchronized)")
+    for r in rows:
+        if r[0] >= 1 << 16 or r[0] == 128:
+            print(f"    {r[0]:>8} ({r[0] * 4 / 1e6:7.3f} MB): "
+                  + " ".join(f"{t:.3e}" for t in r[1:]))
+    if model:
+        print("    modeled sweep transport, nv_total: replicated s, sparse s")
+        for r in model:
+            if r[0] >= 1 << 18:
+                print(f"    {r[0]:>10}: {r[1]:.3e} {r[2]:.3e}")
+
+
+def print_latency(what: str, v: dict, wall: float) -> None:
+    print(f"  exchange_latency {what} ({wall:.1f} s): launch latency "
+          + ", ".join(f"{k} {t * 1e6:.1f} us"
+                      for k, t in v["launch_latency_s"].items())
+          + (f"; crossover bracket nv {v['crossover_bracket_nv']}"
+             if "crossover_bracket_nv" in v else
+             f"; modeled sweep {v['modeled_iteration_s']}")
+          + f"; {v['note']}")
+
+
+def report_exchange(flat, mesh, bench) -> dict:
+    from cuvite_tpu_torch.louvain.driver import AUTO_SPARSE_MIN_VERTICES
+
+    print(f"  AUTO_SPARSE_MIN_VERTICES {AUTO_SPARSE_MIN_VERTICES}")
+    print_latency(f"{MESH_SHARDS} shards of one card", flat[0][-1], flat[3])
+    print_ladder(flat[1], "all_gather psum all_to_all")
+    print_latency("--mesh 2x2", mesh[0][-1], mesh[3])
+    print_ladder(mesh[1], "ag(ici) psum(ici) ag(global) a2a(dcn)")
+    objs, out, _, wall = bench
+    got = objs[-1]
+    arms = {r["exchange"]: r for r in got["rows"]}
+    if set(arms) != {"replicated", "sparse"} or "18" not in \
+            got["sparse_over_replicated"]:
+        fail(f"exchange_bench: missing an arm {out[-2000:]}")
+    if arms["sparse"]["labels"] != arms["replicated"]["labels"]:
+        fail("exchange_bench: the arms' labels differ")
+    if arms["sparse"]["launches"]["row_argmax_sized"] == 0:
+        fail("exchange_bench: the sparse arm never launched the size form")
+    for ex, r in arms.items():
+        print(f"  exchange_bench R-MAT 18, {MESH_SHARDS} shards of one card, "
+              f"{ex}: wall {r['wall_s']:.3f} s (timed run), Q "
+              f"{r['modularity']:.6f}, {r['iterations']} sweeps, peak RSS "
+              f"{r['rss_hwm_mib']} MiB, max_memory_allocated "
+              f"{r['peak_alloc_bytes']} B, launches {r['launches']}")
+    print(f"  exchange_bench sparse/replicated at R-MAT 18: "
+          f"{got['sparse_over_replicated']['18']:.3f}x ({wall:.1f} s "
+          "with both children)")
+    return {f"tools exchange_bench R-MAT 18 {MESH_SHARDS} shards {ex}":
+            r["launches"] for ex, r in arms.items()}
+
+
+def report_step(step, trace, ingest) -> dict:
+    s, wall = step[0][-1], step[3]
+    if not s["device_ms"] or s["launches"]["row_argmax"] == 0:
+        fail(f"step_bench: no device time or no row launch {s}")
+    print(f"  step_bench R-MAT {TOOL_SCALE} ({wall:.1f} s): plan+upload "
+          f"{s['plan_upload_s']:.3f} s, first call {s['first_call_s']:.3f} "
+          f"s, scalar round trip {s['rtt_ms']:.4f} ms, step+fetch "
+          f"{s['step_fetch_ms']:.4f} ms, device (CUDA events) "
+          f"{s['device_ms']:.4f} ms a sweep, {s['medges_per_s']:.1f} M "
+          f"edges/s; launches over 5 sweeps {s['launches']}")
+    t, wall = trace[0][-1], trace[3]
+    print(f"  trace_step R-MAT {TOOL_SCALE} ({wall:.1f} s): device self "
+          f"time over {t['steps']} sweeps {t['self_s'] * 1e3:.3f} ms; top "
+          "five:")
+    for r in t["top"][:5]:
+        print(f"    {r['self_ms']:9.4f} ms {r['count']:5d}x  "
+              f"{r['name'][:100]}")
+    if t["rows_on"] != "device" or not any(
+            "row_argmax" in r["name"] for r in t["top"]):
+        fail("trace_step: the row kernel is not among the top device rows")
+    w, wall = ingest[0][-1], ingest[3]
+    print(f"  weighted_ingest_bench scale {TOOL_SCALE} ({wall:.1f} s): path "
+          f"{w['path']}, nv {w['nv']}, ne {w['ne']}, {w['wdtype']}, gen "
+          f"{w['gen_s']:.3f} s, build {w['build_s']:.3f} s, upload "
+          f"{w['upload_s']:.3f} s, peak RSS {w['total_hwm_mib']} MiB")
+    return {f"tools step_bench R-MAT {TOOL_SCALE} (5 sweeps)": s["launches"],
+            f"tools trace_step R-MAT {TOOL_SCALE} (3 sweeps)": t["launches"]}
+
+
+def run_tools(card: tuple) -> dict:
+    """Phase 38: the six drivers in one child, then each one's numbers
+    and checks."""
+    t0 = time.perf_counter()
+    got = tool_child(tool_calls())
+    print(f"  the drivers' child took {time.perf_counter() - t0:.1f} s (the "
+          "daemon and exchange_bench's two configurations in processes of "
+          "their own)")
+    paths = report_serve(card, *got[0:5])
+    paths.update(report_exchange(*got[5:8]))
+    paths.update(report_step(*got[8:11]))
+    return paths
+
+
+def run_tool_world(cards: list) -> None:
+    """``exchange_latency --world min(cards, 4)``: one NCCL rank a card,
+    the cards' links."""
+    world = min(len(cards), MAX_WORLD)
+    (objs, out, _, wall), = tool_child(
+        [("exchange_latency", ["--world", str(world), "--max-log2", "22",
+                               "--json"], None, False)],
+        env={"CUDA_VISIBLE_DEVICES": ",".join(cards[:world]),
+             "NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo"},
+        timeout=700)
+    print_latency(f"--world {world}", objs[-1], wall)
+    print_ladder(out, "all_gather psum all_to_all")
+
+
 def run_multiprocess_only(args, cards: list) -> int:
     """``--only-multiprocess``: phase 30's, 35's colored and 36's 2x2
     one-process runs as the reference, then phases 33-34, then on a host
@@ -4767,6 +5141,9 @@ def run_multiprocess_only(args, cards: list) -> int:
     if len(cards) >= 2:
         print("[36] the batch axis over the cards: mesh='auto'")
         run_batch_auto(cards, "serving 65536")
+        print(f"[38] the collective ladder as {min(len(cards), MAX_WORLD)} "
+              "NCCL ranks, one a card")
+        run_tool_world(cards)
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4802,11 +5179,14 @@ def main() -> int:
     ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--batch-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tool-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         return rank_worker(args.rank_worker)
     if args.batch_worker:
         return batch_worker(args.batch_worker)
+    if args.tool_worker:
+        return tool_worker(args.tool_worker)
 
     # The run uses one card: show torch only that one, so the device count
     # on the last line is the count the run used.  Phases 33-34 start their
@@ -5200,13 +5580,20 @@ def main() -> int:
     print(f"[37] the last runtime modules: the converters, "
           f"engine='pallas' and its coverage, the msd and hash coalesce "
           f"engines")
-    paths.update(run_converted(g_rmat, args.scale, work))
+    paths.update(run_converted(generate_rmat(CONVERT_SCALE), CONVERT_SCALE,
+                               work))
     paths.update(check_converted_formats(args.check_scale, work))
     paths.update(run_coalesce_engines(g_rgg, args.rgg_nv, sort_res))
     del g_rgg, sort_res
     paths.update(check_batch_msd(gs, "serving 65536"))
     del gs
     print(f"  phase 37 took {time.perf_counter() - t37:.1f} s")
+
+    t38 = time.perf_counter()
+    print("[38] the drivers (cuvite_tpu_torch.tools) on the card, in one "
+          "child process")
+    paths.update(run_tools(card))
+    print(f"  phase 38 took {time.perf_counter() - t38:.1f} s")
 
     paths.update(run_multiprocess(g_rmat, args.scale, S, cards,
                                   one_process))

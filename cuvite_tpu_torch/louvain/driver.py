@@ -461,8 +461,9 @@ class MeshPhaseRunner:
                     "exchange='twolevel' needs a 2-D hybrid mesh "
                     "(comm.mesh.make_hybrid_mesh)")
             if engine not in ("bucketed", "pallas"):
-                raise ValueError("exchange='twolevel' runs on the bucketed "
-                                 "engine only")
+                raise ValueError(
+                    "exchange='twolevel' runs on the bucketed/pallas "
+                    "engines only")
             if classes is not None:
                 raise ValueError(
                     "exchange='twolevel' does not support the coloring/"
@@ -897,7 +898,7 @@ def louvain_phases(
                     "vertex-ordering yet (use a flat mesh)")
             if engine not in ("auto", "bucketed", "pallas"):
                 raise ValueError("the two-level exchange runs on the "
-                                 "bucketed engine only")
+                                 "bucketed/pallas engines only")
     elif mesh is not None:
         n_dcn = hybrid_shape(mesh)[0]
     if exchange == "twolevel" and n_dcn <= 1:

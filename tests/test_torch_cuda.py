@@ -1344,3 +1344,42 @@ def test_pallas_engine_on_card_matches_cpu(cuda_device, nshards, exchange):
         assert (rg.pallas_coverage, rg.pallas_width_hits) == \
             (r.pallas_coverage, r.pallas_width_hits)
     assert rg.pallas_coverage == 1.0
+
+
+def _last_json(text: str) -> dict:
+    import json
+
+    return json.loads([s for s in text.splitlines()
+                       if s.startswith("{")][-1])
+
+
+@pytest.mark.cuda
+def test_step_bench_reports_a_device_time_on_card(cuda_device, monkeypatch,
+                                                  capsys):
+    """The step driver on the card: CUDA-event device time and the row
+    kernel's launches over its timed sweeps."""
+    from cuvite_tpu_torch.tools import step_bench
+
+    monkeypatch.setenv("AB_SCALE", "14")
+    assert step_bench.main([]) == 0
+    row = _last_json(capsys.readouterr().out)
+    assert row["device_ms"] > 0 and row["medges_per_s"] > 0
+    assert row["device"] == torch.cuda.get_device_name(0)
+    assert row["launches"]["row_argmax"] > 0
+
+
+@pytest.mark.cuda
+def test_trace_step_device_rows_name_the_row_kernel(cuda_device,
+                                                    monkeypatch, capsys,
+                                                    tmp_path):
+    """torch.profiler sees the hand kernels: the row kernel is among the
+    traced device rows."""
+    from cuvite_tpu_torch.tools import trace_step
+
+    monkeypatch.setenv("AB_SCALE", "14")
+    monkeypatch.setenv("TRACE_DIR", str(tmp_path))
+    assert trace_step.main([]) == 0
+    row = _last_json(capsys.readouterr().out)
+    assert row["rows_on"] == "device" and row["self_s"] > 0
+    assert any("row_argmax" in r["name"] for r in row["top"])
+    assert row["launches"]["row_argmax"] > 0
