@@ -151,28 +151,30 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    before the readiness line, and the served jobs' launches from the
    `stats` reply (fails if the row kernel or seg_coalesce never ran).
 22. the bench on the card through its command line, in subprocesses
-   (``python -m cuvite_tpu_torch.workloads bench``): R-MAT --scale with 2
-   timed runs (Q, phases and iterations equal to phase 5's, the first
-   timed run's launches, counted in the child, equal to phase 5's, and
-   its native plan and coarsen calls made with the guard held: no build,
-   library load or first kernel-form launch inside it), B=64
-   with phase 17's 64 synth 4096 jobs on both batched engines (a timed
-   pass's launches equal to phase 17's), and the serving bench at 200
-   jobs/s (jobs conserved);
+   (``python -m cuvite_tpu_torch.workloads bench``): R-MAT BENCH_SCALE
+   (18; phase 5 times --scale) alone on the card with 2 timed runs (Q,
+   phases and iterations equal to an in-process run of the same graph,
+   the first timed run's launches, counted in the child, equal to that
+   run's, and its native plan and coarsen calls made with the guard
+   held: no build, library load or first kernel-form launch inside it);
+   then three concurrent children: B=64 with phase 17's 64 synth 4096
+   jobs on both batched engines (a timed pass's launches equal to phase
+   17's), and the serving bench at 200 jobs/s (jobs conserved);
    each record valid, with a checked guard, platform cuda and phase 1's
    card and power limit (run_mixed_serve_bench on phase 20's 90:10 pools
    runs once, in phase 38's serve_load mix); then the guard on the
    card: run_bench with its first timed run pointed at an emptied build
    directory must raise BenchCompileGuardError;
-23. the command line: ``-n 65536 -e 10 --json --trace-out --metrics-out
-   -s -o`` on the card and with --device cpu (JSON equal but for seconds
-   and teps, labels identical, traces valid, the metrics file's keys the
-   reference's, g.bin equal to the generated graph, Q the host f64
-   modularity of the labels); ``serve demo --trace-out`` (a valid trace
-   with pack and execute spans); louvain_phases on R-MAT --scale with a
-   flight recorder under torch.cuda.set_sync_debug_mode("warn"): labels
-   equal to phase 5's and no more synchronizing operations than without
-   the tracer.
+23. the command line, as three concurrent children: ``-n 65536 -e 10
+   --json --trace-out --metrics-out -s -o`` on the card and with --device
+   cpu (JSON equal but for seconds and teps, labels identical, traces
+   valid, the metrics file's keys the reference's, g.bin equal to the
+   generated graph, Q the host f64 modularity of the labels) and ``serve
+   demo --trace-out`` (a valid trace with pack and execute spans); then
+   louvain_phases on phase 22's R-MAT BENCH_SCALE graph with a flight
+   recorder under torch.cuda.set_sync_debug_mode("warn"): labels equal to
+   phase 22's in-process run and no more synchronizing operations than
+   without the tracer.
 24. streaming, card against CPU: StreamSession on R-MAT --check-scale
    with two churn batches (1% of the pairs each) and a spill batch that
    doubles the slab class: the slab (src, dst, w, ne, ne_pad, 2m,
@@ -186,8 +188,9 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    a fresh session with the same delta; walls, frontier_frac, Q, peak
    allocated bytes;
 26. ``python -m cuvite_tpu_torch.workloads bench --churn-frac 0.01
-   --scale`` --scale in a child on the card: a valid record with a
-   checked guard, phase 1's card and power limit, and its stream block;
+   --scale`` BENCH_SCALE (18; phase 25 streams --scale in process) in a
+   child on the card: a valid record with a checked guard, phase 1's
+   card and power limit, and its stream block;
 27. the daemon's ``delta`` verb on the card (``--stream-budget-mb 0.25``,
    one synth 4096 session): an upload, a labels re-cluster equal to an
    in-process session's, a second tenant that evicts the first, a delta
@@ -224,9 +227,10 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    phase with a grown budget, and the labels equal one shard's.
 32. the native host runtime against its numpy paths on this host,
    bit-equal, each with both times: R-MAT --native-rmat-scale
-   generation; at the R-MAT --scale shapes from_edges (the unit builder),
-   weighted degrees, edge-balanced parts, the phase-0 plan (plan_scan +
-   bucket_fill) and one coarsening onto phase 5's final communities; at
+   generation; at the R-MAT BENCH_SCALE (18) shapes from_edges (the unit
+   builder), weighted degrees, edge-balanced parts, the phase-0 plan
+   (plan_scan + bucket_fill) and one coarsening onto phase 22's final
+   communities (phase 5 runs the native paths at --scale); at
    the R-MAT --native-rmat-scale shapes the generic and w32 weighted
    builders and a 32-bit Vite write, header and read.
 33. one rank per card over torch.distributed: min(visible cards, 4) NCCL
@@ -245,26 +249,26 @@ or without the cuvite_tpu_torch package beside it.  Phases:
 34. per-rank ingest: R-MAT --scale written as a 32-bit Vite file in a
    temporary directory; each rank of the same world loads it with
    DistVite, reading only its shards' edge ranges (bytes read printed;
-   fewer than the file's on two or more ranks), and runs it (the sparse
-   exchange); labels, iterations, Q and summed launches against phase
-   30's sparse run; then coloring=8 (colors from
-   multi_hash_coloring_dist), against phase 35's one-process colored
-   sparse run, and the same stopped after phase 0 (max_phases=1) and
-   resumed from a checkpoint directory the ranks share (rank 0 writes),
-   equal to it too;
+   fewer than the file's on two or more ranks), and runs coloring=8 over
+   the sparse exchange (colors from multi_hash_coloring_dist) stopped
+   after phase 0 (max_phases=1), then resumed from a checkpoint
+   directory the ranks share (rank 0 writes): labels, iterations and Q
+   equal to phase 35's one-process colored sparse run, and the two runs'
+   launches summed over the ranks equal to its (phase 33 holds the plain
+   sparse run over the ranks);
 35. (run before 33-34) ET, the color schedules and checkpoints on 4
    shards of one card: et_mode 1-4, coloring=8 and vertex_ordering=8 on
-   R-MAT --check-scale under both exchanges, card against CPU and one
-   shard (the non-size row kernel on the replicated runs, the size form
-   on the sparse ones); a checkpointed coloring=8 sparse run
+   R-MAT MESH_CHECK_SCALE (12) under both exchanges, card against CPU
+   and one shard (the non-size row kernel on the replicated runs, the
+   size form on the sparse ones); a checkpointed coloring=8 sparse run
    (max_phases=1, then resume) equal to the uninterrupted one; R-MAT
-   --scale's coloring=8 classes, class 0 emptied on shard 1, each class
-   step of two iterations (refreshed, then frozen tables) and the Q pass
-   card against CPU, targets, counter0, overflow and Q bit-equal, under
-   both exchanges, with the card steps' launches; R-MAT --scale at full
-   width with coloring=8 sparse and et_mode=3 replicated: per phase the
-   stages, the walls beside phase 14's one-shard runs, the launches,
-   labels equal to phase 14's, Q within 1e-6 of the host f64 modularity.
+   CLASS_SWEEP_SCALE's (18) coloring=8 classes, class 0 emptied on shard
+   1, each class step of two iterations (refreshed, then frozen tables)
+   and the Q pass card against CPU, targets, counter0, overflow and Q
+   bit-equal, under both exchanges, with the card steps' launches; R-MAT
+   --scale at full width with coloring=8 sparse: per phase the stages,
+   the wall beside phase 14's one-shard run, the launches, labels equal
+   to phase 14's, Q within 1e-6 of the host f64 modularity.
 36. (run after 35, before 33-34) the two-level exchange and the batch
    axis: R-MAT --check-scale on 2x2 and 4x1 hybrid meshes of 4 shards
    on the card, labels, phases, iterations and Q bits equal to the same
@@ -323,6 +327,12 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    serve_load counted row and seg_coalesce launches and step_bench row
    launches.  With two or more cards, --only-multiprocess ends with
    exchange_latency --world min(cards, 4), one NCCL rank a card.
+39. (run after 38, before 33-34) the static analysis of the port:
+   ``python -m cuvite_tpu_torch.analysis --format json`` over the port's
+   tree against its baseline, twice: cold from an emptied cache in a
+   child, then warm from its cache through the same command line's main
+   in this process; fails unless both exit 0 and the warm findings equal
+   the cold ones; the findings by rule and both walls printed.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -1544,6 +1554,7 @@ def check_class_sweeps(g, scale: int, n: int = 8) -> None:
     vdeg = torch.from_numpy(dg.padded_weighted_degrees()).float()
     vdeg_d = vdeg.cuda()
     const = 1.0 / dg.graph.total_edge_weight_twice()
+    torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     work = torch.arange(nv, dtype=torch.int32)
     hub_plans = 0
@@ -2450,22 +2461,35 @@ def smi_card(line: str) -> tuple:
     return name, float(limit.split()[0])
 
 
-def bench_child(what: str, argv: list, card: tuple) -> tuple:
-    """``python -m cuvite_tpu_torch.workloads bench ARGV`` in a child on
-    the card.  Fails unless it exits 0 with exactly one JSON line: a
-    valid record with a checked guard, platform cuda, phase 1's card and
-    non-negative stage seconds.  Returns (record, stderr, wall s)."""
+def bench_start(argv: list) -> tuple:
+    """Start ``python -m cuvite_tpu_torch.workloads bench ARGV`` in a child
+    on the card; returns (the child, its start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cuvite_tpu_torch.workloads", "bench",
+         *argv], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, time.perf_counter()
+
+
+def bench_finish(what: str, started: tuple, card: tuple) -> tuple:
+    """Wait for a :func:`bench_start` child.  Fails unless it exits 0 with
+    exactly one JSON line: a valid record with a checked guard, platform
+    cuda, phase 1's card and non-negative stage seconds.  Returns
+    (record, stderr, wall s)."""
     from cuvite_tpu_torch.workloads.bench import validate_record
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "cuvite_tpu_torch.workloads", "bench",
-         *argv], cwd=root, capture_output=True, text=True, timeout=900)
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{what}: bench did not end in 900 s")
     wall = time.perf_counter() - t0
-    if out.returncode:
-        fail(f"{what}: bench exited {out.returncode}: {out.stderr[-3000:]}")
-    lines = out.stdout.strip().splitlines()
+    if proc.returncode:
+        fail(f"{what}: bench exited {proc.returncode}: {stderr[-3000:]}")
+    lines = stdout.strip().splitlines()
     if len(lines) != 1:
         fail(f"{what}: bench printed {len(lines)} lines on stdout")
     rec = json.loads(lines[0])
@@ -2481,7 +2505,12 @@ def bench_child(what: str, argv: list, card: tuple) -> tuple:
     if any(v < 0 for v in rec["stages"].values()):
         fail(f"{what}: negative stage seconds {rec['stages']}")
     print_record(what, rec, wall)
-    return rec, out.stderr, wall
+    return rec, stderr, wall
+
+
+def bench_child(what: str, argv: list, card: tuple) -> tuple:
+    """One bench child, alone on the card (:func:`bench_finish`)."""
+    return bench_finish(what, bench_start(argv), card)
 
 
 def print_record(what: str, rec: dict, wall: float) -> None:
@@ -2551,18 +2580,53 @@ def check_guard_trip(scale: int) -> None:
         _build._LIBS.update(saved_libs)
 
 
-def run_bench_phase(card: tuple, scale: int, main_res, paths: dict) -> dict:
-    """Phase 22.  Returns the launch counts of the bench paths."""
+# R-MAT scale of phase 22's bench and phase 23's traced runs: phase 5 times
+# the main path at --scale already, so the bench's command line, guard and
+# record run a depth below it, held against an in-process run of the same
+# graph.
+BENCH_SCALE = 18
+
+
+def run_bench_reference(scale: int) -> tuple:
+    """Phase 22's reference: ``louvain_phases`` on R-MAT ``scale`` in this
+    process, launch counts zeroed just before.  Returns (graph, result,
+    launches)."""
+    import torch
+
+    from cuvite_tpu_torch import louvain_phases
+    from cuvite_tpu_torch.io.generate import generate_rmat
+
+    g = generate_rmat(scale)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = louvain_phases(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    print(f"  R-MAT {scale} in this process: {wall:.3f} s, {len(res.phases)} "
+          f"phases, {res.total_iterations} sweeps, Q {res.modularity:.9f}, "
+          f"launches {launches}")
+    return g, res, launches
+
+
+def run_bench_phase(card: tuple, scale: int, paths: dict) -> tuple:
+    """Phase 22.  The R-MAT bench runs alone on the card at ``scale``; the
+    two ``--batch`` benches and the serve bench, which check launches,
+    guards and records but no time, then run as three concurrent children
+    (their walls and rates share the card and the host).  Returns (the
+    launch counts of the bench paths, the in-process reference run)."""
     out = {}
-    main_launches = paths[f"bucketed R-MAT {scale}"]
+    t0 = time.perf_counter()
+    g, ref, main_launches = run_bench_reference(scale)
     what = f"bench R-MAT {scale}"
     rec, err, _ = bench_child(what, ["--graph", "rmat", "--scale",
                                      str(scale), "--repeats", "2"], card)
     got = (rec["modularity"], rec["phases"], rec["iterations"])
-    want = (round(main_res.modularity, 6), len(main_res.phases),
-            main_res.total_iterations)
+    want = (round(ref.modularity, 6), len(ref.phases),
+            ref.total_iterations)
     if got != want:
-        fail(f"{what}: Q, phases, iterations {got}, phase 5 {want}")
+        fail(f"{what}: Q, phases, iterations {got}, in-process run {want}")
     cats = {"tables", "plans"} | ({"slab"} if rec.get("rebin_device")
                                   else set())
     if not cats <= set(rec["hbm_peak_by_buffer"]):
@@ -2570,7 +2634,7 @@ def run_bench_phase(card: tuple, scale: int, main_res, paths: dict) -> dict:
              f"{cats}")
     run1 = stderr_json(what, err, "# launches run 1: ")
     if run1 != main_launches:
-        fail(f"{what}: timed run 1 launched {run1}, phase 5 "
+        fail(f"{what}: timed run 1 launched {run1}, the in-process run "
              f"{main_launches}")
     calls = stderr_json(what, err, "# native calls run 1: ")
     if not all(calls[k] for k in ("plan_scan", "bucket_fill",
@@ -2578,50 +2642,81 @@ def run_bench_phase(card: tuple, scale: int, main_res, paths: dict) -> dict:
         fail(f"{what}: timed run 1 made the native calls {calls}")
     print(f"  {what}: timed run 1's native calls {calls}, under the "
           "guard")
-    print(f"  {what}: Q, phases and iterations {got} as phase 5; "
-          f"timed run 1 launched {run1}, as phase 5; ledger peaks "
+    print(f"  {what}: Q, phases and iterations {got} as the in-process "
+          f"run; timed run 1 launched {run1}, as it did; ledger peaks "
           f"{rec['hbm_peak_by_buffer']}")
     out[f"bench R-MAT {scale}, timed run 1"] = run1
+    print(f"  the R-MAT {scale} bench and its reference took "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # --batch-jobs 64: the job set is phase 17's batch itself, so the
     # bucket geometry the bench pins over its jobs is that batch's own,
     # and a pass's launches must equal phase 17's.
+    t0 = time.perf_counter()
+    batch = {}
     for engine in ("bucketed", "fused"):
         what = (f"bench --batch 64 --batch-jobs 64 --batch-edges 4096 "
                 f"--batch-engine {engine}")
-        rec, err, _ = bench_child(what, ["--batch", "64", "--batch-jobs",
-                                         "64", "--batch-edges", "4096",
-                                         "--batch-engine", engine], card)
+        batch[engine] = (what, bench_start(
+            ["--batch", "64", "--batch-jobs", "64", "--batch-edges", "4096",
+             "--batch-engine", engine]))
+    serve_what = "bench --serve-rate 200 --batch-edges 1024 --serve-b-max 8"
+    serve = bench_start(["--serve-rate", "200", "--batch-edges", "1024",
+                         "--serve-b-max", "8", "--batch-jobs", "64"])
+    print("  three bench children run concurrently (their walls and rates "
+          "share the card and the host):")
+    for engine, (what, started) in batch.items():
+        rec, err, _ = bench_finish(what, started, card)
         (pass1,) = stderr_json(what, err, "# launches pass 1, by batch: ")
         want = paths[f"serving 4096 {engine}"]
         if pass1 != want or pass1["seg_coalesce"] == 0:
             fail(f"{what}: timed pass 1 launched {pass1}, phase 17 {want}")
         print(f"  {what}: timed pass 1 launched {pass1}, as phase 17")
         out[f"bench --batch 64 synth 4096 {engine}, timed pass 1"] = pass1
-
-    what = "bench --serve-rate 200 --batch-edges 1024 --serve-b-max 8"
-    rec, _, _ = bench_child(what, ["--serve-rate", "200", "--batch-edges",
-                                   "1024", "--serve-b-max", "8",
-                                   "--batch-jobs", "64"], card)
+    rec, _, _ = bench_finish(serve_what, serve, card)
     c = rec["serve"]["conservation"]
     if not (c["ok"] and c["done"] + c["failed"] + c["shed"] + c["pending"]
             + c["inflight"] == c["submitted"]):
-        fail(f"{what}: conservation {c}")
-    print(f"  {what}: conservation {c}")
+        fail(f"{serve_what}: conservation {c}")
+    print(f"  {serve_what}: conservation {c}")
+    print(f"  the three concurrent bench children took "
+          f"{time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     check_guard_trip(14)
-    return out
+    print(f"  the guard trip took {time.perf_counter() - t0:.1f} s")
+    return out, (g, ref)
 
 
 def cli_child(argv: list, cwd: str, timeout: int = 900) -> str:
+    return cli_finish(cli_start(argv, cwd), timeout)
+
+
+def cli_start(argv: list, cwd: str) -> tuple:
+    """Start ``python ARGV`` in ``cwd`` with the repo on the path; returns
+    (argv, the child, its start time)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
-    out = subprocess.run([sys.executable, *argv], cwd=cwd, env=env,
-                         capture_output=True, text=True, timeout=timeout)
-    if out.returncode:
-        fail(f"{' '.join(argv[:3])}: exit {out.returncode}: "
-             f"{out.stderr[-3000:]}")
-    return out.stdout
+    proc = subprocess.Popen([sys.executable, *argv], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return argv, proc, time.perf_counter()
+
+
+def cli_finish(started: tuple, timeout: int = 900) -> str:
+    """Wait for a :func:`cli_start` child; fails unless it exits 0 within
+    ``timeout`` s.  Returns its stdout."""
+    argv, proc, _ = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{' '.join(argv[:3])}: did not end in {timeout} s")
+    if proc.returncode:
+        fail(f"{' '.join(argv[:3])}: exit {proc.returncode}: "
+             f"{stderr[-3000:]}")
+    return stdout
 
 
 def count_syncs(fn) -> tuple:
@@ -2642,7 +2737,10 @@ def count_syncs(fn) -> tuple:
 
 
 def run_cli_phase(scale: int, g_rmat, main_res) -> None:
-    """Phase 23."""
+    """Phase 23: the CLI on the card and with --device cpu and ``serve demo
+    --trace-out`` as three concurrent children, then R-MAT ``scale``
+    (``g_rmat``, phase 22's graph) with and without a flight recorder
+    against ``main_res``, phase 22's in-process run of it."""
     import tempfile
 
     from cuvite_tpu_torch import louvain_phases
@@ -2659,18 +2757,27 @@ def run_cli_phase(scale: int, g_rmat, main_res) -> None:
 
     root = os.path.dirname(os.path.abspath(__file__))
     work = tempfile.mkdtemp(dir=os.path.join(root, "build", "chip_smoke"))
-    runs = {}
+    t0 = time.perf_counter()
+    started = {}
     for where in ("card", "cpu"):
         d = os.path.join(work, where)
         os.makedirs(d)
-        t0 = time.perf_counter()
-        line = cli_child(["-m", "cuvite_tpu_torch.cli", "-n", "65536", "-e",
-                          "10", "--json", "--quiet", "-o", "--trace-out",
-                          "t.jsonl", "--metrics-out", "m.json", "-s",
-                          "g.bin"]
-                         + (["--device", "cpu"] if where == "cpu" else []),
-                         d).strip().splitlines()[-1]
-        runs[where] = (json.loads(line), d, time.perf_counter() - t0)
+        started[where] = (d, cli_start(
+            ["-m", "cuvite_tpu_torch.cli", "-n", "65536", "-e", "10",
+             "--json", "--quiet", "-o", "--trace-out", "t.jsonl",
+             "--metrics-out", "m.json", "-s", "g.bin"]
+            + (["--device", "cpu"] if where == "cpu" else []), d))
+    sd = os.path.join(work, "serve")
+    os.makedirs(sd)
+    demo = cli_start(["-m", "cuvite_tpu_torch.serve", "demo", "--jobs",
+                      "64", "--edges", "4096", "--trace-out", "s.jsonl"], sd)
+    runs = {}
+    for where, (d, child) in started.items():
+        line = cli_finish(child).strip().splitlines()[-1]
+        runs[where] = (json.loads(line), d, time.perf_counter() - child[2])
+    cli_finish(demo)
+    print(f"  the CLI on the card, with --device cpu and serve demo ran as "
+          f"three concurrent children: {time.perf_counter() - t0:.1f} s")
     (js, d, wall), (cjs, cd, cwall) = runs["card"], runs["cpu"]
     drop = ("seconds", "teps")
     if {k: v for k, v in js.items() if k not in drop} != \
@@ -2709,10 +2816,6 @@ def run_cli_phase(scale: int, g_rmat, main_res) -> None:
           f"valid, g.bin equal to the generated graph; card compile events "
           f"{m['compile_events']}, memory peaks {m['hbm_peak_by_buffer']}")
 
-    sd = os.path.join(work, "serve")
-    os.makedirs(sd)
-    cli_child(["-m", "cuvite_tpu_torch.serve", "demo", "--jobs", "64",
-               "--edges", "4096", "--trace-out", "s.jsonl"], sd)
     recs = read_trace(os.path.join(sd, "s.jsonl"))
     problems = validate_trace(recs)
     names = {s["name"] for s in spans_of(recs)}
@@ -2731,7 +2834,7 @@ def run_cli_phase(scale: int, g_rmat, main_res) -> None:
     for what, res in (("without", res_plain), ("with", res_traced)):
         if not np.array_equal(res.communities, main_res.communities):
             fail(f"R-MAT {scale} {what} a tracer: labels differ from "
-                 "phase 5's")
+                 "phase 22's in-process run")
     if n_traced > n_plain:
         fail(f"R-MAT {scale}: {n_traced} synchronizing operations with a "
              f"tracer, {n_plain} without")
@@ -2739,7 +2842,7 @@ def run_cli_phase(scale: int, g_rmat, main_res) -> None:
     if problems:
         fail(f"R-MAT {scale} trace: {problems[:5]}")
     print(f"  R-MAT {scale} with a flight recorder: labels equal to phase "
-          f"5's; {n_traced} synchronizing operations warned of, {n_plain} "
+          f"22's in-process run; {n_traced} synchronizing operations warned of, {n_plain} "
           f"without a tracer; {len(rec.records)} trace records, memory "
           f"peaks {rec.ledger.peak_by_buffer}")
 
@@ -2905,7 +3008,8 @@ def run_stream_full(g, scale: int) -> dict:
 
 
 def run_stream_bench(card: tuple, scale: int) -> dict:
-    """Phase 26.  Returns the timed arms' launches."""
+    """Phase 26, at BENCH_SCALE: phase 25 streams R-MAT --scale in this
+    process.  Returns the timed arms' launches."""
     what = f"bench --churn-frac 0.01 --scale {scale}"
     rec, err, _ = bench_child(what, ["--churn-frac", "0.01", "--scale",
                                      str(scale)], card)
@@ -3412,6 +3516,12 @@ def check_budget_retry(scale: int, nshards: int) -> dict:
 
 # Phase 34's colored DistVite runs and phase 35's full-width sparse run.
 COLOR_RUN = "coloring=8 sparse"
+# R-MAT scales of phase 35's card-against-CPU checks: the mesh schedules
+# (the CPU's four-shard runs of every mode dominate there) and the class
+# sweeps (the CPU twins of a whole coloring iteration dominate; phase 14
+# sweeps the same class plans at --scale on one shard).
+MESH_CHECK_SCALE = 12
+CLASS_SWEEP_SCALE = 18
 MESH_SCHEDULES = ([{"et_mode": m} for m in (1, 2, 3, 4)]
                   + [{"coloring": 8}, {"vertex_ordering": 8}])
 
@@ -3685,7 +3795,9 @@ def _plans_equal(a, b) -> bool:
 def check_native(scale: int, rmat_scale: int, main_res) -> dict:
     """Phase 32: each routine of the native host runtime on this host
     against its numpy path (``CUVITE_NO_NATIVE=1``) on the same inputs,
-    bit-equal, with both times; the call counts prove which path ran."""
+    bit-equal, with both times; the call counts prove which path ran.
+    ``main_res`` is a run of R-MAT ``scale`` (phase 22's, at
+    BENCH_SCALE: phase 5 runs the native paths at --scale already)."""
     from cuvite_tpu_torch import native
     from cuvite_tpu_torch.coarsen.rebuild import (
         coarsen_graph,
@@ -3748,7 +3860,7 @@ def check_native(scale: int, rmat_scale: int, main_res) -> dict:
          _plans_equal)
     del dg
     dense, nc = renumber_communities(main_res.communities)
-    both(f"coarsen R-MAT {scale} onto phase 5's {nc} communities",
+    both(f"coarsen R-MAT {scale} onto phase 22's {nc} communities",
          ["coarsen_csr"], lambda: coarsen_graph(g, dense, nc))
     del g
 
@@ -4108,7 +4220,7 @@ def world_cards(visible) -> list:
         return [c for c in visible.split(",") if c]
     out = subprocess.run(["nvidia-smi", "--query-gpu=index",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout
+                         text=True, check=True, timeout=60).stdout
     return [ln.strip() for ln in out.splitlines() if ln.strip()]
 
 
@@ -4400,12 +4512,14 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
         write_vite(path, g, bits64=False)
         print(f"  wrote {os.path.getsize(path)} B (32-bit Vite) in "
               f"{time.perf_counter() - t1:.2f} s")
+        # Phase 33 holds the plain sparse run over the ranks already; the
+        # colored run here takes the same sparse exchange over DistVite,
+        # stopped after phase 0 and resumed: the two runs together do the
+        # uninterrupted run's work, and their summed launches must be its.
         color = {"exchange": "sparse", "coloring": 8}
         recs = run_world(f"DistVite R-MAT {scale}", cards[:world], {
             "scale": scale, "nshards": nshards, "path": path,
-            "runs": [["sparse", {"exchange": "sparse"}],
-                     [COLOR_RUN, color],
-                     [COLOR_RUN + ", checkpointed",
+            "runs": [[COLOR_RUN + ", checkpointed",
                       dict(color, max_phases=1, checkpoint_dir="ck")],
                      [COLOR_RUN + ", resumed",
                       dict(color, resume=True, checkpoint_dir="ck")]]})
@@ -4427,8 +4541,21 @@ def run_multiprocess(g, scale: int, nshards: int, cards: list,
                  f"{len(part['iterations'])} phases, not 1")
     res, launches, wall = one_process[COLOR_RUN]
     tot = check_world(f"DistVite R-MAT {scale}", recs, {
-        "sparse": one_process["sparse"], COLOR_RUN: one_process[COLOR_RUN],
         COLOR_RUN + ", resumed": (res, None, wall)}, nshards)
+    both = {}
+    for rec in recs:
+        for name in (COLOR_RUN + ", checkpointed", COLOR_RUN + ", resumed"):
+            for k, v in rec["runs"][name]["launches"].items():
+                both[k] = both.get(k, 0) + v
+    if {k: v for k, v in both.items() if v} != \
+            {k: v for k, v in launches.items() if v}:
+        fail(f"DistVite R-MAT {scale} {COLOR_RUN}: the checkpointed and "
+             f"resumed runs launched {both} over the ranks, the "
+             f"uninterrupted one-process run {launches}")
+    print(f"  DistVite R-MAT {scale} {COLOR_RUN}: checkpointed + resumed "
+          f"launched {both} over the ranks, as the uninterrupted "
+          f"one-process run (phase 35)")
+    tot[COLOR_RUN + ", checkpointed + resumed"] = both
     for name, t in tot.items():
         paths[f"world {world} DistVite, {nshards} shards R-MAT {scale} "
               f"{name}"] = t
@@ -5111,6 +5238,79 @@ def run_tool_world(cards: list) -> None:
     print_ladder(out, "all_gather psum all_to_all")
 
 
+# ---------------------------------------------------------------------------
+# Phase 39: the static analysis of the port (cuvite_tpu_torch.analysis).
+
+ANALYSIS_TIMEOUT_S = 300
+
+
+def run_analysis() -> None:
+    """Phase 39: ``python -m cuvite_tpu_torch.analysis --format json`` over
+    the port's tree (its default paths and baseline), cold from an emptied
+    cache in a child process, then warm from that cache through the same
+    command line's ``main`` in this process (a child costs ~10 s to start
+    on the card's host).  Fails unless both exit 0 and the warm findings
+    equal the cold ones; prints every finding by rule (the baselined ones
+    included) and both walls."""
+    import collections
+    import contextlib
+    import io
+
+    from cuvite_tpu_torch.analysis import apply_baseline, load_baseline
+    from cuvite_tpu_torch.analysis import run_paths
+    from cuvite_tpu_torch.analysis.__main__ import (
+        DEFAULT_BASELINE,
+        DEFAULT_PATHS,
+        main as analysis_main,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(root, "build", "chip_smoke",
+                         "graftlint_cache.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    argv = ["--format", "json", "--cache", cache]
+    docs = {}
+    for what in ("cold", "warm"):
+        t0 = time.perf_counter()
+        if what == "cold":
+            out = subprocess.run(
+                [sys.executable, "-m", "cuvite_tpu_torch.analysis", *argv],
+                cwd=root, capture_output=True, text=True,
+                timeout=ANALYSIS_TIMEOUT_S)
+            rc, stdout = out.returncode, out.stdout
+            where = "a child, its start included"
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = analysis_main(argv)
+            stdout = buf.getvalue()
+            where = "in this process"
+        wall = time.perf_counter() - t0
+        if rc:
+            fail(f"analysis ({what}) exited {rc}: {stdout[-3000:]}")
+        docs[what] = json.loads(stdout)
+        print(f"  {what} ({where}): exit 0 in {wall:.2f} s, "
+              f"{len(docs[what]['findings'])} new findings, "
+              f"{docs[what]['baselined']} baselined, "
+              f"{docs[what]['stale_baseline']} stale baseline entries, "
+              f"gate {docs[what]['gate']}")
+    if docs["warm"] != docs["cold"]:
+        fail("analysis: the warm run's findings differ from the cold run's")
+    findings = run_paths([os.path.join(root, p) for p in DEFAULT_PATHS],
+                         cache=cache)
+    new, old = apply_baseline(findings, load_baseline(
+        os.path.join(root, DEFAULT_BASELINE)))
+    for name, fs in (("every finding", findings), ("baselined", old),
+                     ("new", new)):
+        by_rule = collections.Counter(f.rule for f in fs)
+        print(f"  {name} by rule: {dict(sorted(by_rule.items()))}")
+    if new:
+        fail(f"analysis: {len(new)} findings beyond the baseline in this "
+             "process, none in its command line")
+    print("  warm findings equal the cold ones")
+
+
 def run_multiprocess_only(args, cards: list) -> int:
     """``--only-multiprocess``: phase 30's, 35's colored and 36's 2x2
     one-process runs as the reference, then phases 33-34, then on a host
@@ -5433,12 +5633,19 @@ def main() -> int:
 
     t22 = time.perf_counter()
     card = smi_card(smi_line())
-    print("[22] the bench on the card, through its command line")
-    paths.update(run_bench_phase(card, args.scale, main_res, paths))
+    print(f"[22] the bench on the card, through its command line (R-MAT "
+          f"{BENCH_SCALE})")
+    bench_paths, (g_bench, bench_res) = run_bench_phase(card, BENCH_SCALE,
+                                                        paths)
+    paths.update(bench_paths)
+    print(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+    t23 = time.perf_counter()
     print("[23] the command line and the flight recorder on the card")
-    g_rmat = generate_rmat(args.scale)
-    run_cli_phase(args.scale, g_rmat, main_res)
+    run_cli_phase(BENCH_SCALE, g_bench, bench_res)
+    del g_bench
+    print(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
     print(f"  phases 22-23 took {time.perf_counter() - t22:.1f} s")
+    g_rmat = generate_rmat(args.scale)
 
     t24 = time.perf_counter()
     print(f"[24] streaming: R-MAT {args.check_scale} card against CPU")
@@ -5448,8 +5655,8 @@ def main() -> int:
     paths[f"stream R-MAT {args.scale}"] = run_stream_full(g_rmat,
                                                           args.scale)
     print("[26] the churn bench on the card, through its command line")
-    paths[f"bench --churn-frac 0.01 --scale {args.scale}, timed arms"] = \
-        run_stream_bench(card, args.scale)
+    paths[f"bench --churn-frac 0.01 --scale {BENCH_SCALE}, timed arms"] = \
+        run_stream_bench(card, BENCH_SCALE)
     print("[27] the daemon's delta verb on the card")
     paths["daemon delta verb"] = run_stream_daemon()
     print(f"  phases 24-27 took {time.perf_counter() - t24:.1f} s")
@@ -5519,20 +5726,27 @@ def main() -> int:
 
     print(f"[32] the native host runtime against its numpy paths")
     t32 = time.perf_counter()
-    check_native(args.scale, args.native_rmat_scale, main_res)
+    check_native(BENCH_SCALE, args.native_rmat_scale, bench_res)
+    del bench_res
     print(f"  phase 32 took {time.perf_counter() - t32:.1f} s")
 
     t35 = time.perf_counter()
     print(f"[35] ET, the color schedules and checkpoints on {S} shards of "
           "one card (before phases 33-34, which hold their colored runs "
           "against it)")
-    paths.update(check_mesh_schedules(args.check_scale, S))
-    print(f"  R-MAT {args.check_scale} runs took "
+    paths.update(check_mesh_schedules(MESH_CHECK_SCALE, S))
+    print(f"  R-MAT {MESH_CHECK_SCALE} runs took "
           f"{time.perf_counter() - t35:.1f} s")
-    paths.update(check_mesh_class_sweeps(g_rmat, args.scale, S))
+    t1 = time.perf_counter()
+    paths.update(check_mesh_class_sweeps(generate_rmat(CLASS_SWEEP_SCALE),
+                                         CLASS_SWEEP_SCALE, S))
+    print(f"  R-MAT {CLASS_SWEEP_SCALE} class sweeps took "
+          f"{time.perf_counter() - t1:.1f} s")
     walls = []
-    for kw in ({"coloring": 8, "exchange": "sparse"},
-               {"et_mode": 3, "exchange": "replicated"}):
+    # At full width the colored sparse run only: phases 33-34 hold theirs
+    # against it; et_mode=3 runs card against CPU at MESH_CHECK_SCALE
+    # above and phase 30 runs the replicated exchange at full width.
+    for kw in ({"coloring": 8, "exchange": "sparse"},):
         one_name = _kw_name({k: v for k, v in kw.items()
                              if k != "exchange"})
         one, one_s = sched.get(one_name, (None, None))
@@ -5594,6 +5808,12 @@ def main() -> int:
           "child process")
     paths.update(run_tools(card))
     print(f"  phase 38 took {time.perf_counter() - t38:.1f} s")
+
+    t39 = time.perf_counter()
+    print("[39] the static analysis of the port, cold and then warm from "
+          "its cache")
+    run_analysis()
+    print(f"  phase 39 took {time.perf_counter() - t39:.1f} s")
 
     paths.update(run_multiprocess(g_rmat, args.scale, S, cards,
                                   one_process))

@@ -47,14 +47,30 @@ mesh, and ``louvain_many`` shards a batch's rows over the visible cards
 (``mesh="auto"``).  Not ported yet: the concurrency checker's scheduler.
 
 The package imports torch, numpy and scipy only; it never imports JAX
-or ``cuvite_tpu``.
+or ``cuvite_tpu``.  ``cuvite_tpu_torch.analysis`` (the static analysis of
+this tree, ``python -m cuvite_tpu_torch.analysis``) imports the standard
+library only.
 """
 
-from cuvite_tpu_torch.core.graph import Graph
-from cuvite_tpu_torch.louvain.driver import (
-    LouvainResult,
-    louvain_many,
-    louvain_phases,
-)
+import importlib
 
 __all__ = ["Graph", "LouvainResult", "louvain_many", "louvain_phases"]
+
+# The public names load on first use (PEP 562), so that a subpackage that
+# needs no torch -- the static analysis, ``cuvite_tpu_torch.analysis`` --
+# imports none through this file.
+_LAZY = {
+    "Graph": "cuvite_tpu_torch.core.graph",
+    "LouvainResult": "cuvite_tpu_torch.louvain.driver",
+    "louvain_many": "cuvite_tpu_torch.louvain.driver",
+    "louvain_phases": "cuvite_tpu_torch.louvain.driver",
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module 'cuvite_tpu_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(_LAZY[name]), name)
+    globals()[name] = value
+    return value

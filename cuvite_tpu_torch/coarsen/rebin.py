@@ -124,7 +124,7 @@ def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
             f"device_plan: {sizes[n_cls]} vertices of degree above "
             f"{DEFAULT_BUCKETS[-1]}: the slab is not eligible for device "
             "re-binning (rebin_eligible)")
-    order = torch.sort(cls, stable=True).indices
+    order = torch.sort(cls, stable=True).indices  # graftlint: disable=R013 — a stable sort of the [nv_local] class ids (vertices, not the edge slab): the re-binned plan's row order
     buckets, widths, edges = [], [], []
     perm = torch.full((nv_local,), sum(sizes[:n_cls]), dtype=torch.int64,
                       device=dev)

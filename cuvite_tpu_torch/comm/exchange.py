@@ -437,7 +437,7 @@ def twolevel_env(comms: list, vdegs: list, send_idx: list,
     def over_ici(xs):
         out = [None] * n
         for view, pos in mesh.ici_views:
-            for p, x in zip(pos, all_gather([xs[p] for p in pos], view)):
+            for p, x in zip(pos, all_gather([xs[p] for p in pos], view)):  # graftlint: replicated-ok=scope=ici; group community and degree vectors gathered only inside the ICI group — O(nv_total/n_dcn) per card, the two-level contract
                 out[p] = x
         return out
 

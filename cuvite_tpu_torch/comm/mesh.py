@@ -194,7 +194,7 @@ def make_hybrid_mesh(dcn: int, ici: int, devices=None) -> Mesh:
     # card that cannot join fails here and not inside a sweep.
     for group, ranks in groups:
         if dist.get_rank() in ranks:
-            dist.all_reduce(torch.zeros(1, device=base.devices[0]),
+            dist.all_reduce(torch.zeros(1, device=base.devices[0]),  # graftlint: disable=R004 — a sub-group's collective, issued by its members only (the rank test IS the membership test); every rank made every group above, in one order
                             group=group)
     return dataclasses.replace(base, hybrid=(dcn, ici),
                                ici_views=tuple(ici_views),

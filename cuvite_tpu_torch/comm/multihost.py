@@ -284,7 +284,7 @@ def allgather_varlen(arr) -> list:
     buf = np.zeros(max(max(lens), 1), dtype=arr.dtype)
     buf[: len(arr)] = arr
     rows = _gather_rows(torch.from_numpy(buf), g)
-    return [r.numpy()[:n] for r, n in zip(rows, lens)]
+    return [r.numpy()[:n] for r, n in zip(rows, lens)]  # graftlint: disable=R018 — allgather_varlen IS a sanctioned host gather (the distributed coloring's per-round host exchange); callers opt in per site
 
 
 def gather_global(local) -> np.ndarray:
@@ -293,12 +293,12 @@ def gather_global(local) -> np.ndarray:
     the ``MPI_Allgatherv`` of the output path).  ``local`` is this rank's
     list of per-shard tensors, or one host array."""
     if isinstance(local, (list, tuple)):
-        local = torch.cat([t.cpu() for t in local])
+        local = torch.cat([t.cpu() for t in local])  # graftlint: disable=R018 — gather_global IS the sanctioned host gather; phase-transition callers opt in per site
     else:
         local = torch.from_numpy(np.ascontiguousarray(local))
     if not is_distributed():
-        return local.numpy()
-    return torch.cat(_gather_rows(local, _host_group())).numpy()
+        return local.numpy()  # graftlint: disable=R018 — gather_global IS the sanctioned host gather; phase-transition callers opt in per site
+    return torch.cat(_gather_rows(local, _host_group())).numpy()  # graftlint: disable=R018 — gather_global IS the sanctioned host gather; phase-transition callers opt in per site
 
 
 def launch(argv: list, nprocs: int, init_method: str, *, env=None,

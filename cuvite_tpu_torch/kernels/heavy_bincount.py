@@ -278,7 +278,7 @@ def heavy_argmax_plain(lay: HeavyLayout, comm, comm_deg, vdeg, self_loop,
     counter0 = seg.segment_sum(torch.where(c == curr[hub], lay.w, 0.0), hub,
                                h)
     eix = counter0 - self_loop[v]
-    key_s, order = torch.sort(hub * (comm.numel() + 1) + c, stable=True)
+    key_s, order = torch.sort(hub * (comm.numel() + 1) + c, stable=True)  # graftlint: disable=R013 — the plain twin's per-hub dedup of the hub edges (the CPU version the CUDA kernel is held against), not a coalesce of the slab
     hub_s, c_s, w_s = hub[order], c[order], lay.w[order]
     cst = consts[v >> shift][hub_s]
     leader = torch.ones_like(key_s, dtype=torch.bool)

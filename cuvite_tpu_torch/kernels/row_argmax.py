@@ -268,7 +268,7 @@ def _argmax_rows(c, w, ay, sz, curr, vd, ax, sl, cst, deg):
     is_cc = c == curr[:, None]
     counter0 = torch.where(is_cc, w, 0.0).sum(dim=1)
     eix = counter0 - sl
-    c_s, order = torch.sort(c, dim=1, stable=True)
+    c_s, order = torch.sort(c, dim=1, stable=True)  # graftlint: disable=R013 — the plain twin's per-row dedup of one degree class (the CPU version the CUDA kernel is held against), not a coalesce of the slab
     w_s, ay_s = w.gather(1, order), ay.gather(1, order)
     leader = torch.ones_like(c_s, dtype=torch.bool)
     leader[:, 1:] = c_s[:, 1:] != c_s[:, :-1]

@@ -250,7 +250,7 @@ def dense_accumulate_plain(src, dst, w, *, grid: int):
     tenant = torch.arange(b, device=src.device)[:, None]
     real = (s >= 0) & (s < grid) & (d >= 0) & (d < grid)
     flat = torch.where(real, (((tenant << kbits) | s) << kbits) | d, n)
-    acc = torch.zeros(n + 1, dtype=torch.float64, device=src.device)
+    acc = torch.zeros(n + 1, dtype=torch.float64, device=src.device)  # graftlint: disable=R003 — the plain twin's weight sums in f64: the H100 sums in real f64
     acc.index_add_(0, flat.reshape(-1),
                    torch.where(real, w, 0.0).double().reshape(-1))
     cnt = torch.zeros(n + 1, dtype=torch.int32, device=src.device)
@@ -353,7 +353,7 @@ def hash_accumulate(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     flat = torch.where(real, src.long() * k + hash_slot_of(dst, k), size)
     d32 = dst.to(torch.int32)
     dev = src.device
-    wsum = torch.zeros(size + 1, dtype=torch.float64, device=dev)
+    wsum = torch.zeros(size + 1, dtype=torch.float64, device=dev)  # graftlint: disable=R003 — the hash engine's weight sums in f64: the H100 sums in real f64
     wsum.index_add_(0, flat, torch.where(real, w, 0.0).double())
     cnt = torch.zeros(size + 1, dtype=torch.int32, device=dev)
     cnt.index_add_(0, flat, real.to(torch.int32))
@@ -385,7 +385,7 @@ def hash_emit(wsum: torch.Tensor, cnt: torch.Tensor, dmin: torch.Tensor, *,
     del before
     flat_d = torch.full((nv_pad, k), nv_pad, dtype=torch.int32,
                         device=dev).scatter_(1, rank, dst_t).view(-1)
-    flat_w = torch.zeros((nv_pad, k), dtype=torch.float64,
+    flat_w = torch.zeros((nv_pad, k), dtype=torch.float64,  # graftlint: disable=R003 — the hash engine's weight sums in f64: the H100 sums in real f64
                          device=dev).scatter_(1, rank, w_t).view(-1)
     present = flat_d < nv_pad
     pos = torch.cumsum(present, 0) - 1

@@ -567,7 +567,7 @@ def bucketed_modularity(plans, comm: torch.Tensor, vdeg: torch.Tensor,
     as in :func:`bucketed_step`, for one graph.  Returns a [1] f64
     tensor."""
     dev = comm.device
-    le = torch.zeros((), dtype=torch.float64, device=dev)
+    le = torch.zeros((), dtype=torch.float64, device=dev)  # graftlint: disable=R003 — Q's e term in f64: the H100 sums in real f64
     for plan in plans:
         le = le + _inside_weight(plan, comm, comm)
     comm_deg64 = seg.segment_sum(vdeg.double(), comm, nv_total)
@@ -582,18 +582,18 @@ def _inside_weight(plan: DevicePlan, comm_v: torch.Tensor,
     their tails (the same vector on one device and under the replicated
     exchange; the owned slice and the extended-local one under the
     sparse exchange)."""
-    le = torch.zeros((), dtype=torch.float64, device=comm_v.device)
+    le = torch.zeros((), dtype=torch.float64, device=comm_v.device)  # graftlint: disable=R003 — Q's e term in f64: the H100 sums in real f64
     for verts, dst, w, _deg in plan.buckets:
         # Padding slots (the row's own vertex, weight 0) add nothing.
         same = comm_d[dst.long()] == comm_v[verts.long()][:, None]
-        le = le + torch.where(same, w, 0.0).sum(dtype=torch.float64)
+        le = le + torch.where(same, w, 0.0).sum(dtype=torch.float64)  # graftlint: disable=R003 — Q's e term in f64: the H100 sums in real f64
     lay = plan.heavy
     if lay is not None:
         hub = torch.repeat_interleave(
             lay.verts, lay.offsets[1:] - lay.offsets[:-1],
             output_size=lay.dst.numel())
         same = comm_d[lay.dst.long()] == comm_v[hub.long()]
-        le = le + torch.where(same, lay.w, 0.0).sum(dtype=torch.float64)
+        le = le + torch.where(same, lay.w, 0.0).sum(dtype=torch.float64)  # graftlint: disable=R003 — Q's e term in f64: the H100 sums in real f64
     return le
 
 
@@ -801,12 +801,12 @@ def sharded_bucketed_step(mp: MeshPlan, comms: list, vdegs: list,
     if sparse:
         envs = mp.env(comms, vdegs, info_comms)
     else:
-        comm_full = all_gather(comms, mesh)
+        comm_full = all_gather(comms, mesh)  # graftlint: replicated-ok=scope=ici; the replicated exchange's community vector — flat-mesh-only (a hybrid mesh runs the two-level exchange), so the gather never spans more than one ICI group; the sparse/two-level exchanges are the fix past the cutover
         deg_parts, size_parts = [], []
         for info, vdeg in zip(comms if info_comms is None else info_comms,
                               vdegs):
-            deg_parts.append(seg.segment_sum(vdeg.double(), info, nv_total))
-            size_parts.append(seg.segment_sum(torch.ones_like(info), info,
+            deg_parts.append(seg.segment_sum(vdeg.double(), info, nv_total))  # graftlint: replicated-ok=scope=ici; replicated-exchange community degree table, flat-mesh-only (one ICI group); sparse/two-level modes ride the ghost plan instead
+            size_parts.append(seg.segment_sum(torch.ones_like(info), info,  # graftlint: replicated-ok=scope=ici; replicated-exchange community size table, flat-mesh-only (one ICI group); sparse/two-level modes attach sizes to ghosts instead
                                               nv_total))
         comm_deg64 = psum(deg_parts, mesh)
         comm_size = psum(size_parts, mesh)
@@ -876,25 +876,25 @@ def sharded_bucketed_modularity(mps: list, comms: list, vdegs: list,
         envs = mp0.env(comms, vdegs)
         les = []
         for i, (comm, env) in enumerate(zip(comms, envs)):
-            le = torch.zeros((), dtype=torch.float64, device=comm.device)
+            le = torch.zeros((), dtype=torch.float64, device=comm.device)  # graftlint: disable=R003 — Q's e term in f64: the H100 sums in real f64
             for mp in mps:
                 le = le + _inside_weight(mp.plans[i], comm, env.comm_ext)
                 hs, hd, hw = mp.heavy_edges[i]
                 same = env.comm_ext[hd.long()] == comm[hs.long()]
                 le = le + torch.where(same, hw, 0.0).sum(
-                    dtype=torch.float64)
+                    dtype=torch.float64)  # graftlint: disable=R003 — Q's e term in f64: the H100 sums in real f64
             les.append(le)
         q = sparse_modularity(les, [e.deg_local for e in envs], constant,
                               mesh, twolevel=mp0.exchange == "twolevel")
         return q, psum([e.overflow.long() for e in envs], mesh)[0] > 0
-    comm_full = all_gather(comms, mesh)
+    comm_full = all_gather(comms, mesh)  # graftlint: replicated-ok=scope=ici; replicated-exchange mod pass, flat-mesh-only (hybrid meshes take the sparse/two-level branch above)
     les = []
     for i, comm in enumerate(comms):
-        le = torch.zeros((), dtype=torch.float64, device=comm.device)
+        le = torch.zeros((), dtype=torch.float64, device=comm.device)  # graftlint: disable=R003 — Q's e term in f64: the H100 sums in real f64
         for mp in mps:
             le = le + _inside_weight(mp.plans[i], comm_full[i], comm_full[i])
         les.append(le)
-    comm_deg64 = psum([seg.segment_sum(v.double(), c, nv_total)
+    comm_deg64 = psum([seg.segment_sum(v.double(), c, nv_total)  # graftlint: replicated-ok=scope=ici; replicated-exchange mod pass, flat-mesh-only (hybrid meshes take the sparse/two-level branch above)
                        for c, v in zip(comms, vdegs)], mesh)[0]
     le = psum(les, mesh)[0]
     q = le * constant - comm_deg64.square().sum() * constant * constant

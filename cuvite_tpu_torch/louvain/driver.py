@@ -426,7 +426,7 @@ class PhaseRunner:
             et_delta=et_delta, real_mask=self.real_mask,
             host_et=self.class_plans is not None)
         self.labels_dev = past
-        return past.cpu().numpy(), prev_mod, iters
+        return past.cpu().numpy(), prev_mod, iters  # graftlint: disable=R010 — THE per-phase label sync chokepoint
 
 
 class MeshPhaseRunner:
@@ -1420,10 +1420,10 @@ def _run_fused(graph: Graph, *, threshold: float, threshold_cycling: bool,
             *slab, num_vertices=real_nv, num_edges=real_ne, nv_pad=nv_pad,
             policy=graph.policy,
             total_weight_twice=graph.total_edge_weight_twice())
-        final_q = phase_modularity(dgq, labels.cpu().numpy(), slab)
+        final_q = phase_modularity(dgq, labels.cpu().numpy(), slab)  # graftlint: disable=R010 — final labels, O(V), for the host f64 Q
     return LouvainResult(
         # The one O(V) device-to-host transfer of the labels.
-        communities=comm_all.cpu().numpy().astype(np.int64),
+        communities=comm_all.cpu().numpy().astype(np.int64),  # graftlint: disable=R010 — the allowlisted final label gather
         modularity=final_q,
         phases=phases,
         total_iterations=tot_iters,

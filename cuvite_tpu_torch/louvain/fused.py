@@ -150,7 +150,7 @@ def fused_louvain(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
         tot_iters += iters
         if (mod - prev_mod) > 1e-6:
             keep(past, mod, iters, conv)
-    ncs = torch.stack(counts).tolist() if counts else []
+    ncs = torch.stack(counts).tolist() if counts else []  # graftlint: disable=R010 — scalar/stat-only sync, O(max_phases)
     return FusedResult(
         labels=labels, modularity=prev_mod,
         phases=[FusedPhase(m, i, int(n), c)

@@ -112,7 +112,7 @@ def phase_loop(sweep, comm0, threshold: float, *,
             vals = [mod, (target != comm).sum().double()]
         if et_stop:
             vals.append(total(active).double())
-        read = torch.stack(vals).tolist()   # the one host read per sweep
+        read = torch.stack(vals).tolist()   # the one host read per sweep  # graftlint: disable=R010 — scalar/stat-only sync, O(1) a sweep
         if on_mesh and read[2]:
             raise BudgetOverflow(f"sweep {iters} overflowed the budget")
         q = read[0]

@@ -154,12 +154,12 @@ def sharded_step(mesh, srcs: list, dsts: list, ws: list, comms: list,
     ``constant`` = 1/(2m)."""
     nv = comms[0].shape[0]
     nv_total = mesh.size * nv
-    comm_full = all_gather(comms, mesh)
+    comm_full = all_gather(comms, mesh)  # graftlint: replicated-ok=scope=ici; the sort engine's community vector (sort engine is flat-mesh-only; a flat mesh is one ICI group)
     deg_parts, size_parts = [], []
     for comm, vdeg in zip(comms, vdegs):
         comm_l = comm.long()
-        deg_parts.append(seg.segment_sum(vdeg.double(), comm_l, nv_total))
-        size_parts.append(seg.segment_sum(torch.ones_like(comm_l), comm_l,
+        deg_parts.append(seg.segment_sum(vdeg.double(), comm_l, nv_total))  # graftlint: replicated-ok=scope=ici; replicated-exchange community degree table (sort engine is flat-mesh-only; a flat mesh is one ICI group)
+        size_parts.append(seg.segment_sum(torch.ones_like(comm_l), comm_l,  # graftlint: replicated-ok=scope=ici; replicated-exchange community size table (sort engine is flat-mesh-only; a flat mesh is one ICI group)
                                           nv_total))
     comm_deg64 = psum(deg_parts, mesh)
     comm_size = psum(size_parts, mesh)

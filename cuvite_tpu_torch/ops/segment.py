@@ -91,7 +91,7 @@ class TenantConstants(NamedTuple):
         c = float(constant)
         return TenantConstants(
             c32=torch.full((1,), c, dtype=torch.float32, device=device),
-            c64=torch.full((1,), c, dtype=torch.float64, device=device))
+            c64=torch.full((1,), c, dtype=torch.float64, device=device))  # graftlint: disable=R003 — 1/(2m) for Q in f64: the H100 sums in real f64
 
 
 def modularity_terms(counter0: torch.Tensor, comm_deg: torch.Tensor,

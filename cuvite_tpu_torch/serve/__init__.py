@@ -26,7 +26,8 @@ daemon's ``delta`` verb (``daemon --stream-budget-mb``).
 The serve benches are ``workloads/bench.py`` (``run_serve_bench``,
 ``run_mixed_serve_bench``), and ``--trace-out`` writes the flight
 recorder's trace.  Not ported yet: the concurrency checker's cooperative
-scheduler (``ROADMAP.md`` queue A item 9).
+scheduler (``ROADMAP.md`` queue A item A9 step 4: ``concheck`` and its
+``Scheduler``).
 """
 
 from cuvite_tpu_torch.serve.admission import (

@@ -6,8 +6,9 @@ from the factories below, which return the plain ``threading``
 primitives.  The reference also returns scheduler-backed twins inside
 ``activated(scheduler)``, so that its concurrency checker can run the
 daemon under a seeded cooperative schedule; that ``Scheduler`` is not
-ported (``ROADMAP.md`` queue A item 9, the analysis tiers), so
-:func:`active_scheduler` is always None and :class:`activated` refuses.
+ported (``ROADMAP.md`` queue A item A9 step 4: ``concheck`` and its
+``Scheduler``), so :func:`active_scheduler` is always None and
+:class:`activated` refuses.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ class activated:
     def __enter__(self):
         raise RuntimeError(
             "serve.sync: the cooperative Scheduler of the concurrency "
-            "checker is not ported (ROADMAP.md queue A item 9)")
+            "checker is not ported (ROADMAP.md queue A item A9 step 4: "
+            "concheck and its Scheduler)")
 
     def __exit__(self, *exc) -> None:
         return None

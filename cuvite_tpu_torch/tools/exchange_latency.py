@@ -164,7 +164,7 @@ def flat_rows(mesh, args, barrier=None, echo: bool = False) -> list:
         n = 1 << k
         xs = [torch.ones(n, dtype=torch.float32, device=d)
               for d in mesh.devices]
-        t_ag = timed(lambda: all_gather(xs, mesh))
+        t_ag = timed(lambda: all_gather(xs, mesh))  # graftlint: replicated-ok=scope=bench; launch-latency microbenchmark measuring this collective itself, not a product table
         t_ps = timed(lambda: psum(xs, mesh))
         # all_to_all: the same per-shard element count, [S, n/S] blocks
         # (padded so that every pair's block is non-empty).

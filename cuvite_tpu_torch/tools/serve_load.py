@@ -324,7 +324,7 @@ def cmd_daemon(args, dev) -> int:
         ready = _read_ready(proc, args.ready_timeout)
         port = ready["port"]
         # Loopback to the daemon this tool just spawned.
-        conn = socket.create_connection(("127.0.0.1", port), timeout=30.0)
+        conn = socket.create_connection(("127.0.0.1", port), timeout=30.0)  # graftlint: disable=R009 — localhost control channel to our own child process
         lines = conn.makefile("r", encoding="utf-8")
         events = {"result": 0, "failed": 0, "shed": 0, "rejected": 0,
                   "acked": 0, "refused": 0, "summary": None,

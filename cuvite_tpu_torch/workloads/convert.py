@@ -367,7 +367,7 @@ def _scatter_positions(rows: np.ndarray, cursor: np.ndarray) -> np.ndarray:
     counts = np.diff(np.append(first_idx, len(r_sorted)))
     # Advancing the caller's cursor is the contract: it is the per-row
     # fill state carried across spool chunks.
-    cursor[uniq_rows] += counts
+    cursor[uniq_rows] += counts  # graftlint: disable=R005
     pos = np.empty(len(rows), dtype=np.int64)
     pos[order] = pos_sorted
     return pos

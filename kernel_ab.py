@@ -43,6 +43,10 @@ import subprocess
 import sys
 import time
 
+# Seconds one tree's measuring child may take (its kernel build and its
+# graphs included) before it is killed.
+CHILD_TIMEOUT_S = 1800
+
 
 def _ms(torch, fn, reps=20, blocks=7):
     fn()
@@ -252,7 +256,7 @@ def main() -> int:
                             "--one", tree, "--scale", str(args.scale),
                             "--reps", str(args.reps)]
                            + (["--many"] if args.many else []),
-                           check=True)
+                           check=True, timeout=CHILD_TIMEOUT_S)
     return 0
 
 
