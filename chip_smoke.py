@@ -333,6 +333,16 @@ or without the cuvite_tpu_torch package beside it.  Phases:
    child, then warm from its cache through the same command line's main
    in this process; fails unless both exit 0 and the warm findings equal
    the cold ones; the findings by rule and both walls printed.
+40. (run after 39, before 33-34) the dynamic analysis tiers in one child
+   on cuda:0: concheck's scenarios (the clean ones without a finding,
+   the known-bug fixtures convicted), the width audit's --smoke (meta
+   entries at the R-MAT 28 shard shape, the boundary probes, the
+   zero-device-bytes spy), the compile and op audit against the cuda
+   section of its manifest (builds, loads and kernel forms, B002 on new
+   weights, host reads, uploads and launches a sweep, each entry's
+   launches joining the kernels line), and the mesh audit over shards
+   of cuda:0; fails on any finding; every finding, verdict and wall
+   printed.
    All four kernels (the size form as its own entry) printed as one JSON
    line, with their launches on every path (the bench's, the stream and
    the mesh paths' among them) and their batched forms' times.
@@ -5311,6 +5321,140 @@ def run_analysis() -> None:
     print("  warm findings equal the cold ones")
 
 
+# Phase 40: the dynamic analysis tiers on the card, in one child.
+
+AUDIT_TIMEOUT_S = 300
+# Schedules a concheck scenario walks here (tier-1 walks 200 on the CPU;
+# the known-bug fixtures convict within a few).
+AUDIT_CONCHECK_BUDGET = 8
+
+
+def audit_worker() -> int:
+    """``--audit-worker``: phase 40's four audits in this one process on
+    ``cuda:0``; prints one JSON object as its last line: each audit's
+    findings (as dicts), its wall, and the per-entry facts."""
+    import contextlib
+    import io
+
+    from cuvite_tpu_torch.analysis import concheck
+    from cuvite_tpu_torch.analysis.meshcheck import run_mesh_audit
+    from cuvite_tpu_torch.analysis.widthaudit import run_width_audit
+    from cuvite_tpu_torch.tools import compile_audit, width_audit
+
+    dev = "cuda:0"
+    doc = {}
+    t0 = time.perf_counter()
+    rows = []
+    inventory = concheck.serve_inventory()
+    for name, (factory, expect) in concheck.builtin_scenarios().items():
+        scen = factory()
+        scen.inventory = inventory
+        rep = concheck.explore(scen, budget=AUDIT_CONCHECK_BUDGET, seed=0,
+                               stop_on_failure=(expect == "detect"))
+        ok = rep.clean if expect == "clean" else not rep.clean
+        rows.append(dict(rep.summary(), expect=expect, ok=ok))
+    doc["concheck"] = {"wall": time.perf_counter() - t0, "rows": rows}
+
+    t0 = time.perf_counter()
+    found, reports = run_width_audit(list(width_audit.SMOKE_ENTRIES),
+                                     workloads=list(
+                                         width_audit.SMOKE_WORKLOADS),
+                                     device=dev)
+    doc["width"] = {"wall": time.perf_counter() - t0,
+                    "findings": [f.to_dict() for f in found],
+                    "spy": reports["spy"],
+                    "entries": {k: v for k, v in reports.items()
+                                if k not in ("spy", "probes")},
+                    "probes": reports.get("probes", {})}
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = compile_audit.run_audit(device=dev)
+    doc["compile"] = {"wall": time.perf_counter() - t0,
+                      "entries": [r.to_dict() for r in results]}
+
+    t0 = time.perf_counter()
+    found, reports = run_mesh_audit(device=dev)
+    doc["mesh"] = {"wall": time.perf_counter() - t0,
+                   "findings": [f.to_dict() for f in found],
+                   "entries": {n: {t: {"sweeps": r.sweeps,
+                                       "collectives_a_sweep": len(r.seq),
+                                       "ledger": r.categories}
+                                   for t, r in by.items()}
+                               for n, by in reports.items()}}
+    print(json.dumps(doc, default=str))
+    return 0
+
+
+def run_audits() -> dict:
+    """Phase 40: concheck's self-check (clean scenarios without findings,
+    the known-bug fixtures convicted), ``width_audit --smoke`` with the
+    zero-device-bytes spy on ``cuda:0``, the compile and op audit on the
+    card (the manifest's ``cuda`` budgets, B002 on new content, host
+    reads and launches a sweep) and the mesh audit over shards of
+    ``cuda:0``, in one child; fails on any finding or unexpected verdict.
+    Returns the compile audit's launches by entry, for the kernels line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--audit-worker"],
+            cwd=root, capture_output=True, text=True,
+            timeout=AUDIT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"the audits' child: no exit within {AUDIT_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if out.returncode or not out.stdout.strip():
+        fail(f"the audits' child exited {out.returncode}:\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = []
+    cc = doc["concheck"]
+    print(f"  concheck: {cc['wall']:.2f} s, {AUDIT_CONCHECK_BUDGET} "
+          "schedules a scenario")
+    for r in cc["rows"]:
+        print(f"    {r['scenario']}: expect {r['expect']}, "
+              f"{r['schedules']} schedules ({r['distinct_interleavings']} "
+              f"distinct), {r['failing_schedules']} failing, {r['races']} "
+              f"races, replay {r['replay'][:1]} "
+              f"[{'ok' if r['ok'] else 'FAIL'}]")
+        if not r["ok"]:
+            bad.append(f"concheck {r['scenario']} (expect {r['expect']})")
+    wd = doc["width"]
+    print(f"  width audit (--smoke, meta on cuda:0): {wd['wall']:.2f} s, "
+          f"spy {wd['spy']}")
+    for wname, per in sorted(wd["entries"].items()):
+        for name, rep in sorted(per.items()):
+            print(f"    {wname} {name}: {rep['mode']} nv={rep['nv']} "
+                  f"ne={rep['ne']} sorts={rep['sorts']}")
+    print(f"    probes: {wd['probes']}")
+    cp = doc["compile"]
+    print(f"  compile and op audit on cuda:0: {cp['wall']:.2f} s")
+    launches = {}
+    for e in cp["entries"]:
+        print(f"    {e['entry']}: first run {e['observed']}, content "
+              f"change {e['recompiled']}, {e['sweeps']} sweeps, reads "
+              f"{e['reads']}, launches a sweep {e['launches_per_sweep']}")
+        launches[f"audit {e['entry']}"] = e["launches"]
+    ms = doc["mesh"]
+    print(f"  mesh audit over shards of cuda:0: {ms['wall']:.2f} s")
+    for name, by in ms["entries"].items():
+        print(f"    {name}: " + ", ".join(
+            f"{t} {r['sweeps']} sweeps {r['collectives_a_sweep']} "
+            "collectives a sweep" for t, r in sorted(by.items())))
+    findings = wd["findings"] + ms["findings"] + [
+        f for e in cp["entries"] for f in e["findings"]]
+    for f in findings:
+        print(f"    {f['rule']} {f['path']}: {f['message'][:300]}")
+    if findings:
+        bad.append(f"{len(findings)} audit findings "
+                   f"({sorted({f['rule'] for f in findings})})")
+    print(f"  phase 40 child: {wall:.1f} s, its start included")
+    if bad:
+        fail(f"phase 40: {'; '.join(bad)}")
+    return launches
+
+
 def run_multiprocess_only(args, cards: list) -> int:
     """``--only-multiprocess``: phase 30's, 35's colored and 36's 2x2
     one-process runs as the reference, then phases 33-34, then on a host
@@ -5380,6 +5524,8 @@ def main() -> int:
     ap.add_argument("--batch-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)
     ap.add_argument("--tool-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--audit-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         return rank_worker(args.rank_worker)
@@ -5387,6 +5533,8 @@ def main() -> int:
         return batch_worker(args.batch_worker)
     if args.tool_worker:
         return tool_worker(args.tool_worker)
+    if args.audit_worker:
+        return audit_worker()
 
     # The run uses one card: show torch only that one, so the device count
     # on the last line is the count the run used.  Phases 33-34 start their
@@ -5814,6 +5962,12 @@ def main() -> int:
           "its cache")
     run_analysis()
     print(f"  phase 39 took {time.perf_counter() - t39:.1f} s")
+
+    t40 = time.perf_counter()
+    print("[40] the dynamic analysis tiers on the card, in one child: "
+          "concheck, the width, compile and mesh audits")
+    paths.update(run_audits())
+    print(f"  phase 40 took {time.perf_counter() - t40:.1f} s")
 
     paths.update(run_multiprocess(g_rmat, args.scale, S, cards,
                                   one_process))

@@ -1,6 +1,5 @@
-"""graftlint for the port — AST-based static analysis of
-``cuvite_tpu_torch`` (port of ``cuvite_tpu/analysis``, tiers 1, 2, 2b,
-4 static and 5 static).
+"""graftlint for the port — static and dynamic analysis of
+``cuvite_tpu_torch`` (port of ``cuvite_tpu/analysis``, every tier).
 
 The properties the port depends on are mostly not testable at unit-test
 cost: every rank must issue the same collectives in the same order and
@@ -10,9 +9,12 @@ layer's shared counters must hold their locks.  graftlint encodes them
 as lint rules so every change is checked at AST-walk cost instead of
 multi-card reproduction cost.
 
-It is a host-only tool: it imports ``ast`` and the standard library,
-never torch, jax or ``cuvite_tpu``, and never touches a device (the
-port's rule that entry points run on the card does not apply to it).
+The static tiers are host-only: they import ``ast`` and the standard
+library, never torch, jax or ``cuvite_tpu``, and never touch a device
+(the port's rule that entry points run on the card does not apply to
+them).  The dynamic tiers run the port (torch, imported lazily: neither
+this package's ``__init__`` nor ``python -m cuvite_tpu_torch.analysis``
+loads them) on the card when one is visible, else on the CPU.
 
 Layout:
   engine.py      — source loading, rule registry, the root tables
@@ -26,20 +28,31 @@ Layout:
                    check-then-act atomicity (R021) for serve/
   meshspec.py    — tier 5 (static): mesh scopes (R023), whole-program
                    collective divergence (R024), replication audit (R025)
+  widthcheck.py  — tier 6 (static): int32 bounds (R026), untied packs
+                   (R027), int32 slab reductions (R028)
+  concheck.py    — tier 4 (dynamic): the daemon under serve/sync.py's
+                   cooperative Scheduler, races, conservation, replay
+  op_audit.py    — tier 3 (dynamic): builds, loads and kernel forms
+                   (B001-B003), 64-bit ops, host reads and uploads in the
+                   sweep (J001-J003); the op recorder and sweep-root watch
+  meshcheck.py   — tier 5 (dynamic): collective sequences (M001), mesh
+                   neutrality (M002), bytes a shard (M003)
+  widthaudit.py  — tier 6 (dynamic): index widths (W001), boundary
+                   probes (W002), audit integrity (W003)
   cache.py       — incremental lint cache (content-hash keyed)
   baseline.json  — the port's own baseline
   __main__.py    — CLI: python -m cuvite_tpu_torch.analysis [paths]
 
-Not here yet: the dynamic concurrency checker (concheck and its
-cooperative Scheduler), the width rules (widthcheck, widthaudit) and the
-audits that run the program (the counterparts of jaxpr_audit and
-meshcheck).
+The audits' CLIs are ``python -m cuvite_tpu_torch.analysis.concheck`` and
+``python -m cuvite_tpu_torch.tools.width_audit|compile_audit|mesh_audit``,
+their manifests beside the tools.
 
 Suppression syntax: ``# graftlint: disable=R001`` on the flagged line,
 ``# graftlint: disable-file=R003`` in a file's first 20 lines;
 ``# graftlint: guarded-by=self.lock`` declares a field's lock (R019);
 ``# graftlint: replicated-ok=<reason>`` justifies an O(nv_total) buffer
-(R025).
+(R025); ``# graftlint: width-ok=<reason>`` a deliberate 32-bit or packed
+site (R026-R028).
 """
 
 from cuvite_tpu_torch.analysis.engine import (
@@ -62,6 +75,7 @@ from cuvite_tpu_torch.analysis import callgraph as _cg       # noqa: F401
 from cuvite_tpu_torch.analysis import lockset as _lockset    # noqa: F401
 from cuvite_tpu_torch.analysis import lockorder as _lockord  # noqa: F401
 from cuvite_tpu_torch.analysis import meshspec as _meshspec  # noqa: F401
+from cuvite_tpu_torch.analysis import widthcheck as _width   # noqa: F401
 from cuvite_tpu_torch.analysis.callgraph import (
     run_project,
     run_project_sources,

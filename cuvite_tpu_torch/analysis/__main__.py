@@ -50,18 +50,13 @@ from cuvite_tpu_torch.analysis import callgraph as _cg       # noqa: F401
 from cuvite_tpu_torch.analysis import lockset as _lockset    # noqa: F401
 from cuvite_tpu_torch.analysis import lockorder as _lockord  # noqa: F401
 from cuvite_tpu_torch.analysis import meshspec as _meshspec  # noqa: F401
+from cuvite_tpu_torch.analysis import widthcheck as _widthcheck  # noqa: F401
 
 # The port's tree, relative to the repo root (a glob expands there).
 DEFAULT_PATHS = ["cuvite_tpu_torch", "tests/test_torch_*.py",
                  "chip_smoke.py", "kernel_ab.py"]
 DEFAULT_BASELINE = os.path.join("cuvite_tpu_torch", "analysis",
                                 "baseline.json")
-
-# Reference rules with no entry in this registry, printed by --list-rules.
-NOT_REGISTERED = {
-    "R026-R028": "width rules (widthcheck, widthaudit): not ported yet "
-                 "(ROADMAP A9 step 5)",
-}
 
 _SARIF_LEVEL = {"high": "error", "medium": "warning", "low": "note"}
 
@@ -156,8 +151,6 @@ def main(argv=None) -> int:
             print(f"{rid}  [dropped] {why}")
         print("R014  [note  ] its jit/vmap half is dropped with R002 (no "
               "jit); the per-job upload half is R014 above")
-        for rid, why in sorted(NOT_REGISTERED.items()):
-            print(f"{rid}  [absent] {why}")
         return 0
 
     paths = args.paths

@@ -55,7 +55,7 @@ from cuvite_tpu_torch.analysis.rules import (
     host_sync_label,
 )
 
-SUMMARY_VERSION = 1
+SUMMARY_VERSION = 2
 
 
 def _classify_call(node: ast.Call):
@@ -135,10 +135,10 @@ def summarize(sf: SourceFile) -> dict:
             "sync_sites": facts["sync"],
             "pull_sites": facts["pull"],
         })
-    # The lock and mesh facts ride the same summary (and therefore the
-    # same incremental-cache entry).  Lazy import: both modules subclass
+    # The lock, mesh and width facts ride the same summary (and so the
+    # same incremental-cache entry).  Lazy import: the modules subclass
     # ProjectRule from THIS module.
-    from cuvite_tpu_torch.analysis import lockorder, meshspec
+    from cuvite_tpu_torch.analysis import lockorder, meshspec, widthcheck
 
     return {
         "version": SUMMARY_VERSION,
@@ -149,6 +149,7 @@ def summarize(sf: SourceFile) -> dict:
         "functions": funcs,
         "locks": lockorder.lock_summary(sf),
         "mesh": meshspec.mesh_summary(sf),
+        "width": widthcheck.width_summary(sf),
         "suppress": {str(ln): sorted(ids)
                      for ln, ids in sf._line_suppress.items()},
         "file_suppress": sorted(sf._file_suppress),

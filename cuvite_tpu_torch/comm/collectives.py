@@ -22,6 +22,13 @@ all-gather followed by a sum in shard order, so that every rank gets the
 one-process mesh's bits on any weights.  Convergence and the budget
 retry branch on those sums; every rank must take the same branch, or
 the collectives deadlock.
+
+The recording seam of the mesh audit (``analysis/meshcheck.py``):
+:func:`record_to` a list, and every call appends, in program order, its
+name, its scope (the mesh's axis: ``v``, or ``ici``/``dcn`` for a view of
+a hybrid mesh), the dtype and per-shard shapes of its input, the bytes of
+one shard's output, the size of the mesh it spans and which view it was.  Off (None, the
+default) it costs one test of a module global a call.
 """
 
 from __future__ import annotations
@@ -33,6 +40,26 @@ import torch.distributed as dist
 # own payload, each all-gather's local block and each all-to-all's send
 # buffer (the per-rank traffic the smoke reports).
 _SENT = [0]
+
+
+# The audit's log, or None.
+_LOG = None
+
+
+def record_to(log: list | None) -> list | None:
+    """Start recording into ``log`` (None stops); returns the prior log."""
+    global _LOG
+    prior, _LOG = _LOG, log
+    return prior
+
+
+def _note(name: str, xs: list, mesh, out: list) -> None:
+    y = out[0]
+    _LOG.append({"op": name, "scope": mesh.axis_name,
+                 "dtype": str(xs[0].dtype).split(".")[-1],
+                 "shapes": [tuple(x.shape) for x in xs],
+                 "out_bytes": int(y.numel()) * int(y.element_size()),
+                 "size": mesh.size, "view": id(mesh)})
 
 
 def sent_bytes() -> int:
@@ -64,12 +91,15 @@ def all_gather(xs: list, mesh) -> list:
     The blocks have one shape."""
     if mesh.group is not None:
         full = _gather_shards(xs, mesh).flatten(0, 1)
-        return [full] * len(xs)
-    out, cache = [], {}
-    for d in mesh.devices:
-        if d not in cache:
-            cache[d] = torch.cat([_to(x, d) for x in xs])
-        out.append(cache[d])
+        out = [full] * len(xs)
+    else:
+        out, cache = [], {}
+        for d in mesh.devices:
+            if d not in cache:
+                cache[d] = torch.cat([_to(x, d) for x in xs])
+            out.append(cache[d])
+    if _LOG is not None:
+        _note("all_gather", xs, mesh, out)
     return out
 
 
@@ -82,12 +112,16 @@ def psum(xs: list, mesh) -> list:
         total = parts[0]
         for x in parts[1:]:
             total = total + x
-        return [total] * len(xs)
-    d0 = mesh.devices[0]
-    total = _to(xs[0], d0)
-    for x in xs[1:]:
-        total = total + _to(x, d0)
-    return [_to(total, d) for d in mesh.devices]
+        out = [total] * len(xs)
+    else:
+        d0 = mesh.devices[0]
+        total = _to(xs[0], d0)
+        for x in xs[1:]:
+            total = total + _to(x, d0)
+        out = [_to(total, d) for d in mesh.devices]
+    if _LOG is not None:
+        _note("psum", xs, mesh, out)
+    return out
 
 
 def all_to_all(xs: list, mesh) -> list:
@@ -107,6 +141,10 @@ def all_to_all(xs: list, mesh) -> list:
         _SENT[0] += send.numel() * send.element_size()
         dist.all_to_all_single(recv, send, group=mesh.group)
         ys = recv.view(S, L, *rest).transpose(0, 1)
-        return list(ys.contiguous().unbind(0))
-    return [torch.stack([_to(x[t], d) for x in xs])
-            for t, d in enumerate(mesh.devices)]
+        out = list(ys.contiguous().unbind(0))
+    else:
+        out = [torch.stack([_to(x[t], d) for x in xs])
+               for t, d in enumerate(mesh.devices)]
+    if _LOG is not None:
+        _note("all_to_all", xs, mesh, out)
+    return out

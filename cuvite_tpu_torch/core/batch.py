@@ -51,6 +51,10 @@ from cuvite_tpu_torch.louvain.bucketed import (
 MIN_NV_PAD = 4096
 MIN_NE_PAD = 16384
 
+# Widest folded id space of a batch (``fold_slab``): tenant b's vertex v
+# is b * nv_pad + v, and the padding id b * nv_pad, in int32.
+FOLD_ID_MAX = (1 << 31) - 1
+
 # The batch-size ladder: B pads to the smallest member >= n_jobs (counts
 # above the top rung pad to the next pow2).
 BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64)
@@ -303,10 +307,15 @@ def fold_slab(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
     b * nv_pad + v, padding rows src == B * nv_pad.  Real rows stay in
     ascending folded order when each tenant's are ascending."""
     b = src.shape[0]
+    if b * nv_pad > FOLD_ID_MAX:
+        raise ValueError(
+            f"fold_slab: {b} tenants of {nv_pad} vertices fold past "
+            f"FOLD_ID_MAX = {FOLD_ID_MAX}: the int32 folded ids would wrap; "
+            "split the batch")
     base = torch.arange(b, device=src.device)[:, None] * nv_pad
     src_f = torch.where(src < nv_pad, src + base, b * nv_pad)
-    return (src_f.to(torch.int32).reshape(-1),
-            (dst + base).to(torch.int32).reshape(-1), w.reshape(-1))
+    return (src_f.to(torch.int32).reshape(-1),  # graftlint: width-ok=folded ids <= b * nv_pad <= FOLD_ID_MAX (the raise above)
+            (dst + base).to(torch.int32).reshape(-1), w.reshape(-1))  # graftlint: width-ok=folded ids < b * nv_pad <= FOLD_ID_MAX (the raise above)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -249,7 +249,7 @@ def dense_accumulate_plain(src, dst, w, *, grid: int):
     s, d = src.long(), dst.long()
     tenant = torch.arange(b, device=src.device)[:, None]
     real = (s >= 0) & (s < grid) & (d >= 0) & (d < grid)
-    flat = torch.where(real, (((tenant << kbits) | s) << kbits) | d, n)
+    flat = torch.where(real, (((tenant << kbits) | s) << kbits) | d, n)  # graftlint: width-ok=int64 key below B * grid^2, grid <= FLAT_NV_MAX = 2^15 (_kbits raises past it)
     acc = torch.zeros(n + 1, dtype=torch.float64, device=src.device)  # graftlint: disable=R003 — the plain twin's weight sums in f64: the H100 sums in real f64
     acc.index_add_(0, flat.reshape(-1),
                    torch.where(real, w, 0.0).double().reshape(-1))

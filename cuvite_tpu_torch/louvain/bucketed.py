@@ -917,7 +917,7 @@ def _sparse_hubs(edges, env, comm, vdeg, sl, c32, best_c, best_gain,
         torch.where(ckey == csrc, hw, 0.0).double(), hs, nv).float()
     eix = counter0 - sl
     # One stable sort by (hub, community): ids are below 2^31.
-    k_s, order = torch.sort((hs.long() << 31) | ckey.long(), stable=True)
+    k_s, order = torch.sort((hs.long() << 31) | ckey.long(), stable=True)  # graftlint: width-ok=int64 key of two int32 ids below 2^31: 62 bits
     src_s = (k_s >> 31).long()
     ckey_s = (k_s & SENTINEL).to(torch.int32)
     w_s = hw[order]

@@ -18,13 +18,20 @@ with a ``main(argv=None) -> int`` that tests call in-process:
 - ``trace_step``: three chained sweeps under ``torch.profiler``, the top
   device kernels by self time;
 - ``weighted_ingest_bench``: a weighted R-MAT edge list to CSR, the
-  builder the dispatch chose and the memory high-water mark.
+  builder the dispatch chose and the memory high-water mark;
+- ``width_audit``, ``compile_audit``, ``mesh_audit``: the dynamic
+  analysis tiers' audits (``analysis/widthaudit.py``, ``op_audit.py``,
+  ``meshcheck.py``), their manifests (``width_budget.json``,
+  ``compile_budget.json``, ``replication_budget.json``) beside them.
 
-Every command runs on the CUDA card unless ``--device cpu`` is given and
-exits 2 without a card (no silent CPU fallback); it writes files only
-where an ``--out``, ``--out-prefix`` or ``--log`` argument says.  Every
-blocking child process carries a timeout.  Not ported: the reference's
-TPU-only and audit tools, and its JAX set-up (``--host-devices``,
+Every measuring command runs on the CUDA card unless ``--device cpu`` is
+given and exits 2 without a card (no silent CPU fallback); the three
+audits are analysis tools, and run as the reference's do: on the card
+when one is visible, else on the CPU, saying which.  Commands write
+files only where an ``--out``, ``--out-prefix`` or ``--log`` argument
+says (``--write-budget``/``--write-manifest`` rewrite the manifests).
+Every blocking child process carries a timeout.  Not ported: the
+reference's TPU-only tools and its JAX set-up (``--host-devices``,
 ``XLA_FLAGS``, the compile cache).
 """
 

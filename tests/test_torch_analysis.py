@@ -723,11 +723,11 @@ def test_dropped_rules_are_listed_with_their_reason(capsys):
         line = next(ln for ln in out.splitlines()
                     if ln.startswith(rid) and word in ln)
         assert "dropped" in line, line
-    assert "R026-R028" in out and "not ported yet" in out
+    assert "not ported yet" not in out
     ported = {"R001", "R003", "R004", "R005", "R006", "R007", "R008",
               "R009", "R010", "R012", "R013", "R014", "R015", "R016",
               "R017", "R018", "R019", "R020", "R021", "R022", "R023",
-              "R024", "R025", "R029"}
+              "R024", "R025", "R026", "R027", "R028", "R029"}
     assert registered == ported
 
 
@@ -1043,6 +1043,21 @@ def test_the_port_tree_covers_every_default_path(port_findings):
 # the tier-1 fixtures above do not use: a device-path root
 # (louvain/step.py), a phase-transition module (coarsen/), a mesh entry
 # (louvain/loop.py::phase_loop) fed a flat mesh, and serve/ for R020.
+# One known-bad fixture of each width rule, in torch idiom (R026 an int32
+# arange past 2^31, R027 an untied int32 pack, R028 an int32 cast of a
+# cumsum over an edge-slab extent).
+WIDTH_BAD = {
+    PKG + "ops/fake_width.py": """
+import torch
+
+def bad_width(src, nv_pad, ne_pad, kbits):
+    a = torch.arange(ne_pad * nv_pad, dtype=torch.int32)
+    key = (src.to(torch.int32) << kbits) | src.to(torch.int32)
+    runs = torch.cumsum(src != 0, 0).int()
+    return a, key, runs
+""",
+}
+
 PROJECT_BAD = {
     PKG + "louvain/step.py": """
 from cuvite_tpu_torch.fake_deep import deep_pull
@@ -1113,6 +1128,7 @@ def test_cli_gate_in_a_child_and_a_bad_copy_fails(tmp_path):
             files[rel] = text
     assert not set(files) & set(PROJECT_BAD)
     files.update(PROJECT_BAD)
+    files.update(WIDTH_BAD)
     roots = _write_tree(tmp_path / "tree", files)
     out = subprocess.run(
         [sys.executable, "-m", "cuvite_tpu_torch.analysis", *roots,
@@ -1122,7 +1138,8 @@ def test_cli_gate_in_a_child_and_a_bad_copy_fails(tmp_path):
     named = set(re.findall(r": (R\d{3}) \[", out.stdout))
     want = {c[0] for c in TORCH_CASES} | {i for c in PARITY_CASES
                                           for i in c[0]}
-    want |= {"R017", "R018", "R020", "R023", "R024", "R025"}
+    want |= {"R017", "R018", "R020", "R023", "R024", "R025", "R026",
+             "R027", "R028"}
     assert want == {r.id for r in all_rules()}
     assert want <= named, sorted(want - named)
 
@@ -1144,8 +1161,14 @@ def test_the_analysis_imports_no_jax_and_no_reference():
 
 
 def test_the_scheduler_refusal_names_a9_step_4():
+    # A9 step 4 is ported: activated() installs a Scheduler, and the one
+    # refusal left is a second scheduler while one is active.
     from cuvite_tpu_torch.serve import sync
 
-    with pytest.raises(RuntimeError, match="A9 step 4: concheck"):
-        with sync.activated(object()):
-            pass
+    sched = sync.Scheduler(seed=0)
+    with sync.activated(sched):
+        assert sync.active_scheduler() is sched
+        with pytest.raises(RuntimeError, match="already active"):
+            with sync.activated(sync.Scheduler(seed=1)):
+                pass
+    assert sync.active_scheduler() is None
