@@ -1,0 +1,7 @@
+"""Host seconds a solve in the system's 'evaluate' stage (its Tracer span)."""
+
+from benchmark.harness.readers import stage_per_unit
+
+
+def read(run):
+    return stage_per_unit(run, "solve", "evaluate")
