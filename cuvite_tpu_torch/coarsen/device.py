@@ -54,6 +54,7 @@ import torch
 
 from cuvite_tpu_torch.core.types import next_pow2
 from cuvite_tpu_torch.ops import segment as seg
+from cuvite_tpu_torch.utils.trace import NullTracer
 
 
 def device_coarsen_enabled() -> bool:
@@ -65,17 +66,21 @@ def device_coarsen_enabled() -> bool:
 
 
 def device_renumber(comm: torch.Tensor, real_mask: torch.Tensor, *,
-                    nv_pad: int) -> tuple:
+                    nv_pad: int, tracer=None) -> tuple:
     """Dense ids of the surviving labels, smallest label first (the
     ``np.unique`` order of ``rebuild.renumber_communities``).
 
     ``comm`` [nv_pad] labels in the padded id space, ``real_mask``
     [nv_pad] bool.  Returns ``(dense_map, nc)``: ``dense_map[c]`` is the
     dense id of surviving label c (entries of labels that survive nowhere
-    are meaningless), ``nc`` a 0-dim int64 tensor on the device."""
+    are meaningless), ``nc`` a 0-dim int64 tensor on the device.
+    ``tracer``: the scalar's upload, which blocks, is a ``host_read``
+    stage."""
+    tracer = tracer if tracer is not None else NullTracer()
     lab = torch.where(real_mask, comm.long(), nv_pad)
     present = torch.zeros(nv_pad + 1, dtype=torch.int64, device=comm.device)
-    present[lab] = 1
+    with tracer.stage("host_read"):
+        present[lab] = 1
     present = present[:nv_pad]   # padding labels land in the dropped slot
     dense_map = (torch.cumsum(present, 0) - present).to(comm.dtype)
     return dense_map, present.sum()
@@ -84,7 +89,7 @@ def device_renumber(comm: torch.Tensor, real_mask: torch.Tensor, *,
 def device_coarsen_slab(src: torch.Tensor, dst: torch.Tensor,
                         w: torch.Tensor, comm: torch.Tensor,
                         real_mask: torch.Tensor, *, nv_pad: int,
-                        coalesce: str | None = None) -> tuple:
+                        coalesce: str | None = None, tracer=None) -> tuple:
     """Relabel and coalesce the resident slab into the next phase's slab.
 
     ``src`` [ne] vertex ids (padding == nv_pad), ``dst`` [ne] tail ids
@@ -94,8 +99,10 @@ def device_coarsen_slab(src: torch.Tensor, dst: torch.Tensor,
     [0, ne2) and padding (src == nv_pad, dst == 0, w == 0) after;
     ``dense_map``/``nc`` as :func:`device_renumber`; ``ne2`` a Python
     int.  ``coalesce``: ``'dense'``, ``'sort'``, ``'msd'`` or ``'hash'``,
-    or None for ``coalesce_engine(nv_pad)``."""
-    dense_map, nc = device_renumber(comm, real_mask, nv_pad=nv_pad)
+    or None for ``coalesce_engine(nv_pad)``.  ``tracer``: its blocking
+    reads are ``host_read`` stages."""
+    dense_map, nc = device_renumber(comm, real_mask, nv_pad=nv_pad,
+                                    tracer=tracer)
     pad = src >= nv_pad
     safe_src = src.clamp(max=nv_pad - 1).long()
     csrc = dense_map[comm[safe_src].long()]
@@ -108,7 +115,8 @@ def device_coarsen_slab(src: torch.Tensor, dst: torch.Tensor,
 
         coalesce = coalesce_engine(nv_pad)
     src2, dst2, w2, ne2 = seg.coalesced_runs(
-        new_src, new_dst, w_in, nv_pad=nv_pad, engine=coalesce)
+        new_src, new_dst, w_in, nv_pad=nv_pad, engine=coalesce,
+        tracer=tracer)
     return src2, dst2, w2, dense_map, nc, ne2
 
 

@@ -40,6 +40,7 @@ import torch
 
 from cuvite_tpu_torch.louvain.bucketed import DEFAULT_BUCKETS, DevicePlan
 from cuvite_tpu_torch.utils.envknob import env_int
+from cuvite_tpu_torch.utils.trace import NullTracer
 
 # Plan-element ceiling of an eligible class's geometry (sum of rows x
 # width), as the reference's.
@@ -90,13 +91,17 @@ def rebin_eligible(nv_pad: int, ne_pad: int,
 
 
 def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
-                nv_local: int) -> DevicePlan:
+                nv_local: int, tracer=None) -> DevicePlan:
     """The ``DevicePlan`` of a slab on the device (module note): ``src``,
     ``dst`` int32 and ``w`` float32, 1-d, on one device.  Raises if a
-    vertex's degree exceeds the widest bucket (an ineligible slab)."""
+    vertex's degree exceeds the widest bucket (an ineligible slab).
+    ``tracer``: its blocking reads of the card are ``host_read``
+    stages."""
+    tracer = tracer if tracer is not None else NullTracer()
     dev = src.device
     real = src < nv_local
-    idx = torch.nonzero(real).squeeze(1)
+    with tracer.stage("host_read"):
+        idx = torch.nonzero(real).squeeze(1)
     s = src[idx].long()
     d = dst[idx]
     ww = w[idx]
@@ -106,10 +111,13 @@ def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
     row_start = torch.cumsum(deg, 0) - deg
     is_self = d.long() == s
     self_loop = torch.zeros(nv_local, dtype=torch.float64, device=dev)
-    self_loop.index_add_(0, s[is_self], ww[is_self].double())
+    with tracer.stage("host_read"):   # the masks' sizes
+        self_loop.index_add_(0, s[is_self], ww[is_self].double())
 
     # Class k holds degrees in (widths[k-1], widths[k]); degree 0 none.
-    bounds = torch.tensor(DEFAULT_BUCKETS, dtype=torch.int64, device=dev)
+    with tracer.stage("host_read"):   # a synchronous upload
+        bounds = torch.tensor(DEFAULT_BUCKETS, dtype=torch.int64,
+                              device=dev)
     n_cls = len(DEFAULT_BUCKETS)
     cls = torch.bucketize(deg, bounds)
     cls = torch.where(deg == 0, n_cls + 1, cls)
@@ -118,7 +126,8 @@ def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
     sizes[1].index_add_(0, cls, deg)
     # The one host read: the plan's shapes, and each class's edges for
     # the coverage accounting.
-    sizes, class_edges = sizes.tolist()
+    with tracer.stage("host_read"):
+        sizes, class_edges = sizes.tolist()
     if sizes[n_cls]:
         raise ValueError(
             f"device_plan: {sizes[n_cls]} vertices of degree above "

@@ -108,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 import time
 
@@ -240,15 +241,18 @@ class _Slab:
 
 
 def _phase_loop(sweeps: list, sizes: list, nv_pad: int,
-                running: np.ndarray, threshold: float, devices: list
-                ) -> tuple:
+                running: np.ndarray, threshold: float, devices: list,
+                tracer) -> tuple:
     """Every running tenant's phase from the identity assignment: the
     batched ``loop.phase_loop`` (reference ``_run_phase_loop`` under
     ``jax.vmap``), over the batch's blocks, block k holding the next
     ``sizes[k]`` tenants on ``devices[k]``.  ``sweeps[k](comm)`` returns
     (target [b_k * nv_pad] int32, Q [b_k] f64, moved [b_k]).  Each sweep
     is enqueued on every block that still has running rows before any
-    block's values are read (one host read a block and sweep).
+    block's values are read (one host read a block and sweep).  Each
+    round over the blocks is a ``sweep`` stage of ``tracer``, and a
+    block's read, stop test and advance-mask upload one ``host_read``
+    stage.
 
     The sweeps see folded ids (tenant b's community c is b * nv_pad + c
     within its block).  Returns (past [b_k, nv_pad] int32 of each block
@@ -268,47 +272,54 @@ def _phase_loop(sweeps: list, sizes: list, nv_pad: int,
     rows = [([], []) for _ in range(b)]
     run = running.copy()
     while run.any():
-        pending = []
-        for k, sweep in enumerate(sweeps):
-            if run[los[k]:los[k + 1]].any():
-                target, mod, moved = sweep(comms[k].reshape(-1))
-                pending.append((k, target, torch.stack([mod,
-                                                        moved.double()])))
-        for k, target, flags in pending:
-            read = flags.tolist()  # graftlint: disable=R010 — the one host read a block and sweep, O(B)
-            lo, bk = los[k], sizes[k]
-            advance = np.zeros(bk, dtype=bool)
-            for j in np.flatnonzero(run[lo:lo + bk]):
-                i = lo + j
-                q = read[0][j]
-                iters[i] += 1
-                stop = (q - prev[i]) < threshold
-                qs, mv = rows[i]
-                if len(qs) < CONV_ROWS_CAP:
-                    qs.append(q)
-                    mv.append(0 if stop else int(read[1][j]))
-                if stop:
-                    run[i] = False
-                    continue
-                prev[i] = max(q, -1.0)
-                advance[j] = True
-                if iters[i] >= MAX_TOTAL_ITERATIONS:
-                    run[i] = False
-            adv = torch.from_numpy(advance).to(devices[k])[:, None]
-            pasts[k] = torch.where(adv, comms[k], pasts[k])
-            comms[k] = torch.where(adv, target.view(bk, nv_pad), comms[k])
+        with tracer.stage("sweep"):
+            pending = []
+            for k, sweep in enumerate(sweeps):
+                if run[los[k]:los[k + 1]].any():
+                    target, mod, moved = sweep(comms[k].reshape(-1))
+                    pending.append((k, target, torch.stack([mod,
+                                                            moved.double()])))
+            for k, target, flags in pending:
+                # The read, the stop test and the advance-mask upload:
+                # one host_read a block and round.
+                with tracer.stage("host_read"):
+                    read = flags.tolist()  # graftlint: disable=R010 — the one host read a block and sweep, O(B)
+                    lo, bk = los[k], sizes[k]
+                    advance = np.zeros(bk, dtype=bool)
+                    for j in np.flatnonzero(run[lo:lo + bk]):
+                        i = lo + j
+                        q = read[0][j]
+                        iters[i] += 1
+                        stop = (q - prev[i]) < threshold
+                        qs, mv = rows[i]
+                        if len(qs) < CONV_ROWS_CAP:
+                            qs.append(q)
+                            mv.append(0 if stop else int(read[1][j]))
+                        if stop:
+                            run[i] = False
+                            continue
+                        prev[i] = max(q, -1.0)
+                        advance[j] = True
+                        if iters[i] >= MAX_TOTAL_ITERATIONS:
+                            run[i] = False
+                    adv = torch.from_numpy(advance).to(devices[k])[:, None]
+                pasts[k] = torch.where(adv, comms[k], pasts[k])
+                comms[k] = torch.where(adv, target.view(bk, nv_pad), comms[k])
     return [p - base for p, base in zip(pasts, bases)], prev, iters, rows
 
 
-def _constants(tw2: np.ndarray, device) -> TenantConstants:
+def _constants(tw2: np.ndarray, device, tracer=None) -> TenantConstants:
     """Each tenant's 1/(2m) as the gains (f32) and Q (f64) take it; 0 on
-    padding rows."""
+    padding rows.  The upload blocks: a ``host_read`` stage of
+    ``tracer``."""
+    tracer = tracer if tracer is not None else NullTracer()
     c64 = np.zeros(len(tw2))
     real = tw2 > 0
     c64[real] = 1.0 / tw2[real]
-    return TenantConstants(
-        c32=torch.from_numpy(c64.astype(np.float32)).to(device),
-        c64=torch.from_numpy(c64).to(device))
+    with tracer.stage("host_read"):
+        return TenantConstants(
+            c32=torch.from_numpy(c64.astype(np.float32)).to(device),
+            c64=torch.from_numpy(c64).to(device))
 
 
 def _phase_body(slab: _Slab, consts: TenantConstants) -> callable:
@@ -340,41 +351,47 @@ def _bucketed_phase_body(plan: DevicePlan, slab: _Slab,
     return sweep
 
 
-def _rebinned_phase_body(slab: _Slab, consts: TenantConstants) -> callable:
+def _rebinned_phase_body(slab: _Slab, consts: TenantConstants,
+                         tracer=None) -> callable:
     """A coarse phase of the bucketed engine (reference
     ``_rebinned_phase_body``): the plan built on the device from the
     folded coarse slab (``coarsen/rebin.device_plan``), then the bucketed
     sweep.  The caller checks ``rebin_eligible``."""
-    plan = device_plan(*slab.folded(), nv_local=slab.nv_total)
+    plan = device_plan(*slab.folded(), nv_local=slab.nv_total,
+                       tracer=tracer)
     return _bucketed_phase_body(plan, slab, consts)
 
 
 def _phase_tail(slab: _Slab, past: torch.Tensor, mod: np.ndarray,
                 prev_mod: np.ndarray, active: np.ndarray,
-                threshold: float) -> tuple:
+                threshold: float, tracer) -> tuple:
     """The phase epilogue shared by every engine (reference
     ``_phase_tail``): the gain test, the coarsening of the tenants that
     gained, and the masked exit of those that did not (slab retired to
-    padding, labels kept).  Returns (next _Slab, gained [B], nc [B],
-    ne2 [B], coalesce engine or None)."""
+    padding, labels kept).  Its gain-mask upload and its two reads are
+    ``host_read`` stages of ``tracer``.  Returns (next _Slab, gained [B], nc [B], ne2 [B],
+    coalesce engine or None)."""
     dev = slab.src.device
     b, nv = slab.src.shape[0], slab.nv_pad
     gained = active & ((mod - prev_mod) > threshold)
     if not gained.any():
         return slab, gained, np.zeros(b, np.int64), np.zeros(b, np.int64), \
             None
-    g = torch.from_numpy(gained).to(dev)[:, None]
+    with tracer.stage("host_read"):
+        g = torch.from_numpy(gained).to(dev)[:, None]
     src = torch.where(g, slab.src, nv)
     dst = torch.where(g, slab.dst, 0)
     w = torch.where(g, slab.w, 0.0)
     real_mask = slab.real_mask & g
     dmap, nc_d = batched_renumber(past, real_mask, nv_pad=nv)
-    nc = np.asarray(nc_d.tolist(), dtype=np.int64)  # graftlint: disable=R010 — phase-scalar sync, O(B)
+    with tracer.stage("host_read"):
+        nc = np.asarray(nc_d.tolist(), dtype=np.int64)  # graftlint: disable=R010 — phase-scalar sync, O(B)
     grid = next_pow2(int(nc.max()))
     engine = batched_coalesce_engine(nv, b, grid)
     src2, dst2, w2, ne2_d = batched_coarsen_slab(
         src, dst, w, past, dmap, nv_pad=nv, coalesce=engine, grid=grid)
-    ne2 = np.asarray(ne2_d.tolist(), dtype=np.int64)  # graftlint: disable=R010 — phase-scalar sync, O(B)
+    with tracer.stage("host_read"):
+        ne2 = np.asarray(ne2_d.tolist(), dtype=np.int64)  # graftlint: disable=R010 — phase-scalar sync, O(B)
     rm2 = torch.arange(nv, device=dev)[None, :] < nc_d[:, None]
     comm_all = torch.where(g, batched_compose_labels(dmap, past,
                                                      slab.comm_all),
@@ -550,7 +567,7 @@ def _prepare_block(batch: BatchedSlab, engine: str, bucket_shape, dev,
     with tracer.stage("upload"), (torch.cuda.stream(stream) if side
                                   else contextlib.nullcontext()):
         plan = (None if host_plan is None
-                else DevicePlan.upload(host_plan, dev))
+                else DevicePlan.upload(host_plan, dev, tracer=tracer))
         slab = _Slab(
             src=put(batch.src), dst=put(batch.dst), w=put(batch.w),
             real_mask=put(batch.real_mask),
@@ -560,7 +577,8 @@ def _prepare_block(batch: BatchedSlab, engine: str, bucket_shape, dev,
             ready = torch.cuda.Event()
             ready.record(stream)
         else:
-            finish_uploads(dev)
+            with tracer.stage("host_read"):
+                finish_uploads(dev)
     if side:
         # The pack window ends with the upload done (the pinned buffers
         # are free to go); the executor still orders itself after it.
@@ -623,7 +641,7 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
     devs = [blk.device for blk in blocks]
     sizes = [blk.b_pad for blk in blocks]
     los = np.cumsum([0] + sizes)
-    consts = [_constants(blk.tw2, blk.device) for blk in blocks]
+    consts = [_constants(blk.tw2, blk.device, tracer) for blk in blocks]
     slabs = [blk.slab for blk in blocks]
     coarse_class = None
     active = prep.row_valid.copy()
@@ -650,8 +668,8 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
         else:
             eng = _coarse_engine(prep.engine, slabs[0].nv_pad,
                                  slabs[0].ne_pad)
-            body = (_rebinned_phase_body if eng == "rebinned"
-                    else _phase_body)
+            body = (functools.partial(_rebinned_phase_body, tracer=tracer)
+                    if eng == "rebinned" else _phase_body)
         # A block none of whose tenants still clusters gets no phase.
         bodies = [None if not active[los[k]:los[k + 1]].any()
                   else _bucketed_phase_body(blk.plan, slabs[k], consts[k])
@@ -659,18 +677,19 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
                   for k, blk in enumerate(blocks)]
         phase_engines.append(eng)
         pasts, mod, iters, rows = _phase_loop(
-            bodies, sizes, slabs[0].nv_pad, active, threshold, devs)
+            bodies, sizes, slabs[0].nv_pad, active, threshold, devs, tracer)
         del bodies
         sweeps.append(int(iters.max()))
         gained, nc, ne2 = (np.zeros(b, dtype=bool), np.zeros(b, np.int64),
                            np.zeros(b, np.int64))
-        for k, past in enumerate(pasts):
-            lo, hi = los[k], los[k + 1]
-            slabs[k], gained[lo:hi], nc[lo:hi], ne2[lo:hi], ceng = \
-                _phase_tail(slabs[k], past, mod[lo:hi], prev_mod[lo:hi],
-                            active[lo:hi], threshold)
-            if ceng is not None:
-                coalesce.append(ceng)
+        with tracer.stage("coarsen"):
+            for k, past in enumerate(pasts):
+                lo, hi = los[k], los[k + 1]
+                slabs[k], gained[lo:hi], nc[lo:hi], ne2[lo:hi], ceng = \
+                    _phase_tail(slabs[k], past, mod[lo:hi], prev_mod[lo:hi],
+                                active[lo:hi], threshold, tracer)
+                if ceng is not None:
+                    coalesce.append(ceng)
         del pasts
         phase_wall = time.perf_counter() - t1
         share = phase_wall / max(int(active.sum()), 1)
@@ -705,13 +724,16 @@ def _execute_fold(prep: PreparedBatch, *, threshold: float,
             if (active.any() and (cnv, cne) != cur
                     and int(nc[active].max()) <= cnv
                     and int(ne2[active].max()) <= cne):
-                slabs = [_shrink_batch(slab, cnv, cne) for slab in slabs]
+                with tracer.stage("coarsen"):
+                    slabs = [_shrink_batch(slab, cnv, cne)
+                             for slab in slabs]
                 coarse_class = (cnv, cne)
         phase += 1
 
     # The one final label gather (one a block).
-    comm_all = np.concatenate([slab.comm_all.cpu().numpy()  # graftlint: disable=R010 — the allowlisted final label gather (batched)
-                               for slab in slabs])
+    with tracer.stage("host_read"):
+        comm_all = np.concatenate([slab.comm_all.cpu().numpy()  # graftlint: disable=R010 — the allowlisted final label gather (batched)
+                                   for slab in slabs])
     device_s = time.perf_counter() - t0
     results = []
     for i in range(prep.n_jobs):

@@ -97,6 +97,7 @@ from cuvite_tpu_torch.kernels.row_argmax import (
 )
 from cuvite_tpu_torch.ops import segment as seg
 from cuvite_tpu_torch.ops.segment import TenantConstants
+from cuvite_tpu_torch.utils.trace import NullTracer
 from cuvite_tpu_torch.utils.upload import (
     aligned_full,
     aligned_zeros,
@@ -407,7 +408,7 @@ class DevicePlan:
     @staticmethod
     def upload(plan: BucketPlan, device, base: int = 0,
                nv_total: int | None = None,
-               hubs: bool = True) -> "DevicePlan":
+               hubs: bool = True, tracer=None) -> "DevicePlan":
         """The real rows of every bucket (padding rows dropped) with their
         degrees, those the plan laid the rows out by.  A shard of a mesh
         under the replicated exchange passes its ``base`` and the mesh's
@@ -417,7 +418,10 @@ class DevicePlan:
         sorted path).  The arrays go through ``utils/upload.to_device``:
         on the card the copies are left in flight on the current stream
         (``finish_uploads`` waits for them), on the CPU the tensors alias
-        the plan's arrays, which no sweep writes."""
+        the plan's arrays, which no sweep writes.  ``tracer``: the hub
+        layout's copies, which block, are a ``host_read`` stage."""
+        tracer = tracer if tracer is not None else NullTracer()
+
         def put(a, dtype):
             return to_device(a, dtype, device)
 
@@ -443,9 +447,12 @@ class DevicePlan:
                 n = nv_total
             heavy = build_heavy_layout(hsrc, plan.heavy_dst, plan.heavy_w,
                                        nv_local=n)
+        if heavy is not None:
+            with tracer.stage("host_read"):
+                heavy = heavy.to(device)
         return DevicePlan(
             buckets=buckets,
-            heavy=None if heavy is None else heavy.to(device),
+            heavy=heavy,
             self_loop=put(plan.self_loop, torch.float32),
             perm=put(build_assemble_perm(real_verts, nv), torch.int64),
             widths=widths, bucket_edges=edges,

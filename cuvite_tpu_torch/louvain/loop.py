@@ -21,6 +21,7 @@ from cuvite_tpu_torch.core.types import (
     P_CUTOFF,
 )
 from cuvite_tpu_torch.obs.convergence import decode_phase_conv
+from cuvite_tpu_torch.utils.trace import NullTracer
 
 
 class BudgetOverflow(Exception):
@@ -33,7 +34,7 @@ class BudgetOverflow(Exception):
 def phase_loop(sweep, comm0, threshold: float, *,
                et_mode: int = 0, et_delta: float = 0.25,
                real_mask=None, active0=None, host_et: bool = False,
-               mesh=None) -> tuple:
+               mesh=None, tracer=None) -> tuple:
     """One phase (louvain.cpp:471-588): sweep from ``comm0`` until the gain
     drops below ``threshold``.  The sweep that gains too little is rolled
     back; the result is the assignment before it.
@@ -59,9 +60,11 @@ def phase_loop(sweep, comm0, threshold: float, *,
     active set of a warm start (``driver.warm_start_phase``).
     ``host_et``: make those float decisions as the reference's host loop
     (the class schedules) does, in Python floats, instead of as its
-    device loop, in float32.
+    device loop, in float32.  ``tracer``: each pass of the loop is a
+    ``sweep`` stage, and its read a ``host_read`` stage.
 
     Returns (past, Q of past, sweeps, PhaseConvergence)."""
+    tracer = tracer if tracer is not None else NullTracer()
     on_mesh = mesh is not None
     if on_mesh:
         from cuvite_tpu_torch.comm.collectives import psum
@@ -86,7 +89,8 @@ def phase_loop(sweep, comm0, threshold: float, *,
     et_stop = et_mode in (3, 4)
     if et_mode:
         active = real_mask if active0 is None else active0
-        nv_real = int(total(real_mask))
+        with tracer.stage("host_read"):
+            nv_real = int(total(real_mask))
         if host_et:
             cutoff = ET_CUTOFF * nv_real
             decay = float(np.float32(1.0 - et_delta))
@@ -98,49 +102,52 @@ def phase_loop(sweep, comm0, threshold: float, *,
                                               device=c.device), comm0)
     p_cut = float(np.float32(P_CUTOFF))
     while True:
-        out = sweep(comm, active)
-        target, mod = out[0], out[1]
-        if active is not None:
-            target = each(torch.where, active, target, comm)
-        iters += 1
-        if on_mesh and active is None:
-            vals = [mod, out[2].double(), out[3].double()]
-        elif on_mesh:
-            vals = [mod, total(each(torch.ne, target, comm)).double(),
-                    out[3].double()]
-        else:
-            vals = [mod, (target != comm).sum().double()]
-        if et_stop:
-            vals.append(total(active).double())
-        read = torch.stack(vals).tolist()   # the one host read per sweep  # graftlint: disable=R010 — scalar/stat-only sync, O(1) a sweep
-        if on_mesh and read[2]:
-            raise BudgetOverflow(f"sweep {iters} overflowed the budget")
-        q = read[0]
-        frozen_stop = False
-        if et_stop:
-            frozen = nv_real - int(read[-1])
-            frozen_stop = ((frozen if host_et else float(np.float32(frozen)))
-                           >= cutoff)
-        stop = frozen_stop or (q - prev_mod) < threshold
-        if len(qs) < CONV_ROWS_CAP:
-            qs.append(q)
-            moved_rows.append(0 if stop else int(read[1]))
-        if stop:
-            break
-        prev_mod = max(q, lower)
-        if et_mode and iters > 2:
-            if p_act is None:
-                active = each(lambda a, t, c, p: a & ~((t == c) & (c == p)),
-                              active, target, comm, past)
+        with tracer.stage("sweep"):
+            out = sweep(comm, active)
+            target, mod = out[0], out[1]
+            if active is not None:
+                target = each(torch.where, active, target, comm)
+            iters += 1
+            if on_mesh and active is None:
+                vals = [mod, out[2].double(), out[3].double()]
+            elif on_mesh:
+                vals = [mod, total(each(torch.ne, target, comm)).double(),
+                        out[3].double()]
             else:
-                decayed = each(lambda a, c, p: a & (c == p), active, comm,
-                               past)
-                p_act = each(lambda d, pa: torch.where(d, pa * decay, pa),
-                             decayed, p_act)
-                active = each(lambda a, d, pa: a & ~(d & (pa <= p_cut)),
-                              active, decayed, p_act)
-        past, comm = comm, target
-        if iters >= MAX_TOTAL_ITERATIONS:
-            break
+                vals = [mod, (target != comm).sum().double()]
+            if et_stop:
+                vals.append(total(active).double())
+            with tracer.stage("host_read"):
+                read = torch.stack(vals).tolist()   # the one host read per sweep  # graftlint: disable=R010 — scalar/stat-only sync, O(1) a sweep
+            if on_mesh and read[2]:
+                raise BudgetOverflow(f"sweep {iters} overflowed the budget")
+            q = read[0]
+            frozen_stop = False
+            if et_stop:
+                frozen = nv_real - int(read[-1])
+                frozen_stop = ((frozen if host_et
+                                else float(np.float32(frozen))) >= cutoff)
+            stop = frozen_stop or (q - prev_mod) < threshold
+            if len(qs) < CONV_ROWS_CAP:
+                qs.append(q)
+                moved_rows.append(0 if stop else int(read[1]))
+            if stop:
+                break
+            prev_mod = max(q, lower)
+            if et_mode and iters > 2:
+                if p_act is None:
+                    active = each(
+                        lambda a, t, c, p: a & ~((t == c) & (c == p)),
+                        active, target, comm, past)
+                else:
+                    decayed = each(lambda a, c, p: a & (c == p), active, comm,
+                                   past)
+                    p_act = each(lambda d, pa: torch.where(d, pa * decay, pa),
+                                 decayed, p_act)
+                    active = each(lambda a, d, pa: a & ~(d & (pa <= p_cut)),
+                                  active, decayed, p_act)
+            past, comm = comm, target
+            if iters >= MAX_TOTAL_ITERATIONS:
+                break
     return past, prev_mod, iters, decode_phase_conv(-1, iters, qs,
                                                     moved_rows)

@@ -14,6 +14,17 @@ Structured observability for every Louvain run:
 
 The trace and record schemas are the reference's, so one reader serves
 both packages.  Nothing here imports torch at module level.
+
+The device trace is the other half: under a ``torch.profiler`` the
+tracer's stages are ``cuvite/<stage>`` ranges on the profiler's clock
+(``utils/trace.py``), so the card's idle gaps can be read by the host
+stage open during them.  The JSONL trace keeps the drivers' stages
+(``plan``, ``upload``, ``rebin``, ``iterate``, ``evaluate``,
+``coarsen``, ``coalesce``, ``color``); the fine stages (``start``,
+``sweep``, ``host_read``, ``renumber``, ``finish``, and any stage
+opened inside an ``iterate``, such as a batch's ``coarsen``) are ranges
+and the tracer's ``fine_times`` and ``fine_calls`` only, so a trace's
+size does not grow with the sweeps.
 """
 
 from cuvite_tpu_torch.obs.compile_watch import CompileWatcher

@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from cuvite_tpu_torch.utils.trace import NullTracer
+
 # Widest edge slab one call may carry (reference ``:75``).  The port's
 # run ids and compaction counts are int64 and cannot wrap, but the guard
 # keeps the reference's contract: a larger slab is a caller error.
@@ -186,14 +188,19 @@ def sort_edges_msd(src: torch.Tensor, ckey: torch.Tensor, w: torch.Tensor,
 
 
 def coalesced_runs(src: torch.Tensor, ckey: torch.Tensor, w: torch.Tensor,
-                   *, nv_pad: int, engine: str = "sort") -> tuple:
+                   *, nv_pad: int, engine: str = "sort",
+                   tracer=None) -> tuple:
     """Segmented coalesce of one slab by (src, ckey) (reference ``:261``):
     :func:`coalesced_runs_batched` of a batch of one, any engine.  Returns
     ``(src_c, ckey_c, w_c, n)``: [ne_pad] arrays with the real rows in
-    [0, n) and padding after; ``n`` is a Python int."""
+    [0, n) and padding after; ``n`` is a Python int, whose read is a
+    ``host_read`` stage of ``tracer``."""
+    tracer = tracer if tracer is not None else NullTracer()
     src_c, ckey_c, w_c, n = coalesced_runs_batched(
         src[None], ckey[None], w[None], nv_pad=nv_pad, engine=engine)
-    return src_c[0], ckey_c[0], w_c[0], int(n[0])
+    with tracer.stage("host_read"):
+        n = int(n[0])
+    return src_c[0], ckey_c[0], w_c[0], n
 
 
 def compact_batched(keep: torch.Tensor, src_f: torch.Tensor,

@@ -13,6 +13,51 @@ drivers thread them unconditionally.  None of them reads a device value:
 ``track`` reads tensor metadata, and the drivers hand counters and events
 host values they already hold.
 
+Stages on the profiler's clock.  While a ``torch.profiler`` records, every
+``stage()`` window of an enabled tracer, and every ``begin_span()`` /
+``end_span()`` pair, also opens a ``torch.profiler.record_function``
+range named ``cuvite/<name>``, so the device trace names the host stage
+behind each launch and each idle gap.  With no profiler recording no
+range object is built, and this module never imports torch itself.
+
+The drivers' stages (:attr:`Tracer.CANONICAL_STAGES` and ``plan``,
+``evaluate``, ``color``) split a run into its pipeline.  Inside and
+between them the drivers open the fine stages of
+:attr:`Tracer.FINE_STAGES`, which name where the card waits on the host:
+
+  * ``start``     -- a solve's set-up before its first plan (the fused
+                     engine's sum of the weights for 1/(2m));
+  * ``sweep``     -- one round of a sweep loop (``louvain/loop.py``, and
+                     each round over a batch's blocks in
+                     ``louvain/batched.py``);
+  * ``host_read`` -- one blocking read of the card (a ``.tolist()``,
+                     ``.cpu()``, ``nonzero`` or synchronous upload);
+  * ``renumber``  -- a gained phase's label renumber and composition;
+  * ``finish``    -- the end of a solve: the final Q, renumber and label
+                     gather.
+
+Any other stage opened inside an ``iterate`` on the same thread is a fine
+stage too: a batch (``louvain_many``) times each phase's batched
+coarsening as stage ``coarsen`` there.  Fine stages count in
+:attr:`Tracer.fine_times` and :attr:`Tracer.fine_calls` and get their
+ranges, but stay out of ``times``, ``calls``, the flight recorder's
+spans, :meth:`Tracer.breakdown` and :meth:`Tracer.report`, which read
+the drivers' stages as they did before the fine ones existed.
+
+To read idle by stage, run a traced solve under the profiler and export
+its Chrome trace::
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cli.main(["--rmat", "20", "--trace"])   # or louvain_phases(
+                                                 # g, tracer=Tracer())
+    prof.export_chrome_trace("trace.json")
+
+Each gap between the card's kernels falls under the innermost
+``cuvite/`` range open on the host: that stage is what the card waited
+on.
+
 :func:`dist_stats_report` prints a partition's edge distribution, and
 :class:`ShardDiag` writes the per-shard files of ``--diag-prefix``.
 """
@@ -23,7 +68,32 @@ import contextlib
 import math
 import os
 import resource
+import sys
+import threading
 import time
+
+RANGE_PREFIX = "cuvite/"
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function`` range ``cuvite/<name>`` while a
+    torch profiler records, else None (no range object built)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rng = torch.profiler.record_function(RANGE_PREFIX + name)
+    rng.__enter__()
+    return rng
+
+
+class _RangedSpan:
+    """A ``begin_span`` handle that also holds the span's profiler range."""
+
+    __slots__ = ("sid", "rng")
+
+    def __init__(self, sid, rng):
+        self.sid = sid
+        self.rng = rng
 
 
 def rss_high_water_mb() -> float:
@@ -87,6 +157,11 @@ class Tracer:
     # inside the per-graph driver's plan stage (plan_s contains them).
     CANONICAL_STAGES = ("coarsen", "coalesce", "rebin", "upload",
                         "iterate")
+    # Stages timed and ranged but kept out of times, calls, the
+    # recorder's spans, breakdown() and report(), as is any other stage
+    # opened inside an iterate (module note).
+    FINE_STAGES = frozenset(("start", "sweep", "host_read", "renumber",
+                             "finish"))
 
     def __init__(self, enabled: bool = True, recorder=None):
         # A recorder implies recording: its spans report stage times.
@@ -95,7 +170,10 @@ class Tracer:
         self.emitter = recorder.emitter if recorder is not None else None
         self.times: dict[str, float] = {}
         self.calls: dict[str, int] = {}
+        self.fine_times: dict[str, float] = {}
+        self.fine_calls: dict[str, int] = {}
         self.counters: dict[str, float] = {}
+        self._iterating: set = set()   # threads inside an iterate stage
 
     @contextlib.contextmanager
     def stage(self, name: str, into: dict | None = None):
@@ -106,20 +184,35 @@ class Tracer:
         if not self.enabled and into is None:
             yield
             return
-        em = self.emitter
+        fine = outer = False
+        if self.enabled:
+            me = threading.get_ident()
+            inside = me in self._iterating
+            fine = name in self.FINE_STAGES or (inside and name != "iterate")
+            outer = name == "iterate" and not inside
+            if outer:
+                self._iterating.add(me)
+        em = None if fine else self.emitter
         sid = em.begin(name) if em is not None else None
+        rng = _profiler_range(name) if self.enabled else None
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if rng is not None:
+                rng.__exit__(None, None, None)
             if em is not None:
                 em.end(sid, dur_s=dt)
             if into is not None:
                 into[name] = into.get(name, 0.0) + dt
             if self.enabled:
-                self.times[name] = self.times.get(name, 0.0) + dt
-                self.calls[name] = self.calls.get(name, 0) + 1
+                times, calls = ((self.fine_times, self.fine_calls) if fine
+                                else (self.times, self.calls))
+                times[name] = times.get(name, 0.0) + dt
+                calls[name] = calls.get(name, 0) + 1
+            if outer:
+                self._iterating.discard(me)
 
     def count(self, name: str, value: float = 1) -> None:
         if self.enabled:
@@ -134,12 +227,17 @@ class Tracer:
 
     def begin_span(self, name: str, **attrs):
         """Open a span whose extent is not a ``with`` block; returns a
-        handle for :meth:`end_span`."""
-        if self.emitter is not None:
-            return self.emitter.begin(name, **attrs)
-        return None
+        handle for :meth:`end_span`.  Its profiler range (module note)
+        ends where :meth:`end_span` is called."""
+        sid = (self.emitter.begin(name, **attrs)
+               if self.emitter is not None else None)
+        rng = _profiler_range(name) if self.enabled else None
+        return sid if rng is None else _RangedSpan(sid, rng)
 
     def end_span(self, handle, **attrs) -> None:
+        if isinstance(handle, _RangedSpan):
+            handle.rng.__exit__(None, None, None)
+            handle = handle.sid
         if self.emitter is not None and handle is not None:
             self.emitter.end(handle, **attrs)
 

@@ -11,9 +11,14 @@ trace.  With a tracer attached, ``louvain_phases`` (bucketed, sort and
 fused on R-MAT 10) and ``louvain_many`` (bucketed and fused on four synth
 2048) give labels bit-identical to their runs without one, and the
 counters and convergence events the reference's tracer records on the
-same inputs.
+same inputs.  The fine stages (``start``, ``sweep``, ``host_read``,
+``renumber``, ``finish`` and the batch's ``coarsen``) nest where the drivers open
+them, count the sweeps and reads the results imply, and become
+``cuvite/`` ranges of a torch profiler's trace only while one records.
 """
 
+import contextlib
+import json
 import logging
 
 import jax
@@ -368,3 +373,189 @@ def test_phase_seconds_exclude_coarsening_as_the_reference(rmat10):
     res = louvain_phases(g, engine="fused", device="cpu")
     assert sum(p.seconds for p in res.phases) == \
         pytest.approx(res.total_seconds, rel=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The fine stages and their profiler ranges.
+
+
+class _NestTracer(Tracer):
+    """A Tracer that also books, for each stage name, the stages it was
+    opened inside (None at the top)."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.open: list = []
+        self.parents: dict = {}
+
+    @contextlib.contextmanager
+    def stage(self, name, into=None):
+        self.parents.setdefault(name, set()).add(
+            self.open[-1] if self.open else None)
+        self.open.append(name)
+        try:
+            with super().stage(name, into):
+                yield
+        finally:
+            self.open.pop()
+
+
+# Where each fine stage opens, by run.
+NESTING = {
+    "auto": {"sweep": {"iterate"},
+             "host_read": {"sweep", "iterate", "rebin", "upload"},
+             "renumber": {None}, "finish": {None}},
+    "fused": {"sweep": {"iterate"},
+              "host_read": {"sweep", "iterate", "upload", "renumber",
+                            "finish"},
+              "renumber": {None}, "start": {None}, "finish": {None}},
+    "batch": {"sweep": {"iterate"},
+              "host_read": {"sweep", "coarsen", "iterate", "upload"},
+              "coarsen": {"iterate"}},
+}
+
+
+def _fine_run(kind, rmat10, synth4, tracer):
+    """(labels and Q of every graph, result) of one run of ``kind``."""
+    if kind == "batch":
+        br = louvain_many(synth4[1], engine="bucketed", device="cpu",
+                          tracer=tracer)
+        return [(r.communities, r.modularity) for r in br.results], br
+    res = louvain_phases(_port(rmat10), engine=kind, device="cpu",
+                         tracer=tracer)
+    return [(res.communities, res.modularity)], res
+
+
+def _fine_counts(kind, res, hub_uploads: int) -> tuple:
+    """(sweeps, host reads) a run of ``kind`` makes, from its result and
+    the count of hub layouts it uploaded."""
+    if kind == "batch":
+        # A read with its advance-mask upload a round of sweeps; a gain
+        # mask upload and two reads a coarsening; four syncs a device
+        # re-binning; the constants, the upload's end, the final gather.
+        rounds = sum(res.sweeps)
+        return rounds, (rounds + 3 * len(res.coalesce)
+                        + 4 * res.phase_engines.count("rebinned") + 3)
+    if kind == "fused":
+        from cuvite_tpu_torch.louvain.driver import FUSED_SHRINK_EDGES
+
+        # One fused call: a read a sweep, a community count a kept phase
+        # and their read, the mask upload and the upload's end, the
+        # renumber, then the final labels, their upload for Q, Q, and the
+        # final gather.
+        assert res.phases and res.phases[0].num_edges < FUSED_SHRINK_EDGES
+        return res.total_iterations, (res.total_iterations
+                                      + len(res.phases) + 8)
+    # A read a sweep; a phase's labels, its degree and mask uploads and
+    # the upload's end; the upload's end and four syncs a device
+    # re-binning; a hub layout's upload.
+    sweeps = sum(c.iterations for c in res.convergence)
+    assert sweeps == res.total_iterations
+    return sweeps, (sweeps + 4 * len(res.convergence)
+                    + 5 * len(res.rebinned_phases) + hub_uploads)
+
+
+def _same(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and x[1] == y[1] for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kind", ["auto", "fused", "batch"])
+def test_fine_stages_nest_count_and_keep_the_labels(kind, rmat10, synth4,
+                                                    tmp_path, monkeypatch):
+    import torch
+
+    from cuvite_tpu_torch.kernels.heavy_bincount import HeavyLayout
+
+    plain, _ = _fine_run(kind, rmat10, synth4, None)
+    hubs = []
+    to = HeavyLayout.to
+    monkeypatch.setattr(HeavyLayout, "to",
+                        lambda lay, dev: hubs.append(dev) or to(lay, dev))
+    tr = _NestTracer()
+    got, res = _fine_run(kind, rmat10, synth4, tr)
+    assert _same(got, plain)
+    for name, where in NESTING[kind].items():
+        assert tr.parents.get(name) == where, (name, tr.parents.get(name))
+    sweeps, reads = _fine_counts(kind, res, len(hubs))
+    assert tr.fine_calls["sweep"] == sweeps
+    assert tr.fine_calls["host_read"] == reads
+    if kind == "auto":
+        assert res.rebinned_phases and tr.fine_calls["renumber"] == \
+            len(res.phases)
+    # The fine stages (the batch's coarsen among them) stay out of times,
+    # calls, the breakdown, the report and the recorder's spans.
+    fine = set(tr.fine_calls)
+    assert fine == set(NESTING[kind]) and not fine & set(tr.calls)
+    assert not {k[:-2] for k in tr.breakdown()} & Tracer.FINE_STAGES
+    assert "host_read" not in tr.report()
+    if kind == "batch":
+        assert tr.breakdown()["coarsen_s"] == 0.0
+        assert "coarsen" not in tr.report()
+    with port_obs.FlightRecorder() as rec:
+        got, _ = _fine_run(kind, rmat10, synth4, Tracer(recorder=rec))
+    assert _same(got, plain)
+    spans = {r["name"] for r in rec.records if r.get("t") == "span_begin"}
+    assert "iterate" in spans and not spans & fine
+    assert port_obs.validate_trace(rec.records) == []
+    # Under a profiler every timed stage is a cuvite/ range of its trace.
+    tr = Tracer()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        got, _ = _fine_run(kind, rmat10, synth4, tr)
+    assert _same(got, plain)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ranges = {e.get("name") for e in json.loads(path.read_text())
+              ["traceEvents"]}
+    assert {"cuvite/" + k for k in [*tr.calls, *tr.fine_calls]} <= ranges
+    if kind == "auto":
+        assert "cuvite/phase" in ranges     # the driver's begin_span
+
+
+def test_no_profiler_builds_no_range(rmat10, synth4, monkeypatch):
+    """Without a recording profiler the tracer never calls
+    record_function, traced or not."""
+    import torch
+
+    made = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: made.append(a))
+    for kind in ("auto", "fused", "batch"):
+        tr = Tracer()
+        _fine_run(kind, rmat10, synth4, tr)
+        assert tr.fine_calls["sweep"] > 0
+    assert made == []
+
+
+def test_a_stage_inside_iterate_is_fine():
+    """A stage opened inside an iterate on the same thread is a fine
+    stage; one opened on another thread meanwhile, and a nested iterate,
+    are not."""
+    import threading
+
+    with port_obs.FlightRecorder() as rec:
+        tr = Tracer(recorder=rec)
+        with tr.stage("iterate"):
+            with tr.stage("coarsen"):
+                pass
+            with tr.stage("iterate"):
+                pass
+            with tr.stage("upload"):
+                pass
+            t = threading.Thread(target=_open_plan, args=(tr,))
+            t.start()
+            t.join()
+        with tr.stage("coarsen"):
+            pass
+    assert tr.calls == {"iterate": 2, "plan": 1, "coarsen": 1}
+    assert tr.fine_calls == {"coarsen": 1, "upload": 1}
+    assert tr.breakdown()["coarsen_s"] == tr.times["coarsen"]
+    spans = [r["name"] for r in rec.records if r.get("t") == "span_begin"]
+    assert sorted(spans) == ["coarsen", "iterate", "iterate", "plan"]
+    assert port_obs.validate_trace(rec.records) == []
+
+
+def _open_plan(tr):
+    with tr.stage("plan"):
+        pass
