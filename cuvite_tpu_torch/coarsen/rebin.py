@@ -16,7 +16,9 @@ class sizes, which fix the tensors' shapes.
 
 Eligibility is the reference's (:func:`rebin_eligible`): a coalesced
 slab's degrees are bounded by nv_pad, so a class with nv_pad <=
-``DEFAULT_BUCKETS[-1]`` has no heavy residual, and the class's static
+``DEFAULT_BUCKETS[-1]`` has no heavy residual (a slab that is not
+coalesced, such as phase 0's of a CSR with repeated edges, may have one:
+:class:`HubSlabError`), and the class's static
 geometry (:func:`rebin_geometry`, the reference's compile-stable shapes)
 must stay within ``CUVITE_REBIN_MAX_ELEMS`` elements.  The port builds no
 padded rows, so the geometry serves that budget only.
@@ -27,7 +29,8 @@ padding rows (src == nv_local, w == 0) anywhere after them -- what a host
 CSR slab, ``coalesced_runs`` and the batched coarsening all give.  The
 batched engine calls :func:`device_plan` on its folded batch slab
 (``core/batch.fold_slab``: tenant b's vertex v at b * nv_pad + v), which
-keeps that order.
+keeps that order: for every coarse phase, and for phase 0 at pack time
+(``louvain/batched.py::_phase0_plan``).
 Self-loops are summed in float64 and rounded once, as the host build
 does.
 """
@@ -90,11 +93,19 @@ def rebin_eligible(nv_pad: int, ne_pad: int,
     return elems <= rebin_max_elems()
 
 
+class HubSlabError(ValueError):
+    """:func:`device_plan` met a vertex of degree above the widest bucket:
+    the slab needs the host build's heavy layout.  Only a slab that is not
+    coalesced can hold one in an eligible class (a phase-0 slab of a CSR
+    with repeated edges)."""
+
+
 def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
                 nv_local: int, tracer=None) -> DevicePlan:
     """The ``DevicePlan`` of a slab on the device (module note): ``src``,
-    ``dst`` int32 and ``w`` float32, 1-d, on one device.  Raises if a
-    vertex's degree exceeds the widest bucket (an ineligible slab).
+    ``dst`` int32 and ``w`` float32, 1-d, on one device.  Raises
+    :class:`HubSlabError` if a vertex's degree exceeds the widest bucket
+    (an ineligible slab), before any bucket is built.
     ``tracer``: its blocking reads of the card are ``host_read``
     stages."""
     tracer = tracer if tracer is not None else NullTracer()
@@ -129,7 +140,7 @@ def device_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, *,
     with tracer.stage("host_read"):
         sizes, class_edges = sizes.tolist()
     if sizes[n_cls]:
-        raise ValueError(
+        raise HubSlabError(
             f"device_plan: {sizes[n_cls]} vertices of degree above "
             f"{DEFAULT_BUCKETS[-1]}: the slab is not eligible for device "
             "re-binning (rebin_eligible)")

@@ -23,7 +23,9 @@ What does not carry over, by design:
   and folds them into one device plan over the batch's B * nv_pad
   vertices (``BatchedBucketPlan.fold``); the reference pads every tenant
   to a common [B, rows, width] geometry.  The geometry (``BucketShape``)
-  is still computed, pinned and checked exactly as the reference does.
+  is still computed, pinned and checked as the reference does, from the
+  rows' degrees (``batch_bucket_shape``), also where the batched engine
+  builds phase 0's plan on the device and no host plan exists.
 
 Sub-row packing (``SubRowLayout``, ``pack_subrows``, ``unpack_subrows``):
 2^k graphs of a small class ride one row of an exactly 2^k times larger
@@ -247,15 +249,13 @@ def _plan_shape_req(deg: np.ndarray, widths: tuple) -> tuple:
     return rows, heavy_pad
 
 
-def bucket_shape_for(graphs, widths: tuple | None = None) -> BucketShape:
-    """The common :class:`BucketShape` covering every graph of a job set,
-    from vertex degrees alone (no slab or plan is built)."""
-    widths = DEFAULT_BUCKETS if widths is None else tuple(widths)
+def _shape_of_degrees(degs, widths: tuple) -> BucketShape:
+    """The smallest :class:`BucketShape` covering the plans of every
+    vertex-degree vector in ``degs`` (:func:`_plan_shape_req`)."""
     rows = np.zeros(len(widths), dtype=np.int64)
     heavy_pad = 8
-    for g in graphs:
-        r, h = _plan_shape_req(np.asarray(g.degrees(), dtype=np.int64),
-                               widths)
+    for deg in degs:
+        r, h = _plan_shape_req(deg, widths)
         rows = np.maximum(rows, r)
         heavy_pad = max(heavy_pad, h)
     kept = rows > 0
@@ -266,37 +266,49 @@ def bucket_shape_for(graphs, widths: tuple | None = None) -> BucketShape:
     )
 
 
+def bucket_shape_for(graphs, widths: tuple | None = None) -> BucketShape:
+    """The common :class:`BucketShape` covering every graph of a job set,
+    from vertex degrees alone (no slab or plan is built)."""
+    widths = DEFAULT_BUCKETS if widths is None else tuple(widths)
+    return _shape_of_degrees(
+        (np.asarray(g.degrees(), dtype=np.int64) for g in graphs), widths)
+
+
+def batch_bucket_shape(batch: BatchedSlab,
+                       shape: BucketShape | None = None,
+                       degs: list | None = None) -> BucketShape:
+    """The batch's plan geometry, from its rows' vertex degrees (``degs``,
+    else a bincount of each row's real rows): kept widths, per-width max
+    padded rows, max heavy pad.  ``shape`` pins a geometry, which is
+    returned; a batch needing a width, row count or heavy pad the shape
+    lacks raises."""
+    if degs is None:
+        nv = batch.nv_pad
+        degs = [np.bincount(batch.src[i], minlength=nv + 1)[:nv]
+                for i in range(batch.b_pad)]
+    need = _shape_of_degrees(degs, DEFAULT_BUCKETS)
+    if shape is None:
+        return need
+    if not shape.fits(need):
+        raise ValueError(
+            f"batch needs geometry {need} which does not fit the pinned "
+            f"shape {shape} -- pin a shape covering the whole job set "
+            "(core.batch.bucket_shape_for)")
+    return shape
+
+
 def batch_bucket_plans(batch: BatchedSlab,
                        shape: BucketShape | None = None
                        ) -> BatchedBucketPlan:
     """One host :class:`BucketPlan` per batch row, and the batch's
-    geometry: kept widths, per-width max padded rows, max heavy pad.
+    geometry (:func:`batch_bucket_shape` over the plans' degrees).
     ``shape`` pins a geometry; a batch needing a width, row count or heavy
     pad the shape lacks raises."""
     nv = batch.nv_pad
-    widths = DEFAULT_BUCKETS
     plans = [BucketPlan.build(batch.src[i], batch.dst[i], batch.w[i],
                               nv_local=nv)
              for i in range(batch.b_pad)]
-    req = np.zeros(len(widths), dtype=np.int64)
-    for p in plans:
-        for b in p.buckets:
-            k = widths.index(b.width)
-            req[k] = max(req[k], len(b.verts))
-    heavy_req = max(max((len(p.heavy_src) for p in plans), default=8), 8)
-    kept = req > 0
-    need = BucketShape(
-        widths=tuple(int(w) for w, k in zip(widths, kept) if k),
-        rows=tuple(int(r) for r in req[kept]),
-        heavy_pad=int(heavy_req),
-    )
-    if shape is None:
-        shape = need
-    elif not shape.fits(need):
-        raise ValueError(
-            f"batch_bucket_plans: batch needs geometry {need} which does "
-            f"not fit the pinned shape {shape} -- pin a shape covering "
-            "the whole job set (core.batch.bucket_shape_for)")
+    shape = batch_bucket_shape(batch, shape, degs=[p.deg for p in plans])
     return BatchedBucketPlan(plans=plans, shape=shape, nv_pad=nv)
 
 

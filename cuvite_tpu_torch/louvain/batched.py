@@ -13,13 +13,16 @@ tenant's labels and Q equal its own B=1 run's.
 
 Engines (``engine=``): ``'fused'`` -- every phase sweeps the folded slab
 with the sort formulation (``_phase_body``, the reference's vmapped fused
-phase).  ``'bucketed'`` -- phase 0 sweeps plans built on the host at pack
-time and folded (``_bucketed_phase_body``); after it the batch drops one
-notch to the serving-coarse class when every tenant still clustering fits
-(``_coarse_class``); coarse phases rebuild their plans on the device from
-the coarse slab (``_rebinned_phase_body``, ``coarsen/rebin.py``) where
-``rebin_eligible`` holds and ``CUVITE_DEVICE_REBIN`` is on, else run
-fused.  ``BatchResult.phase_engines`` records each phase's engine.
+phase).  ``'bucketed'`` -- phase 0 sweeps one plan of the folded batch
+(``_bucketed_phase_body``), built at pack time (``_phase0_plan``) on the
+device from the uploaded slab where the coarse phases' rule below holds,
+else on the host and folded, the same tensors either way; after it the
+batch drops one notch to the serving-coarse class when every tenant
+still clustering fits (``_coarse_class``); coarse phases rebuild their
+plans on the device from the coarse slab (``_rebinned_phase_body``,
+``coarsen/rebin.py``) where ``rebin_eligible`` holds and
+``CUVITE_DEVICE_REBIN`` is on, else run fused.
+``BatchResult.phase_engines`` records each phase's engine.
 
 The loop.  Torch has no device while-loop, so each sweep makes one host
 read of the tenants' [B] Q and moved counts (``_phase_loop``).  Each
@@ -63,7 +66,7 @@ is the one device), ``mesh=None`` pins ``device``, and a mesh from
 :func:`make_batch_mesh` may list a device more than once (two blocks on
 ``cuda:0``, or on the CPU).  :func:`prepare_batch` splits the batch into
 equal contiguous row blocks, one a device, each prepared as a batch of
-its own (its slab, its phase-0 plans, its upload stream and event);
+its own (its slab, its phase-0 plan, its upload stream and event);
 :func:`execute_prepared` runs the blocks in lock step, phase by phase,
 as the reference's shard_map does: each sweep is enqueued on every block
 that still has running rows before any block's flags are read, so that
@@ -93,7 +96,8 @@ tenants from packed rows, which the port's f64 sums do not need.
 Uploads.  :func:`prepare_batch` uploads on the caller's stream.  With
 ``side_stream=True`` (the pipelined serving dispatcher's packer,
 ``serve/pipeline.py``) it uploads on the card from pinned host memory on
-a side stream of its own and records an event, which
+a side stream of its own, builds phase 0's plan on that stream, and
+records an event, which
 :func:`execute_prepared` makes its stream wait on: a batch packed on the
 packer thread then overlaps the previous batch's execution (the default
 stream is shared by every thread, and an upload from pageable memory is
@@ -122,6 +126,7 @@ from cuvite_tpu_torch.coarsen.device import (
     device_weighted_degrees,
 )
 from cuvite_tpu_torch.coarsen.rebin import (
+    HubSlabError,
     device_plan,
     device_rebin_enabled,
     rebin_eligible,
@@ -133,6 +138,7 @@ from cuvite_tpu_torch.core.batch import (
     PackedSubRows,
     SubRowLayout,
     batch_bucket_plans,
+    batch_bucket_shape,
     batch_slabs,
     fold_slab,
     pack_subrows,
@@ -421,8 +427,9 @@ class BatchResult:
     b_pad: int
     n_jobs: int
     slab_class: tuple      # (nv_pad, ne_pad)
-    # The engine each batch phase ran: 'bucketed' (phase 0, host plans),
-    # 'rebinned' (device plans) or 'fused' (sort sweeps).
+    # The engine each batch phase ran: 'bucketed' (phase 0, its plan
+    # built at pack time), 'rebinned' (coarse phases, device plans) or
+    # 'fused' (sort sweeps).
     phase_engines: list = dataclasses.field(default_factory=list)
     # The serving-coarse class phases >= 1 ran at, else None.
     coarse_class: tuple | None = None
@@ -505,10 +512,10 @@ def _upload_stream(dev: torch.device):
 def prepare_batch(batch: BatchedSlab, *, mesh="auto", engine: str = "fused",
                   bucket_shape=None, device=None, tracer=None,
                   side_stream: bool = False) -> PreparedBatch:
-    """The pack half of :func:`run_batched`: the phase-0 plans
-    (``engine='bucketed'``, built on the host and folded) and the upload
-    of the slab and the plans (``side_stream`` on the card: pinned
-    memory, a side stream and an event, module note).  On a batch mesh
+    """The pack half of :func:`run_batched`: the slab's upload and phase
+    0's plan (``engine='bucketed'``, :func:`_phase0_plan`); with
+    ``side_stream`` on the card, pinned memory, a side stream and an
+    event (module note).  On a batch mesh
     (``mesh``, module note) every row block is prepared so on its own
     device."""
     if engine not in BATCH_ENGINES:
@@ -543,16 +550,42 @@ def _rows(batch: BatchedSlab, lo: int, hi: int) -> BatchedSlab:
         n_jobs=min(max(batch.n_jobs - lo, 0), hi - lo))
 
 
+def _phase0_plan(batch: BatchedSlab, slab: _Slab, bucket_shape, dev,
+                 tracer) -> DevicePlan:
+    """Phase 0's folded plan of the bucketed engine: built on the device
+    from the uploaded slab (``coarsen/rebin.device_plan``) where the
+    class is ``rebin_eligible`` and ``CUVITE_DEVICE_REBIN`` is on, the
+    rule of the coarse phases; else, or when a tenant has a hub (a
+    vertex above the widest bucket, possible only in a CSR with repeated
+    edges), the host plans folded and uploaded.  A pinned
+    ``bucket_shape`` refuses a batch that does not fit it on both paths.
+    Counts ``batch_plans`` and, for a plan built on the device,
+    ``batch_device_plans``."""
+    tracer.count("batch_plans", 1)
+    if device_rebin_enabled() and rebin_eligible(batch.nv_pad,
+                                                 batch.ne_pad):
+        if bucket_shape is not None:
+            batch_bucket_shape(batch, bucket_shape)
+        try:
+            plan = device_plan(*slab.folded(), nv_local=slab.nv_total,
+                               tracer=tracer)
+        except HubSlabError:
+            pass
+        else:
+            tracer.count("batch_device_plans", 1)
+            return plan
+    host_plan = batch_bucket_plans(batch, shape=bucket_shape).fold()
+    return DevicePlan.upload(host_plan, dev, tracer=tracer)
+
+
 def _prepare_block(batch: BatchedSlab, engine: str, bucket_shape, dev,
                    tracer, side_stream: bool) -> PreparedBatch:
-    """One device's prepared batch (:func:`prepare_batch`)."""
+    """One device's prepared batch (:func:`prepare_batch`): the slab's
+    upload, then phase 0's plan (``engine='bucketed'``,
+    :func:`_phase0_plan`) on the same stream."""
     tracer = tracer if tracer is not None else NullTracer()
     t0 = time.perf_counter()
     nv_pad = batch.nv_pad
-    host_plan = None
-    if engine == "bucketed":
-        with tracer.stage("plan"):
-            host_plan = batch_bucket_plans(batch, shape=bucket_shape).fold()
     side = side_stream and dev.type == "cuda"
     stream = _upload_stream(dev) if side else None
 
@@ -563,16 +596,17 @@ def _prepare_block(batch: BatchedSlab, engine: str, bucket_shape, dev,
         return to_device(a, device=dev)
 
     b = batch.b_pad
-    ready = None
-    with tracer.stage("upload"), (torch.cuda.stream(stream) if side
-                                  else contextlib.nullcontext()):
-        plan = (None if host_plan is None
-                else DevicePlan.upload(host_plan, dev, tracer=tracer))
-        slab = _Slab(
-            src=put(batch.src), dst=put(batch.dst), w=put(batch.w),
-            real_mask=put(batch.real_mask),
-            comm_all=torch.arange(nv_pad, dtype=torch.int32,
-                                  device=dev).repeat(b).view(b, nv_pad))
+    ready = plan = None
+    with (torch.cuda.stream(stream) if side else contextlib.nullcontext()):
+        with tracer.stage("upload"):
+            slab = _Slab(
+                src=put(batch.src), dst=put(batch.dst), w=put(batch.w),
+                real_mask=put(batch.real_mask),
+                comm_all=torch.arange(nv_pad, dtype=torch.int32,
+                                      device=dev).repeat(b).view(b, nv_pad))
+        if engine == "bucketed":
+            with tracer.stage("plan"):
+                plan = _phase0_plan(batch, slab, bucket_shape, dev, tracer)
         if side:
             ready = torch.cuda.Event()
             ready.record(stream)

@@ -779,13 +779,13 @@ def louvain_many(
     Returns a ``louvain.batched.BatchResult`` whose ``results`` hold one
     :class:`LouvainResult` per input graph, in order, each equal to this
     entry's run of that graph alone (B=1, same engine).  ``engine``:
-    ``'fused'`` (sort sweeps every phase) or ``'bucketed'`` (phase 0 on
-    host-built plans, coarse phases re-binned on the device where
-    eligible); ``bucket_shape`` pins the phase-0 plan geometry
-    (``core.batch.bucket_shape_for``) and refuses a batch that does not
-    fit it.  ``device=None`` runs on the card and raises when there is
-    none.  Mixed slab classes raise: binning is the serving layer's job.
-    ``tracer``: the batched engine's stages, ``traversed_edges`` and
+    ``'fused'`` (sort sweeps every phase) or ``'bucketed'`` (bucket plans
+    built on the device where eligible; else phase 0's on the host and
+    the coarse phases fused); ``bucket_shape`` pins the phase-0 plan
+    geometry (``core.batch.bucket_shape_for``) and refuses a batch that
+    does not fit it.  ``device=None`` runs on the card and raises when
+    there is none.  Mixed slab classes raise: binning is the serving
+    layer's job.  ``tracer``: the batched engine's stages, counters and
     memory ledger.
     """
     from cuvite_tpu_torch.louvain.batched import cluster_many

@@ -42,8 +42,10 @@ from cuvite_tpu_torch.ops.segment import (
     coalesced_runs,
     coalesced_runs_batched,
 )
+from cuvite_tpu_torch.utils.trace import Tracer
 
 from test_torch_cuda import one_torch_thread  # noqa: F401
+from test_torch_rebin import assert_plans_equal
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -156,10 +158,24 @@ def test_bucket_shape_matches_jax_pin_and_refusal(jobs):
         (ref.widths, ref.rows, ref.heavy_pad)
     plans = pbatch.batch_bucket_plans(pbatch.batch_slabs(jobs[1]))
     assert plans.shape == shape
+    # The geometry the built plans hold: each width's padded rows, the
+    # heavy pad.
+    built: dict = {}
+    for p in plans.plans:
+        for bk in p.buckets:
+            built[bk.width] = max(built.get(bk.width, 0), len(bk.verts))
+    assert (tuple(sorted(built)), tuple(built[w] for w in sorted(built)),
+            max(max(len(p.heavy_src) for p in plans.plans), 8)) == \
+        (shape.widths, shape.rows, shape.heavy_pad)
     jplans = jbatch.batch_bucket_plans(jbatch.batch_slabs(jobs[0]))
     assert plans.shape.rows == jplans.shape.rows
+    # The class is rebin_eligible: phase 0's plan is built on the device,
+    # and the pin is checked against the rows' degrees.
+    tr = Tracer()
     br = louvain_many(jobs[1][:1], engine="bucketed", bucket_shape=shape,
-                      device="cpu")
+                      device="cpu", tracer=tr)
+    assert tr.counters["batch_device_plans"] == \
+        tr.counters["batch_plans"] == 1
     solo = louvain_many(jobs[1][:1], engine="bucketed", device="cpu")
     assert np.array_equal(br.results[0].communities,
                           solo.results[0].communities)
@@ -167,6 +183,8 @@ def test_bucket_shape_matches_jax_pin_and_refusal(jobs):
     with pytest.raises(ValueError, match="does not fit"):
         louvain_many(jobs[1], engine="bucketed", bucket_shape=tiny,
                      device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        pbatch.batch_bucket_plans(pbatch.batch_slabs(jobs[1]), shape=tiny)
     assert pbatch.union_shapes(tiny, shape).fits(shape)
 
 
@@ -218,6 +236,132 @@ def test_rebin_off_runs_fused_coarse_phases(jobs, jax_runs, monkeypatch):
     assert all(e == "fused" for e in br.phase_engines[1:])
     for m, r in zip(br.results, jax_runs["bucketed"].results):
         _same_run(m, r)
+
+
+# ---------------------------------------------------------------------------
+# Phase 0's plan built on the device at pack time
+
+
+def _isolated_graph(seed: int) -> Graph:
+    """A graph whose vertices 700-1499 and 2900-2999 have no edge."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([np.arange(700), np.arange(1500, 2900)])
+    src, dst = rng.choice(ids, 6000), rng.choice(ids, 6000)
+    keep = src != dst
+    return Graph.from_edges(3000, src[keep], dst[keep])
+
+
+def _hub_graph() -> Graph:
+    """64 vertices, vertex 0 joined to each other one by ~143 repeated
+    CSR entries: 9,009 in all, a degree above the widest bucket in the
+    class (4096, 32768), which a coalesced slab of that class never
+    has."""
+    nv, rep = 64, 143
+    others = np.arange(1, nv)
+    tails = [np.repeat(others, rep)] + [np.full(rep, 0) for _ in others]
+    counts = [len(t) for t in tails]
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    tails = np.concatenate(tails)
+    return Graph.from_arrays(offsets, tails, np.ones(len(tails), np.float32))
+
+
+PHASE0_CASES = ("jobs", "padded", "isolated", "two-blocks")
+
+
+def _phase0_case(case: str, jobs) -> tuple:
+    """(graphs, mesh) of a batch whose class is ``rebin_eligible``."""
+    if case == "padded":
+        return jobs[1][:3], None
+    if case == "isolated":
+        return [_isolated_graph(1), jobs[1][0], _isolated_graph(2)], None
+    if case == "two-blocks":
+        return jobs[1], pbatched.make_batch_mesh(4, devices=["cpu"] * 2)
+    return jobs[1], None
+
+
+@pytest.mark.parametrize("case", PHASE0_CASES)
+def test_phase0_plan_on_device_equals_host_plans(case, jobs):
+    """The bucketed engine's phase-0 plan, built on the device from each
+    block's uploaded slab, equals that block's host plans folded and
+    uploaded, tensor for tensor; every block counts one plan built on
+    the device."""
+    graphs, mesh = _phase0_case(case, jobs)
+    tr = Tracer()
+    pm = pbatched.pack_many(graphs, engine="bucketed", mesh=mesh,
+                            device="cpu", tracer=tr)
+    batch = pbatch.batch_slabs(graphs)
+    assert pbatched.rebin_eligible(batch.nv_pad, batch.ne_pad)
+    blocks = pm.prep.blocks
+    per = batch.b_pad // len(blocks)
+    for k, blk in enumerate(blocks):
+        rows = pbatched._rows(batch, k * per, (k + 1) * per)
+        want = DevicePlan.upload(pbatch.batch_bucket_plans(rows).fold(),
+                                 "cpu")
+        assert_plans_equal(blk.plan, want)
+    assert tr.counters["batch_plans"] == \
+        tr.counters["batch_device_plans"] == len(blocks)
+    if case == "padded":
+        assert batch.b_pad > batch.n_jobs
+    if case == "isolated":
+        assert (np.bincount(batch.src[0], minlength=batch.nv_pad + 1)[
+            700:1500] == 0).all()
+
+
+@pytest.mark.parametrize("case", PHASE0_CASES)
+def test_phase0_plan_on_device_keeps_every_run(case, jobs, monkeypatch):
+    """Every tenant's labels, Q and iterations are the same bits with
+    ``CUVITE_DEVICE_REBIN`` off (host plans, fused coarse phases) and on
+    (device plans), and the counters show which path ran."""
+    graphs, mesh = _phase0_case(case, jobs)
+    runs = {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("CUVITE_DEVICE_REBIN", flag)
+        tr = Tracer()
+        br = louvain_many(graphs, engine="bucketed", mesh=mesh,
+                          device="cpu", tracer=tr)
+        runs[flag] = br, tr.counters
+    (off, c_off), (on, c_on) = runs["0"], runs["1"]
+    assert off.phase_engines[0] == on.phase_engines[0] == "bucketed"
+    assert c_off["batch_plans"] == c_on["batch_plans"] > 0
+    assert c_off.get("batch_device_plans", 0) == 0
+    assert c_on["batch_device_plans"] == c_on["batch_plans"]
+    for a, b in zip(on.results, off.results):
+        assert np.array_equal(a.communities, b.communities)
+        assert a.modularity == b.modularity
+        assert a.total_iterations == b.total_iterations
+        assert [p.iterations for p in a.phases] == \
+            [p.iterations for p in b.phases]
+
+
+@pytest.mark.parametrize("case", ("class-16384", "hub-tenant"))
+def test_ineligible_batches_keep_the_host_plan(case, jobs, monkeypatch):
+    """A class above the widest bucket, and a tenant with a vertex of
+    degree above it in an eligible class, keep the host plans: no plan
+    is counted as built on the device, the plan equals the folded host
+    plans, and the runs equal those under ``CUVITE_DEVICE_REBIN=0``."""
+    if case == "class-16384":
+        graphs, cls = jobs[1][:2], (16384, 65536)
+        assert not pbatched.rebin_eligible(*cls)
+    else:
+        graphs, cls = [_hub_graph(), jobs[1][0]], (4096, 32768)
+        assert pbatched.rebin_eligible(*cls)
+        assert _hub_graph().degrees().max() > pbatch.DEFAULT_BUCKETS[-1]
+    tr = Tracer()
+    pm = pbatched.pack_many(graphs, engine="bucketed", slab_class=cls,
+                            device="cpu", tracer=tr)
+    assert tr.counters["batch_plans"] == 1
+    assert tr.counters.get("batch_device_plans", 0) == 0
+    batch = pbatch.batch_slabs(graphs, slab_class=cls)
+    want = DevicePlan.upload(pbatch.batch_bucket_plans(batch).fold(), "cpu")
+    assert_plans_equal(pm.prep.plan, want)
+    assert (want.heavy is not None) == (case == "hub-tenant")
+    mine = pbatched.execute_many(pm)
+    monkeypatch.setenv("CUVITE_DEVICE_REBIN", "0")
+    ref = louvain_many(graphs, engine="bucketed", slab_class=cls,
+                       device="cpu")
+    for a, b in zip(mine.results, ref.results):
+        assert np.array_equal(a.communities, b.communities)
+        assert a.modularity == b.modularity
 
 
 def test_edgeless_rows_short_circuit(jobs):

@@ -1043,6 +1043,46 @@ def test_louvain_many_on_card_matches_cpu(cuda_device, engine):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("side_stream", [False, True])
+def test_phase0_plan_on_card_equals_host_plans(cuda_device, side_stream):
+    """The bucketed engine's phase-0 plan, built on the card at pack time
+    (on the upload's side stream too), equals the tenants' host plans
+    folded and uploaded, tensor for tensor."""
+    from cuvite_tpu_torch.core.batch import batch_bucket_plans, batch_slabs
+    from cuvite_tpu_torch.io.generate import generate_rmat
+    from cuvite_tpu_torch.louvain.batched import execute_many, pack_many
+    from cuvite_tpu_torch.louvain.bucketed import DevicePlan
+    from cuvite_tpu_torch.utils.trace import Tracer
+    from cuvite_tpu_torch.workloads.synth import many_seed, synthesize_graph
+
+    gs = [generate_rmat(8, edge_factor=8, seed=s) for s in (1, 2)]
+    gs += [synthesize_graph(2048, seed=many_seed(7, 0))]
+    tr = Tracer()
+    pm = pack_many(gs, engine="bucketed", mesh=None, device=cuda_device,
+                   tracer=tr, side_stream=side_stream)
+    assert tr.counters["batch_device_plans"] == tr.counters["batch_plans"]
+    if pm.prep.ready is not None:
+        pm.prep.ready.synchronize()
+    got = pm.prep.plan
+    want = DevicePlan.upload(batch_bucket_plans(batch_slabs(gs)).fold(),
+                             cuda_device)
+    assert got.heavy is None and want.heavy is None
+    assert (got.widths, got.bucket_edges) == (want.widths, want.bucket_edges)
+    assert len(got.buckets) == len(want.buckets)
+    for gb, wb in zip(got.buckets, want.buckets):
+        for x, y in zip(gb, wb):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    for x, y in ((got.self_loop, want.self_loop), (got.perm, want.perm)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    rc = execute_many(pm)
+    ref = pack_many(gs, engine="bucketed", device="cpu")
+    for a, b in zip(rc.results, execute_many(ref).results):
+        assert np.array_equal(a.communities, b.communities)
+        assert a.total_iterations == b.total_iterations
+        assert abs(a.modularity - b.modularity) <= 1e-12
+
+
+@pytest.mark.cuda
 def test_kernel_build_and_load_once_under_threads(cuda_device, monkeypatch):
     """Eight threads reaching an unbuilt, unloaded kernel at once: one
     nvcc and one load, every thread gets the same library."""

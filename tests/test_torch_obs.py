@@ -410,7 +410,7 @@ NESTING = {
                             "finish"},
               "renumber": {None}, "start": {None}, "finish": {None}},
     "batch": {"sweep": {"iterate"},
-              "host_read": {"sweep", "coarsen", "iterate", "upload"},
+              "host_read": {"sweep", "coarsen", "iterate", "plan", None},
               "coarsen": {"iterate"}},
 }
 
@@ -431,11 +431,12 @@ def _fine_counts(kind, res, hub_uploads: int) -> tuple:
     the count of hub layouts it uploaded."""
     if kind == "batch":
         # A read with its advance-mask upload a round of sweeps; a gain
-        # mask upload and two reads a coarsening; four syncs a device
-        # re-binning; the constants, the upload's end, the final gather.
+        # mask upload and two reads a coarsening; four syncs a plan built
+        # on the device, phase 0's at pack time and each re-binning's; the
+        # constants, the upload's end, the final gather.
         rounds = sum(res.sweeps)
         return rounds, (rounds + 3 * len(res.coalesce)
-                        + 4 * res.phase_engines.count("rebinned") + 3)
+                        + 4 * (res.phase_engines.count("rebinned") + 1) + 3)
     if kind == "fused":
         from cuvite_tpu_torch.louvain.driver import FUSED_SHRINK_EDGES
 

@@ -60,6 +60,8 @@ def assert_plans_equal(got: DevicePlan, want: DevicePlan):
     assert (got.heavy is None) == (want.heavy is None)
     for x, y in ((got.self_loop, want.self_loop), (got.perm, want.perm)):
         assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+    assert (got.widths, got.bucket_edges, got.hub_edges) == \
+        (want.widths, want.bucket_edges, want.hub_edges)
 
 
 @pytest.mark.parametrize("nv_pad,ne_pad,kw", CONFIGS, ids=IDS)
